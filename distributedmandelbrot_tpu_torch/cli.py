@@ -1,12 +1,20 @@
-"""Command-line entry point of the port: the ``worker`` subcommand.
+"""Command-line entry points of the port: ``worker`` and ``render``.
 
     python -m distributedmandelbrot_tpu_torch worker --host H --port P
+    python -m distributedmandelbrot_tpu_torch render --out view.png
 
-Same flags as ``dmtpu worker`` of the JAX package, with ``--backend``
-choosing among the port's backends (auto, cuda, torch, numpy) and
-``--device``/``--dtype`` beside it.  ``--ring``, ``--multihost``,
-``--exporter-port``, ``--profile`` and ``--kernel`` come with the slices
-that port what they drive.
+``worker`` takes the flags of ``dmtpu worker`` of the JAX package, with
+``--backend`` choosing among the port's backends (auto, cuda, torch,
+numpy) and ``--device``/``--dtype`` beside it.  ``--ring``,
+``--multihost``, ``--exporter-port``, ``--profile`` and ``--kernel`` come
+with the slices that port what they drive.
+
+``render`` is ``dmtpu render``'s direct route: Mandelbrot, Julia,
+Multibrot and Burning Ship views, integer or smooth, supersampled or
+not, on the CUDA kernels (``--device cuda``, the default) or their plain
+versions (``--device cpu``).  ``--no-kernel`` (``--no-pallas`` there)
+takes the torch loops on the host-linspace grid.  The perturbation
+deep-zoom route is not ported yet: a view that needs it is refused.
 """
 
 from __future__ import annotations
@@ -15,6 +23,8 @@ import argparse
 import json
 import logging
 import sys
+import threading
+from decimal import Decimal
 from typing import Optional, Sequence
 
 import numpy as np
@@ -156,14 +166,421 @@ def cmd_worker(argv: Sequence[str]) -> int:
     return 0
 
 
-COMMANDS = {"worker": cmd_worker}
+# --- render ---------------------------------------------------------------
+
+# Below this span, float64 pixel coordinates alias and the reference
+# renders through perturbation.
+DEEP_SPAN_THRESHOLD = 1e-12
+
+_DEEP_NOT_PORTED = (
+    "the perturbation deep-zoom route (--deep, --bla, spans below {:g}, "
+    "and f32 views too fine for f32 coordinates) is not ported yet "
+    "(ROADMAP queue 1, item 11); render this view with "
+    "distributedmandelbrot_tpu")
+
+# Mean-zero subpixel offsets (in pixel-pitch units): the sample cloud
+# stays centered on the nominal pixel position, so supersampling never
+# shifts the image, only averages across the pixel's footprint.
+_SS_OFFSETS = {2: ((-0.25, -0.25), (0.25, 0.25)),
+               4: ((-0.25, -0.25), (0.25, -0.25),
+                   (-0.25, 0.25), (0.25, 0.25))}
+
+_declines_lock = threading.Lock()
+_declines: dict[str, int] = {}
+
+
+def kernel_declines() -> dict[str, int]:
+    """Kernel declines (``KernelUnsupported``) the render path has
+    routed to the torch loops so far in this process, by wrapper."""
+    with _declines_lock:
+        return dict(_declines)
+
+
+def reset_kernel_declines() -> None:
+    with _declines_lock:
+        _declines.clear()
+
+
+def _kernel_first(kernel: str, /, *args, **kwargs):
+    """Run the named ``ops.cuda_escape`` wrapper: its kernel on a CUDA
+    device, its plain version on the CPU.  Returns None, logged and
+    counted, only when the wrapper declines with ``KernelUnsupported``
+    (the caller then takes the torch loop); anything else raises."""
+    from distributedmandelbrot_tpu_torch.ops import cuda_escape
+    try:
+        return getattr(cuda_escape, kernel)(*args, **kwargs)
+    except cuda_escape.KernelUnsupported as e:
+        logger.info("kernel path declined %s: %s", kernel, e)
+        with _declines_lock:
+            _declines[kernel] = _declines.get(kernel, 0) + 1
+        return None
+
+
+def _span_f32_resolvable(cx: float, cy: float, span: float,
+                         definition: int) -> bool:
+    """One view -> one resolvability verdict: the single copy of the
+    center/span -> TileSpec convention."""
+    from distributedmandelbrot_tpu_torch.core.geometry import (
+        TileSpec, spec_f32_resolvable)
+    return spec_f32_resolvable(TileSpec(cx - span / 2, cy - span / 2,
+                                        span, span, width=definition,
+                                        height=definition))
+
+
+def _view_f32_resolvable(args: argparse.Namespace,
+                         center: tuple[float, float]) -> bool:
+    """Whether the request's finest view resolves in f32."""
+    return _span_f32_resolvable(center[0], center[1],
+                                getattr(args, "span", 4.0),
+                                getattr(args, "definition", 1024))
+
+
+def _resolve_dtype(args: argparse.Namespace,
+                   center: tuple[float, float] | None = None,
+                   can_perturb: bool = False):
+    """The reference's ``--dtype`` default: f64 for ``--smooth`` (the
+    quality path), f32 otherwise; an explicit ``--dtype`` wins.  A view
+    that renders deep (``--deep``, a sub-threshold span) stays f32.  An
+    f32 view too fine for f32 coordinates goes to f64 for ``--smooth``
+    and for the families (which have no perturbation route); Mandelbrot
+    and Julia stay f32, which the reference renders by perturbation."""
+    if args.dtype is not None:
+        return _NP_DTYPES[args.dtype]
+    if getattr(args, "deep", False) or \
+            getattr(args, "span", 1.0) < DEEP_SPAN_THRESHOLD:
+        return np.float32
+    if center is not None and not _view_f32_resolvable(args, center):
+        if getattr(args, "smooth", False) or not can_perturb:
+            return np.float64
+        return np.float32
+    return np.float64 if getattr(args, "smooth", False) else np.float32
+
+
+def _join_negative_values(argv: Sequence[str], flags: Sequence[str]) -> list:
+    """Merge ``--flag -0.8,0.156`` into ``--flag=-0.8,0.156`` so argparse
+    doesn't mistake the negative value for an option."""
+    out, it = [], iter(list(argv))
+    for tok in it:
+        if tok in flags:
+            val = next(it, None)
+            if val is None:
+                out.append(tok)
+            else:
+                out.append(f"{tok}={val}")
+        else:
+            out.append(tok)
+    return out
+
+
+def _auto_deep(span: float, cx: float, cy: float, definition: int,
+               np_dtype) -> bool:
+    """Whether the reference renders a Mandelbrot/Julia view by
+    perturbation: below the f64 threshold, or at f32 with a pixel pitch
+    the direct path cannot resolve."""
+    return span < DEEP_SPAN_THRESHOLD or (
+        np_dtype == np.float32
+        and not _span_f32_resolvable(cx, cy, span, definition))
+
+
+def _resolve_deep(deep: bool | None, span: float, cx: float, cy: float,
+                  definition: int, np_dtype,
+                  family: tuple[int, bool] | None) -> bool:
+    """The one direct-vs-perturbation decision: families have no
+    perturbation route, an explicit ``deep`` wins, None auto-selects."""
+    if family is not None:
+        return False
+    if deep is None:
+        return _auto_deep(span, cx, cy, definition, np_dtype)
+    return bool(deep)
+
+
+def _resolve_family(fractal: str, power: int | None
+                    ) -> tuple[int, bool] | None:
+    """(power, burning) for the extended families, None for the core
+    fractals, with ``--power`` placement validation."""
+    if fractal == "ship":
+        if power is not None:
+            raise SystemExit("--power applies to multibrot only "
+                             "(the burning ship is degree 2)")
+        return (2, True)
+    if fractal == "multibrot":
+        p = 3 if power is None else power
+        if p < 2:
+            raise SystemExit("--power must be >= 2")
+        return (p, False)
+    if power is not None:
+        raise SystemExit("--power applies to --fractal multibrot only")
+    return None
+
+
+def _render_supersampled(c_re: str, c_im: str, span: float, definition: int,
+                         max_iter: int, *, supersample: int,
+                         render_kwargs: dict) -> np.ndarray:
+    """Anti-aliased render: ``supersample`` subpixel samples per output
+    pixel, averaged in color space (each sample colormapped first, so
+    the in-set black blends correctly at the set's boundary).
+
+    Integer f32 direct views compute all samples in one K5 launch
+    (``compute_tiles_packed_cuda``), each plane equal to K1 on its
+    sample; every other route (smooth, ``--no-kernel``, a declined pack)
+    renders the samples one by one — the same output, linear cost."""
+    from distributedmandelbrot_tpu_torch.core.geometry import TileSpec
+    from distributedmandelbrot_tpu_torch.viewer import value_to_rgba
+
+    offsets = _SS_OFFSETS[supersample]
+    pitch = span / (definition - 1)
+
+    kw = render_kwargs
+    if (not kw.get("smooth") and not kw.get("no_kernel")
+            and kw.get("np_dtype") == np.float32):
+        cx, cy = float(c_re), float(c_im)
+        if not _resolve_deep(kw.get("deep"), span, cx, cy, definition,
+                             np.float32, kw.get("family")):
+            power, burning = kw.get("family") or (2, False)
+            jc_pair = kw.get("julia_c")
+            jc = (complex(float(jc_pair[0]), float(jc_pair[1]))
+                  if jc_pair is not None else None)
+            specs = [TileSpec(cx - span / 2 + dx * pitch,
+                              cy - span / 2 + dy * pitch, span, span,
+                              width=definition, height=definition)
+                     for dx, dy in offsets]
+            planes = _kernel_first(
+                "compute_tiles_packed_cuda", specs,
+                [max_iter] * supersample, power=power, burning=burning,
+                julia_cs=[jc] * supersample if jc is not None else None,
+                device=kw["device"])
+            if planes is not None:
+                acc = None
+                for plane in planes.cpu().numpy():
+                    rgba = value_to_rgba(plane, colormap=kw["colormap"])
+                    acc = rgba if acc is None else acc + rgba
+                return acc / supersample
+
+    acc = None
+    for dx, dy in offsets:
+        # Decimal shift keeps the center strings at full precision.
+        sre = str(Decimal(c_re) + Decimal(repr(dx * pitch)))
+        sim = str(Decimal(c_im) + Decimal(repr(dy * pitch)))
+        rgba = _render_view(sre, sim, span, definition, max_iter, **kw)
+        acc = rgba if acc is None else acc + rgba
+    return acc / supersample
+
+
+def _render_view(c_re: str, c_im: str, span: float, definition: int,
+                 max_iter: int, *, smooth: bool, np_dtype, colormap: str,
+                 device, deep: bool | None = None,
+                 julia_c: tuple[str, str] | None = None,
+                 family: tuple[int, bool] | None = None,
+                 no_kernel: bool = False, normalize: bool = False,
+                 supersample: int = 1) -> np.ndarray:
+    """One view -> float RGBA (Mandelbrot, or Julia when ``julia_c`` is
+    set, or a Multibrot/Burning-Ship view when ``family=(power,
+    burning)``), on ``device``.
+
+    f32 views go through the kernels first (K1 integer, K4 smooth); a
+    view a kernel declines, an f64 view, or ``no_kernel`` takes the
+    torch loops on the host-linspace grid (the kernels generate theirs
+    as ``start + index * step`` in f32, up to one ulp away, so the two
+    can differ on chaotic boundary pixels).  A view the reference
+    renders by perturbation raises SystemExit."""
+    from distributedmandelbrot_tpu_torch.core.geometry import TileSpec
+    from distributedmandelbrot_tpu_torch.ops import escape_time, families
+    from distributedmandelbrot_tpu_torch.viewer import (smooth_to_rgba,
+                                                        value_to_rgba)
+
+    if supersample > 1:
+        return _render_supersampled(
+            c_re, c_im, span, definition, max_iter, supersample=supersample,
+            render_kwargs=dict(smooth=smooth, np_dtype=np_dtype,
+                               colormap=colormap, device=device, deep=deep,
+                               julia_c=julia_c, family=family,
+                               no_kernel=no_kernel, normalize=normalize))
+
+    kernel_first = (lambda *a, **k: None) if no_kernel else _kernel_first
+    on_kernel = np_dtype == np.float32
+    cx, cy = float(c_re), float(c_im)
+    spec = TileSpec(cx - span / 2, cy - span / 2, span, span,
+                    width=definition, height=definition)
+
+    if family is not None:
+        power, burning = family
+        if smooth:
+            nu = kernel_first("compute_tile_smooth_cuda", spec, max_iter,
+                              power=power, burning=burning,
+                              device=device) if on_kernel else None
+            nu = (families.compute_tile_smooth_family(
+                spec, max_iter, power=power, burning=burning,
+                dtype=np_dtype, device=device)
+                if nu is None else nu.cpu().numpy())
+            return smooth_to_rgba(nu, max_iter, colormap=colormap,
+                                  normalize=normalize)
+        values = kernel_first("compute_tile_family_cuda", spec, max_iter,
+                              power=power, burning=burning,
+                              device=device) if on_kernel else None
+        if values is None:
+            values = families.compute_tile_family(
+                spec, max_iter, power=power, burning=burning,
+                dtype=np_dtype, device=device)
+        return value_to_rgba(values.reshape(spec.height, spec.width),
+                             colormap=colormap)
+
+    if _resolve_deep(deep, span, cx, cy, definition, np_dtype, family):
+        raise SystemExit(_DEEP_NOT_PORTED.format(DEEP_SPAN_THRESHOLD))
+    jc = (complex(float(julia_c[0]), float(julia_c[1]))
+          if julia_c is not None else None)
+    if smooth:
+        nu = kernel_first("compute_tile_smooth_cuda", spec, max_iter,
+                          julia_c=jc, device=device) if on_kernel else None
+        nu = (escape_time.compute_tile_smooth(spec, max_iter, dtype=np_dtype,
+                                              julia_c=jc, device=device)
+              if nu is None else nu.cpu().numpy())
+        return smooth_to_rgba(nu, max_iter, colormap=colormap,
+                              normalize=normalize)
+    values = None
+    if on_kernel:
+        values = (kernel_first("compute_tile_cuda", spec, max_iter,
+                               device=device) if jc is None else
+                  kernel_first("compute_tile_julia_cuda", spec, jc,
+                               max_iter, device=device))
+    if values is None:
+        values = (escape_time.compute_tile(spec, max_iter, dtype=np_dtype,
+                                           device=device) if jc is None else
+                  escape_time.compute_tile_julia(spec, jc, max_iter,
+                                                 dtype=np_dtype,
+                                                 device=device))
+    return value_to_rgba(values.reshape(spec.height, spec.width),
+                         colormap=colormap)
+
+
+def _save_png(path: str, rgba) -> None:
+    """Write float RGBA as an RGBA8 PNG with the bytes ``plt.imsave``
+    would store (no matplotlib needed)."""
+    from distributedmandelbrot_tpu_torch.serve.render import (encode_png,
+                                                              imsave_bytes)
+    data = encode_png(imsave_bytes(rgba))
+    with open(path, "wb") as fh:
+        fh.write(data)
+    print(f"wrote {path} ({rgba.shape[1]}x{rgba.shape[0]})")
+
+
+def _render_device(name: str):
+    import torch
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("render --device cuda needs a CUDA device and "
+                         "none is available; --device cpu runs the "
+                         "kernels' plain versions")
+    return dev
+
+
+def cmd_render(argv: Sequence[str]) -> int:
+    """Local (farm-less) rendering of any view on the GPU."""
+    from distributedmandelbrot_tpu_torch.serve.render import SEGMENTS
+    parser = argparse.ArgumentParser(
+        prog="python -m distributedmandelbrot_tpu_torch render",
+        description="Render a view locally on the CUDA kernels.")
+    parser.add_argument("--fractal",
+                        choices=["mandelbrot", "julia", "multibrot", "ship"],
+                        default="mandelbrot")
+    parser.add_argument("--power", type=int, default=None,
+                        help="multibrot degree d in z^d + c (>= 2; "
+                             "default 3; multibrot only)")
+    parser.add_argument("--c", default="-0.8,0.156",
+                        help="Julia constant as RE,IM")
+    parser.add_argument("--center", default=None,
+                        help="view center (default: -0.5,0 for mandelbrot, "
+                             "0,0 for julia)")
+    parser.add_argument("--span", type=float, default=3.0,
+                        help="view side length in the complex plane")
+    parser.add_argument("--definition", type=int, default=1024,
+                        help="output pixels per side")
+    parser.add_argument("--max-iter", type=int, default=256)
+    parser.add_argument("--smooth", action="store_true",
+                        help="band-free continuous coloring (defaults to "
+                             "the f64 quality path, the torch loop; "
+                             "--dtype f32 selects the smooth kernel)")
+    parser.add_argument("--deep", action="store_true",
+                        help="perturbation deep zoom: not ported yet "
+                             "(refused)")
+    parser.add_argument("--bla", action="store_true",
+                        help="bilinear approximation for deep renders: "
+                             "not ported yet (refused)")
+    parser.add_argument("--dtype", choices=["f32", "f64"], default=None,
+                        help="arithmetic width; default: f64 for --smooth, "
+                             "f32 otherwise.  f32 runs the kernels")
+    parser.add_argument("--colormap", default="jet",
+                        help=f"one of {sorted(SEGMENTS)}")
+    parser.add_argument("--normalize", action="store_true",
+                        help="stretch the view's own escaped-value range "
+                             "over the full colormap (--smooth only)")
+    parser.add_argument("--supersample", type=int, choices=[2, 4], default=1,
+                        help="anti-aliasing: N subpixel samples per pixel, "
+                             "averaged in color space; integer f32 views "
+                             "compute all samples in one packed kernel "
+                             "launch")
+    parser.add_argument("--no-kernel", action="store_true",
+                        help="take the torch loops on the host-linspace "
+                             "grid instead of the kernels, whose f32 grid "
+                             "(start + i*step) can differ from it at the "
+                             "last ulp; reproduces host-grid renders")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; cpu runs the "
+                             "kernels' plain versions)")
+    parser.add_argument("--out", required=True, help="output PNG path")
+    parser.add_argument("-v", "--verbose", action="store_true",
+                        help="debug logging")
+    parser.add_argument("-q", "--quiet", action="store_true",
+                        help="errors only")
+    args = parser.parse_args(_join_negative_values(argv, ("--c", "--center")))
+    _configure_logging(args)
+
+    if args.colormap not in SEGMENTS:
+        raise SystemExit(f"colormap {args.colormap!r} is not carried by the "
+                         f"port; it carries {sorted(SEGMENTS)}")
+    family = _resolve_family(args.fractal, args.power)
+    if args.normalize and not args.smooth:
+        raise SystemExit("--normalize applies to --smooth renders only "
+                         "(integer output is already quantized upstream)")
+    if family is not None:
+        if args.deep:
+            raise SystemExit(f"--fractal {args.fractal} has no perturbation "
+                             "path (no --deep)")
+        if args.span < DEEP_SPAN_THRESHOLD:
+            raise SystemExit(f"--fractal {args.fractal} has no perturbation "
+                             f"path; spans below {DEEP_SPAN_THRESHOLD} alias "
+                             "float64 pixel coordinates")
+    default_center = "0,0" if args.fractal == "julia" else "-0.5,0.0"
+    c_re, c_im = (s.strip() for s in (args.center
+                                      or default_center).split(","))
+    julia_c = tuple(s.strip() for s in args.c.split(",")) \
+        if args.fractal == "julia" else None
+    np_dtype = _resolve_dtype(args, center=(float(c_re), float(c_im)),
+                              can_perturb=family is None)
+    deep = _resolve_deep(True if args.deep else None, args.span,
+                         float(c_re), float(c_im), args.definition,
+                         np_dtype, family)
+    if deep or args.bla:
+        raise SystemExit(_DEEP_NOT_PORTED.format(DEEP_SPAN_THRESHOLD))
+    rgba = _render_view(c_re, c_im, args.span, args.definition,
+                        args.max_iter, smooth=args.smooth, np_dtype=np_dtype,
+                        colormap=args.colormap,
+                        device=_render_device(args.device), deep=deep,
+                        julia_c=julia_c, family=family,
+                        no_kernel=args.no_kernel, normalize=args.normalize,
+                        supersample=args.supersample)
+    _save_png(args.out, rgba)
+    return 0
+
+
+COMMANDS = {"worker": cmd_worker, "render": cmd_render}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
-        print("usage: python -m distributedmandelbrot_tpu_torch worker "
-              "[options]\nRun the subcommand with -h for its options.")
+        print("usage: python -m distributedmandelbrot_tpu_torch "
+              "{worker,render} [options]\nRun a subcommand with -h for "
+              "its options.")
         return 0 if argv else 2
     cmd = argv[0]
     if cmd not in COMMANDS:

@@ -108,12 +108,18 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.dm_escape_tile.argtypes = [vp, i, i, f, f, f, f, i, i, i, i,
-                                           vp]
+            lib.dm_escape_tile.argtypes = [vp, i, i, vp, i, i, i, i, f, i, i,
+                                           i, vp]
             lib.dm_escape_tile.restype = i
             lib.dm_escape_mega.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i,
                                            i, vp]
             lib.dm_escape_mega.restype = i
+            lib.dm_escape_pack.argtypes = [vp, i, i, i, vp, vp, i, i, i, f,
+                                           i, i, i, vp]
+            lib.dm_escape_pack.restype = i
+            lib.dm_escape_smooth.argtypes = [vp, i, i, vp, i, i, i, f, f, f,
+                                             i, f, i, i, i, vp]
+            lib.dm_escape_smooth.restype = i
             lib.dm_mega_max_tiles.argtypes = []
             lib.dm_mega_max_tiles.restype = i
             lib.dm_error_string.argtypes = [i]

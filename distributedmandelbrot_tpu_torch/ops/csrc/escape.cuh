@@ -1,7 +1,8 @@
-// Per-pixel escape-time arithmetic shared by both kernels of
-// escape_kernels.cu: one copy of the grid, the interior test, the
-// recurrence, the cycle probe, the epilogue and the bf16 scout, so the
-// single-tile and the fused kernel are bit-identical by construction.
+// Per-pixel escape-time arithmetic shared by every kernel of
+// escape_kernels.cu: one copy of the grid, the interior tests, the
+// recurrence of each family, the cycle probe, the epilogue and the bf16
+// scout, so the single-tile, fused, packed and smooth kernels are
+// bit-identical where they compute the same thing, by construction.
 //
 // Every f32 operation is a correctly rounded _rn intrinsic: nothing is
 // contracted into an FMA, which keeps the reference's operation order
@@ -22,6 +23,15 @@ namespace dm {
 constexpr int kCycleStride = 8;
 // Interior-test margin for f32 (escape_time.INTERIOR_MARGIN).
 constexpr float kInteriorMargin = 1e-5f;
+
+// The recurrence families (escape_time.family_step): z^2 + c
+// (Mandelbrot and Julia), the Burning Ship, and z^d + c for d > 2.
+enum Family : int { kQuadratic = 0, kShip = 1, kMultibrot = 2 };
+
+// The proven-interior tests (escape_time.family_interior): none (Julia,
+// the Burning Ship, or the shortcut off), the cardioid and period-2
+// bulb at degree 2, the inscribed disk above.
+enum Interior : int { kNoInterior = 0, kCardioidBulb = 1, kDisk = 2 };
 
 DM_D float fmul(float a, float b) { return __fmul_rn(a, b); }
 DM_D float fadd(float a, float b) { return __fadd_rn(a, b); }
@@ -45,45 +55,107 @@ DM_D bool interior(float cr, float ci) {
   return cardioid || bulb;
 }
 
-// Updates survived (0..dyn) for an orbit from z0 = c, running at most
-// dyn steps and exiting as soon as the pixel retires.  A pixel escaping
-// at step e returns e - 1; one that never escapes (budget spent, or a
-// cycle found by the probe) returns dyn.
-DM_D int survived(float cr, float ci, int dyn, bool cycle_check) {
-  float zr = cr, zi = ci;
-  float zr2 = fmul(zr, zr), zi2 = fmul(zi, zi);
-  float szr = zr, szi = zi;
-  int next_snap = 2;
-  int n = 0;
-  for (int s = 1; s <= dyn; ++s) {
-    const float cross = fmul(fadd(zr, zr), zi);
+// ``mode`` of the Interior enum; ``disk_lim`` is multibrot_interior's
+// f32 limit r^2 - margin, rounded once on the host.
+DM_D bool proven_interior(int mode, float cr, float ci, float disk_lim) {
+  if (mode == kCardioidBulb) return interior(cr, ci);
+  if (mode == kDisk) return fadd(fmul(cr, cr), fmul(ci, ci)) < disk_lim;
+  return false;
+}
+
+// One update of z, with its cached squares zr2 = zr*zr, zi2 = zi*zi,
+// in family_step's operation order.  Degree 2 takes the cached-squares
+// form; the Burning Ship's fold is |cross| there (squares and the
+// doubling are sign-blind, so it equals folding z first, bit for bit).
+template <int F>
+DM_D void update(float& zr, float& zi, float& zr2, float& zi2, float cr,
+                 float ci, int power) {
+  if (F == kMultibrot) {
+    float wr = zr, wi = zi;
+    for (int k = 1; k < power; ++k) {
+      const float nr = fsub(fmul(wr, zr), fmul(wi, zi));
+      const float ni = fadd(fmul(wr, zi), fmul(wi, zr));
+      wr = nr;
+      wi = ni;
+    }
+    zr = fadd(wr, cr);
+    zi = fadd(wi, ci);
+  } else {
+    float cross = fmul(fadd(zr, zr), zi);
+    if (F == kShip) cross = fabsf(cross);
     zi = fadd(cross, ci);
     zr = fadd(fsub(zr2, zi2), cr);
-    zr2 = fmul(zr, zr);
-    zi2 = fmul(zi, zi);
-    if (!(fadd(zr2, zi2) < 4.0f)) return n;
-    if (cycle_check) {
-      // Brent probe: compare every kCycleStride steps with a snapshot
-      // refreshed at doubling gaps (steps 2, 4, 8, ...).  An exact
-      // repeat can never escape, so retiring it as "never escaped" is
-      // output-identical to running out the budget.
-      if ((s % kCycleStride) == 0 && zr == szr && zi == szi) return dyn;
-      if (s == next_snap) {
-        szr = zr;
-        szi = zi;
-        next_snap <<= 1;
-      }
-    }
-    ++n;
   }
-  return n;
+  zr2 = fmul(zr, zr);
+  zi2 = fmul(zi, zi);
+}
+
+// Does the cycle probe's snapshot refresh after step s?  At powers of
+// two from 2 on (escape_time.snapshot_step).
+DM_D bool snapshot_step(int s) { return s >= 2 && (s & (s - 1)) == 0; }
+
+// One orbit of the integer loop: z, its squares, c, the probe's
+// snapshot, and n, the updates survived so far.
+struct Orbit {
+  float zr, zi, zr2, zi2, cr, ci, szr, szi;
+  int n;
+};
+
+DM_D void start(Orbit& o, float zr0, float zi0, float cr, float ci) {
+  o.zr = zr0;
+  o.zi = zi0;
+  o.zr2 = fmul(zr0, zr0);
+  o.zi2 = fmul(zi0, zi0);
+  o.cr = cr;
+  o.ci = ci;
+  o.szr = zr0;
+  o.szi = zi0;
+  o.n = 0;
+}
+
+// Step s (1-based) of a live orbit; returns whether it stays live.  An
+// orbit leaving the radius-2 disk retires with n as it is; an exact
+// repeat of the snapshot (the Brent probe, checked every kCycleStride
+// steps) can never escape and retires with n = dyn, which is
+// output-identical to running out the budget.
+template <int F>
+DM_D bool advance(Orbit& o, int s, int dyn, bool cycle_check, int power) {
+  update<F>(o.zr, o.zi, o.zr2, o.zi2, o.cr, o.ci, power);
+  if (!(fadd(o.zr2, o.zi2) < 4.0f)) return false;
+  if (cycle_check) {
+    if ((s % kCycleStride) == 0 && o.zr == o.szr && o.zi == o.szi) {
+      o.n = dyn;
+      return false;
+    }
+    if (snapshot_step(s)) {
+      o.szr = o.zr;
+      o.szi = o.zi;
+    }
+  }
+  ++o.n;
+  return true;
+}
+
+// Updates survived (0..dyn) for an orbit from z0 with constant c,
+// running at most dyn steps and exiting as soon as the pixel retires.
+// A pixel escaping at step e returns e - 1; one that never escapes
+// (budget spent, or a cycle found by the probe) returns dyn.
+template <int F>
+DM_D int survived(float zr0, float zi0, float cr, float ci, int dyn,
+                  bool cycle_check, int power) {
+  Orbit o;
+  start(o, zr0, zi0, cr, ci);
+  for (int s = 1; s <= dyn; ++s)
+    if (!advance<F>(o, s, dyn, cycle_check, power)) break;
+  return o.n;
 }
 
 // The uint8 epilogue: count = 0 when the budget was spent, else n + 1;
 // byte = (count*256 + mrd - 1) / mrd in int32 (exact ceil-division; the
 // budget guard keeps it in range), optionally clamped at 255, then
-// wrapped explicitly.
+// wrapped explicitly.  Budgets of 1 or less give 0 (no iteration).
 DM_D uint8_t epilogue(int n, int mrd, bool clamp) {
+  if (mrd <= 1) return 0;
   const int dyn = mrd - 1;
   const int count = n >= dyn ? 0 : n + 1;
   int v = (count * 256 + mrd - 1) / mrd;
@@ -91,15 +163,17 @@ DM_D uint8_t epilogue(int n, int mrd, bool clamp) {
   return static_cast<uint8_t>(v & 255);
 }
 
-// One pixel of one tile: grid, interior shortcut, loop, epilogue.
-// Budgets of 1 or less give 0 (no iteration exists).
-DM_D uint8_t escape_pixel(float cr, float ci, int mrd, bool clamp,
-                          bool interior_check, bool cycle_check) {
+// One pixel of one tile: interior shortcut, loop, epilogue.  z starts
+// at the grid point (gr, gi); c is the grid point or the Julia constant.
+template <int F>
+DM_D uint8_t escape_pixel(float gr, float gi, float cr, float ci, int mrd,
+                          bool clamp, int interior_mode, float disk_lim,
+                          bool cycle_check, int power) {
   if (mrd <= 1) return 0;
   const int dyn = mrd - 1;
-  const int n = (interior_check && interior(cr, ci))
+  const int n = proven_interior(interior_mode, cr, ci, disk_lim)
                     ? dyn
-                    : survived(cr, ci, dyn, cycle_check);
+                    : survived<F>(gr, gi, cr, ci, dyn, cycle_check, power);
   return epilogue(n, mrd, clamp);
 }
 

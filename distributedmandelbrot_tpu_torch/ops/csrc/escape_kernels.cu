@@ -1,28 +1,42 @@
 // Escape-time kernels for Hopper (sm_90a), with a plain C interface
-// loaded through ctypes (ops/_build.py, ops/cuda_escape.py).
+// loaded through ctypes (ops/_build.py, ops/cuda_escape.py).  Each
+// replaces a Pallas kernel of the JAX package's ops/pallas_escape.py:
 //
-// escape_tile_kernel replaces the JAX package's Pallas kernel
-// ops/pallas_escape.py::_escape_block_kernel (K1): one tile's uint8
-// escape-time plane.  escape_mega_kernel replaces
-// ops/pallas_escape.py::_escape_mega_kernel (K2): k same-shaped tiles in
-// one launch, each with its own params row and budget, plus the
-// per-tile bf16 scout census.  Both run the same per-pixel function
-// (escape.cuh), so a fused launch equals k single-tile launches bitwise.
+// - escape_tile_kernel (K1, _escape_block_kernel): one tile's uint8
+//   escape-time plane, for every family — Mandelbrot, Julia (z0 = grid,
+//   c = the constant), Multibrot z^d + c, Burning Ship.
+// - escape_mega_kernel (K2, _escape_mega_kernel): k same-shaped
+//   Mandelbrot tiles in one launch, each with its own params row and
+//   budget, plus the per-tile bf16 scout census.
+// - escape_pack_kernel (K5, _escape_pack_kernel): n <= 4 same-shaped
+//   tiles, one thread carrying the n orbits of its pixel (the
+//   supersampled render's samples), out as (n, H, W) uint8.
+// - escape_smooth_kernel (K4, _smooth_block_kernel): one tile's f32
+//   smooth value nu, for every family.
+//
+// All run the per-pixel functions of escape.cuh, so a fused or packed
+// launch equals single-tile launches bitwise.
 //
 // What bounds them on an H100: operations.  A pixel reads nothing and
-// writes one byte; each step is 8 f32 operations (3 multiplies, 5 adds
-// or subtracts, |z|^2 included) plus a compare, so a tile costs 8 x the
-// steps its pixels need, against 1 byte per pixel of stores.  The design
-// answer is one thread per pixel with per-thread early exit: a sky pixel
-// leaves after a few steps, an interior-proven pixel never iterates, and
-// only the orbits that need the budget spend it — the Hopper form of the
-// TPU kernel's block-granular exit.  What it leaves on the table (warp
-// divergence between neighbouring pixels that exit far apart, one orbit
-// per thread with no ILP across pixels, the uncontracted arithmetic that
-// bit-parity asks for) is later work.  None of the TPU workarounds is
-// carried: no scratch state, no 64x128 blocks (any H, W; the ragged
-// edge is masked), no prologue pipelining, no byte-lane packing.
+// writes one byte (four for nu); each step is 8 f32 operations at
+// degree 2 (3 multiplies, 5 adds or subtracts, |z|^2 included; the
+// Burning Ship adds an abs, degree d costs 6d - 1) plus a compare, so a
+// tile costs that times the steps its pixels need, against its output
+// bytes.  The design answer is one thread per pixel with per-thread
+// early exit: a sky pixel leaves after a few steps, an interior-proven
+// pixel never iterates, and only the orbits that need the budget spend
+// it — the Hopper form of the TPU kernels' block-granular exit.  K5
+// adds instruction-level parallelism: its n orbits are independent, so
+// their steps interleave in one thread (the Hopper reading of what
+// packing bought on the TPU), each orbit retiring on its own.  What is
+// left on the table (warp divergence between neighbouring pixels that
+// exit far apart, the uncontracted arithmetic that bit-parity asks for)
+// is later work.  None of the TPU workarounds is carried: no scratch
+// state, no 64x128 blocks (any H, W; the ragged edge is masked), no
+// prologue pipelining, no byte-lane packing.
 
+#include <cfloat>
+#include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -35,25 +49,39 @@ constexpr int kBlockY = 8;
 // Tiles per fused launch: their params ride the kernel's parameter
 // space (no host-to-device copy, so a launch never syncs the host).
 constexpr int kMaxMegaTiles = 128;
+// States per packed launch (pallas_escape.PACK_MAX).
+constexpr int kPackMax = 4;
+// A params row: start_r, start_i, step_r, step_i, julia c_r, c_i.
+constexpr int kRow = 6;
 
 struct MegaParams {
   float row[kMaxMegaTiles][4];  // start_r, start_i, step_r, step_i
   int mrd[kMaxMegaTiles];       // each tile's own budget
 };
 
-__global__ void escape_tile_kernel(uint8_t* __restrict__ out, int height,
-                                   int width, float start_r, float start_i,
-                                   float step_r, float step_i, int mrd,
-                                   int clamp, int interior_check,
-                                   int cycle_check) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.y * blockDim.y + threadIdx.y;
-  if (row >= height || col >= width) return;
-  const float cr = dm::grid(start_r, step_r, col);
-  const float ci = dm::grid(start_i, step_i, row);
-  out[static_cast<size_t>(row) * width + col] =
-      dm::escape_pixel(cr, ci, mrd, clamp, interior_check, cycle_check);
-}
+struct TileParams {
+  float row[kRow];
+  int julia;             // c = (row[4], row[5]) instead of the grid point
+  int interior_mode;     // dm::Interior
+  float disk_lim;        // the kDisk limit
+};
+
+struct PackParams {
+  float row[kPackMax][kRow];
+  int mrd[kPackMax];
+  int julia;
+  int interior_mode;
+  float disk_lim;
+};
+
+// The smooth epilogue's constants, each rounded once on the host.
+struct SmoothParams {
+  TileParams tile;
+  int step_limit;    // steps a still-live pixel runs (segment_steps)
+  float b2;          // bailout^2
+  float two_ln_b;    // 2 ln(bailout)
+  float log2_power;  // log2(power); 0 at degree 2 (no division)
+};
 
 __global__ void escape_mega_kernel(uint8_t* __restrict__ out,
                                    int* __restrict__ census,
@@ -75,8 +103,11 @@ __global__ void escape_mega_kernel(uint8_t* __restrict__ out,
     uint8_t v = 0;
     if (mrd > 1) {
       const int dyn = mrd - 1;
-      v = dm::epilogue(inside ? dyn : dm::survived(cr, ci, dyn, cycle_check),
-                       mrd, clamp);
+      v = dm::epilogue(
+          inside ? dyn
+                 : dm::survived<dm::kQuadratic>(cr, ci, cr, ci, dyn,
+                                                cycle_check, 2),
+          mrd, clamp);
     }
     out[(static_cast<size_t>(t) * height + row) * width + col] = v;
   }
@@ -86,9 +117,165 @@ __global__ void escape_mega_kernel(uint8_t* __restrict__ out,
   if ((threadIdx.x & 31) == 0 && total) atomicAdd(&census[t], (int)total);
 }
 
+template <int F>
+__global__ void escape_tile_kernel(uint8_t* __restrict__ out, int height,
+                                   int width,
+                                   const __grid_constant__ TileParams p,
+                                   int mrd, int clamp, int cycle_check,
+                                   int power) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  const int row = blockIdx.y * blockDim.y + threadIdx.y;
+  if (row >= height || col >= width) return;
+  const float gr = dm::grid(p.row[0], p.row[2], col);
+  const float gi = dm::grid(p.row[1], p.row[3], row);
+  const float cr = p.julia ? p.row[4] : gr;
+  const float ci = p.julia ? p.row[5] : gi;
+  out[static_cast<size_t>(row) * width + col] = dm::escape_pixel<F>(
+      gr, gi, cr, ci, mrd, clamp, p.interior_mode, p.disk_lim, cycle_check,
+      power);
+}
+
+// N orbits per thread, stepped in lockstep (state arrays fully unrolled
+// into registers); each retires on its own and, stepping exactly as K1
+// does, ends with K1's n for its tile.
+template <int N, int F>
+__global__ void escape_pack_kernel(uint8_t* __restrict__ out, int height,
+                                   int width,
+                                   const __grid_constant__ PackParams p,
+                                   int clamp, int cycle_check, int power) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  const int row = blockIdx.y * blockDim.y + threadIdx.y;
+  if (row >= height || col >= width) return;
+  dm::Orbit o[N];
+  int dyn[N];
+  bool live[N];
+  bool any = false;
+#pragma unroll
+  for (int t = 0; t < N; ++t) {
+    const float gr = dm::grid(p.row[t][0], p.row[t][2], col);
+    const float gi = dm::grid(p.row[t][1], p.row[t][3], row);
+    const float cr = p.julia ? p.row[t][4] : gr;
+    const float ci = p.julia ? p.row[t][5] : gi;
+    dyn[t] = p.mrd[t] - 1;
+    dm::start(o[t], gr, gi, cr, ci);
+    const bool inside =
+        dyn[t] > 0 && dm::proven_interior(p.interior_mode, cr, ci,
+                                          p.disk_lim);
+    o[t].n = inside ? dyn[t] : 0;
+    live[t] = dyn[t] > 0 && !inside;
+    any = any || live[t];
+  }
+  for (int s = 1; any; ++s) {
+    any = false;
+#pragma unroll
+    for (int t = 0; t < N; ++t) {
+      if (live[t])
+        live[t] = s <= dyn[t] &&
+                  dm::advance<F>(o[t], s, dyn[t], cycle_check, power);
+      any = any || live[t];
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < N; ++t)
+    out[(static_cast<size_t>(t) * height + row) * width + col] =
+        dm::epilogue(o[t].n, p.mrd[t], clamp);
+}
+
+// One pixel of the smooth loop (escape_time.escape_smooth_loop and
+// smooth_nu): n counts the steps inside radius ``bailout`` (z freezes at
+// the first crossing: that z is the payload), the sticky radius-2 count
+// n2 owns the in-set decision, and a pixel still live after
+// ``step_limit`` steps stops there, as the Pallas kernel's whole
+// segments do.  logf/log2f and the correctly rounded division match
+// PyTorch's log, log2 and tensor division on the card.
+template <int F>
+__global__ void escape_smooth_kernel(float* __restrict__ out, int height,
+                                     int width,
+                                     const __grid_constant__ SmoothParams p,
+                                     int mrd, int cycle_check, int power) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  const int row = blockIdx.y * blockDim.y + threadIdx.y;
+  if (row >= height || col >= width) return;
+  float* px = out + static_cast<size_t>(row) * width + col;
+  if (mrd <= 1) {
+    *px = 0.0f;
+    return;
+  }
+  const int dyn = mrd - 1;
+  const TileParams& tp = p.tile;
+  float zr = dm::grid(tp.row[0], tp.row[2], col);
+  float zi = dm::grid(tp.row[1], tp.row[3], row);
+  const float cr = tp.julia ? tp.row[4] : zr;
+  const float ci = tp.julia ? tp.row[5] : zi;
+  float zr2 = dm::fmul(zr, zr), zi2 = dm::fmul(zi, zi);
+  float szr = zr, szi = zi;
+  const bool inside =
+      dm::proven_interior(tp.interior_mode, cr, ci, tp.disk_lim);
+  int n = 0, n2 = inside ? dyn : 0;
+  bool live = !inside, in2 = !inside;
+  for (int s = 1; live && s <= p.step_limit; ++s) {
+    dm::update<F>(zr, zi, zr2, zi2, cr, ci, power);
+    const float m2 = dm::fadd(zr2, zi2);
+    if (m2 < p.b2)
+      ++n;
+    else
+      live = false;
+    in2 = in2 && m2 < 4.0f;
+    if (cycle_check && in2 && (s % dm::kCycleStride) == 0 && zr == szr &&
+        zi == szi) {
+      in2 = false;
+      live = false;
+      n2 += dyn;
+    }
+    if (in2) ++n2;
+    if (cycle_check && dm::snapshot_step(s)) {
+      szr = zr;
+      szi = zi;
+    }
+  }
+  if (n2 >= dyn) {
+    *px = 0.0f;
+    return;
+  }
+  // nan_to_num (NaN and +inf to the f32 max; a sum of squares is never
+  // -inf), then clip to [b2, max].
+  float mag2 = dm::fadd(zr2, zi2);
+  if (isnan(mag2) || isinf(mag2)) mag2 = FLT_MAX;
+  mag2 = fminf(fmaxf(mag2, p.b2), FLT_MAX);
+  float corr = log2f(__fdiv_rn(logf(mag2), p.two_ln_b));
+  if (power != 2) corr = __fdiv_rn(corr, p.log2_power);
+  *px = dm::fsub(__int2float_rn(n + 2), corr);
+}
+
 dim3 grid_for(int height, int width, int k) {
   return dim3((width + kBlockX - 1) / kBlockX,
               (height + kBlockY - 1) / kBlockY, k);
+}
+
+TileParams tile_params(const float* row, int julia, int interior_mode,
+                       float disk_lim) {
+  TileParams p = {};
+  for (int c = 0; c < kRow; ++c) p.row[c] = row[c];
+  p.julia = julia;
+  p.interior_mode = interior_mode;
+  p.disk_lim = disk_lim;
+  return p;
+}
+
+template <int N>
+void launch_pack(int family, uint8_t* out, int height, int width,
+                 const PackParams& p, int clamp, int cycle_check, int power,
+                 cudaStream_t stream) {
+  const dim3 g = grid_for(height, width, 1), b(kBlockX, kBlockY);
+  if (family == dm::kShip)
+    escape_pack_kernel<N, dm::kShip><<<g, b, 0, stream>>>(
+        out, height, width, p, clamp, cycle_check, power);
+  else if (family == dm::kMultibrot)
+    escape_pack_kernel<N, dm::kMultibrot><<<g, b, 0, stream>>>(
+        out, height, width, p, clamp, cycle_check, power);
+  else
+    escape_pack_kernel<N, dm::kQuadratic><<<g, b, 0, stream>>>(
+        out, height, width, p, clamp, cycle_check, power);
 }
 
 }  // namespace
@@ -102,16 +289,27 @@ const char* dm_error_string(int code) {
 }
 
 // K1: one (height, width) uint8 tile into ``out`` on ``stream``.
-// Returns cudaGetLastError() after the launch (0 = launched).
-int dm_escape_tile(void* out, int height, int width, float start_r,
-                   float start_i, float step_r, float step_i, int mrd,
-                   int clamp, int interior_check, int cycle_check,
+// ``row`` is a HOST pointer to 6 floats (start_r, start_i, step_r,
+// step_i, julia c_r, c_i).  Returns cudaGetLastError() after the launch
+// (0 = launched).
+int dm_escape_tile(void* out, int height, int width, const float* row,
+                   int julia, int mrd, int clamp, int interior_mode,
+                   float disk_lim, int cycle_check, int family, int power,
                    void* stream) {
   if (height <= 0 || width <= 0) return 0;
-  escape_tile_kernel<<<grid_for(height, width, 1), dim3(kBlockX, kBlockY),
-                       0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint8_t*>(out), height, width, start_r, start_i, step_r,
-      step_i, mrd, clamp, interior_check, cycle_check);
+  const TileParams p = tile_params(row, julia, interior_mode, disk_lim);
+  const dim3 g = grid_for(height, width, 1), b(kBlockX, kBlockY);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  if (family == dm::kShip)
+    escape_tile_kernel<dm::kShip><<<g, b, 0, s>>>(o, height, width, p, mrd,
+                                                  clamp, cycle_check, power);
+  else if (family == dm::kMultibrot)
+    escape_tile_kernel<dm::kMultibrot><<<g, b, 0, s>>>(
+        o, height, width, p, mrd, clamp, cycle_check, power);
+  else
+    escape_tile_kernel<dm::kQuadratic><<<g, b, 0, s>>>(
+        o, height, width, p, mrd, clamp, cycle_check, power);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -136,6 +334,62 @@ int dm_escape_mega(void* out, void* census, const void* params,
                        0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint8_t*>(out), static_cast<int*>(census), p, height,
       width, clamp, interior_check, cycle_check, scout_steps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5: n tiles into ``out`` (n, height, width) uint8.  ``rows`` (n x 6
+// f32) and ``mrds`` (n int32) are HOST pointers.
+int dm_escape_pack(void* out, int n, int height, int width,
+                   const float* rows, const int* mrds, int julia, int clamp,
+                   int interior_mode, float disk_lim, int cycle_check,
+                   int family, int power, void* stream) {
+  if (n < 1 || n > kPackMax) return static_cast<int>(cudaErrorInvalidValue);
+  if (height <= 0 || width <= 0) return 0;
+  PackParams p = {};
+  for (int t = 0; t < n; ++t) {
+    for (int c = 0; c < kRow; ++c) p.row[t][c] = rows[t * kRow + c];
+    p.mrd[t] = mrds[t];
+  }
+  p.julia = julia;
+  p.interior_mode = interior_mode;
+  p.disk_lim = disk_lim;
+  uint8_t* o = static_cast<uint8_t*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (n) {
+    case 1: launch_pack<1>(family, o, height, width, p, clamp, cycle_check, power, s); break;
+    case 2: launch_pack<2>(family, o, height, width, p, clamp, cycle_check, power, s); break;
+    case 3: launch_pack<3>(family, o, height, width, p, clamp, cycle_check, power, s); break;
+    default: launch_pack<4>(family, o, height, width, p, clamp, cycle_check, power, s); break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4: one (height, width) f32 plane of nu into ``out``.  ``row`` is a
+// HOST pointer to 6 floats, as for K1.
+int dm_escape_smooth(void* out, int height, int width, const float* row,
+                     int julia, int mrd, int step_limit, float b2,
+                     float two_ln_b, float log2_power, int interior_mode,
+                     float disk_lim, int cycle_check, int family, int power,
+                     void* stream) {
+  if (height <= 0 || width <= 0) return 0;
+  SmoothParams p = {};
+  p.tile = tile_params(row, julia, interior_mode, disk_lim);
+  p.step_limit = step_limit;
+  p.b2 = b2;
+  p.two_ln_b = two_ln_b;
+  p.log2_power = log2_power;
+  const dim3 g = grid_for(height, width, 1), b(kBlockX, kBlockY);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  if (family == dm::kShip)
+    escape_smooth_kernel<dm::kShip><<<g, b, 0, s>>>(o, height, width, p,
+                                                    mrd, cycle_check, power);
+  else if (family == dm::kMultibrot)
+    escape_smooth_kernel<dm::kMultibrot><<<g, b, 0, s>>>(
+        o, height, width, p, mrd, cycle_check, power);
+  else
+    escape_smooth_kernel<dm::kQuadratic><<<g, b, 0, s>>>(
+        o, height, width, p, mrd, cycle_check, power);
   return static_cast<int>(cudaGetLastError());
 }
 

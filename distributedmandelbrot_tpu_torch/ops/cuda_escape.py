@@ -1,14 +1,25 @@
 """Host side of the escape-time kernels: the port of the host half of the
 JAX package's ``ops/pallas_escape.py``.
 
-Two kernels (``ops/csrc/escape_kernels.cu``), each with a wrapper, a
+Four kernels (``ops/csrc/escape_kernels.cu``), each with a wrapper, a
 plain PyTorch version and a launch counter:
 
 - K1, ``escape_tile`` (replaces ``_escape_block_kernel``):
-  :func:`compute_tile_cuda_device`, one tile -> (height, width) uint8.
+  :func:`compute_tile_cuda_device`, one tile -> (height, width) uint8,
+  for Mandelbrot, Julia (``julia_c``), Multibrot (``power``) and the
+  Burning Ship (``burning``); :func:`compute_tile_cuda`,
+  :func:`compute_tile_julia_cuda` and :func:`compute_tile_family_cuda`
+  return it as a flat numpy array.
 - K2, ``escape_mega`` (replaces ``_escape_mega_kernel``):
-  :func:`compute_tiles_mega_cuda`, k same-shaped tiles in one launch ->
-  (k, height, width) uint8 plus the (k, 1) int32 bf16 scout census.
+  :func:`compute_tiles_mega_cuda`, k same-shaped Mandelbrot tiles in one
+  launch -> (k, height, width) uint8 plus the (k, 1) int32 bf16 scout
+  census.
+- K4, ``escape_smooth`` (replaces ``_smooth_block_kernel``):
+  :func:`compute_tile_smooth_cuda`, one tile -> (height, width) f32
+  smooth values, every mode of K1.
+- K5, ``escape_pack`` (replaces ``_escape_pack_kernel``):
+  :func:`compute_tiles_packed_cuda`, n <= 4 same-shaped tiles in one
+  launch -> (n, height, width) uint8, every mode of K1.
 
 A wrapper given CUDA tensors' device launches its kernel (or raises); it
 takes the plain version only for the CPU, the counterpart of the
@@ -41,11 +52,22 @@ SCOUT_MIN_ITER = 256
 # block; see escape_kernels.cu).
 MEGA_MAX_TILES = 128
 
+# Same-shaped tiles per K5 launch (the reference's PACK_MAX).
+PACK_MAX = 4
+
 KERNEL_TILE = "escape_tile"
 KERNEL_MEGA = "escape_mega"
+KERNEL_SMOOTH = "escape_smooth"
+KERNEL_PACK = "escape_pack"
 
 _counts_lock = threading.Lock()
-_launches = {KERNEL_TILE: 0, KERNEL_MEGA: 0}
+_launches = {KERNEL_TILE: 0, KERNEL_MEGA: 0, KERNEL_SMOOTH: 0,
+             KERNEL_PACK: 0}
+
+# The kernels' family and interior-test codes (escape.cuh: dm::Family,
+# dm::Interior).
+_QUADRATIC, _SHIP, _MULTIBROT = 0, 1, 2
+_NO_INTERIOR, _CARDIOID_BULB, _DISK = 0, 1, 2
 
 
 def launch_counts() -> dict[str, int]:
@@ -68,9 +90,19 @@ def _count_launch(name: str) -> None:
 class KernelUnsupported(ValueError):
     """The intentional declines of the kernel path (pitch below f32
     resolution, a budget needing int64 scaling, tiles of different
-    shapes in one fused batch, too many tiles for one launch, the MXU
-    form): the cue for callers to fall back.  A ValueError subclass, but
-    fall-back sites catch THIS type, so a real bug still propagates."""
+    shapes in one fused or packed batch, too many tiles for one launch,
+    the MXU form): the cue for callers to fall back.  A ValueError
+    subclass, but fall-back sites catch THIS type, so a real bug still
+    propagates."""
+
+
+def _check_dispatch_mode(power: int, burning: bool, julia: bool) -> None:
+    """Family and mode validation shared by every wrapper (a plain
+    ValueError: a user error on every path, not a fall-back cue)."""
+    from distributedmandelbrot_tpu_torch.ops.families import _check_family
+    _check_family(power, burning)
+    if julia and (power != 2 or burning):
+        raise ValueError("julia mode supports the degree-2 recurrence only")
 
 
 def _check_f32_resolvable(spec: TileSpec) -> None:
@@ -97,14 +129,43 @@ def _check_mxu(use_mxu: bool) -> None:
             "the MXU iteration form is not ported yet (kernel K8)")
 
 
-def _params_row(spec: TileSpec) -> list:
+def _params_row(spec: TileSpec, julia_c: complex | None = None) -> list:
     """One tile's params row ``(start_r, start_i, step_r, step_i)``,
     computed in f64 on the host (per-axis pitch), with the
-    f32-resolvability guard applied.  Callers cast it to f32 once."""
+    f32-resolvability guard applied; Julia mode appends the constant
+    ``(c_r, c_i)``.  Callers cast it to f32 once."""
     _check_f32_resolvable(spec)
-    return [spec.start_real, spec.start_imag,
-            spec.range_real / (spec.width - 1),
-            spec.range_imag / (spec.height - 1)]
+    row = [spec.start_real, spec.start_imag,
+           spec.range_real / (spec.width - 1),
+           spec.range_imag / (spec.height - 1)]
+    if julia_c is not None:
+        jc = complex(julia_c)
+        row += [jc.real, jc.imag]
+    return row
+
+
+def _mode_args(power: int, burning: bool, julia: bool,
+               interior_check: bool) -> tuple[int, int, float]:
+    """The kernels' ``(family, interior_mode, disk_lim)`` for a mode:
+    escape_time.family_interior's policy (none for Julia or the ship),
+    with the disk limit rounded once to f32."""
+    family = _SHIP if burning else (_MULTIBROT if power > 2 else _QUADRATIC)
+    if not interior_check or julia or burning:
+        return family, _NO_INTERIOR, 0.0
+    if power == 2:
+        return family, _CARDIOID_BULB, 0.0
+    r = escape_time.multibrot_interior_radius(power)
+    lim = np.float32(r * r - escape_time.INTERIOR_MARGIN[torch.float32])
+    return family, _DISK, float(lim)
+
+
+def _row6(row) -> np.ndarray:
+    """A params row as the kernels' 6 f32 (the Julia slots zero when the
+    row has 4)."""
+    out = np.zeros(6, dtype=np.float32)
+    r = np.asarray(row, dtype=np.float32)
+    out[:r.size] = r
+    return out
 
 
 def bucket_cap(max_iter: int) -> int:
@@ -172,25 +233,43 @@ def kernel_grid(row, height: int, width: int, device) -> tuple[torch.Tensor,
             g_imag[:, None].expand(height, width))
 
 
+def _kernel_orbit_inputs(row, height: int, width: int, device):
+    """``(z0 real, z0 imag, c real, c imag, julia)`` of a params row: z0
+    is the kernel grid; c is the grid, or the f32 Julia constant of a
+    6-wide row."""
+    g_real, g_imag = kernel_grid(row, height, width, device)
+    r = np.asarray(row, dtype=np.float32)
+    if r.size != 6:
+        return g_real, g_imag, g_real, g_imag, False
+    return (g_real, g_imag,
+            torch.full((height, width), float(r[4]), dtype=torch.float32,
+                       device=device),
+            torch.full((height, width), float(r[5]), dtype=torch.float32,
+                       device=device), True)
+
+
 def escape_tile_plain(row, mrd: int, height: int, width: int, *,
                       clamp: bool = False, interior_check: bool = True,
-                      cycle_check: bool = False, device="cpu",
+                      cycle_check: bool = False, power: int = 2,
+                      burning: bool = False, device="cpu",
                       return_steps: bool = False):
-    """K1's plain version: one tile from its f32 params row and budget
-    -> (height, width) uint8 on ``device`` (and, with ``return_steps``,
-    the steps each pixel ran)."""
-    g_real, g_imag = kernel_grid(row, height, width, device)
+    """K1's plain version: one tile from its f32 params row (4 wide, or
+    6 with a Julia constant) and budget -> (height, width) uint8 on
+    ``device`` (and, with ``return_steps``, the steps each pixel ran)."""
+    zr0, zi0, c_real, c_imag, julia = _kernel_orbit_inputs(row, height,
+                                                           width, device)
     dyn = int(mrd) - 1
     if dyn <= 0:
         out = torch.zeros((height, width), dtype=torch.uint8, device=device)
         steps = torch.zeros((height, width), dtype=torch.int32,
                             device=device)
         return (out, steps) if return_steps else out
-    interior = (escape_time.mandelbrot_interior(g_real, g_imag)
-                if interior_check else None)
+    interior = (escape_time.family_interior(c_real, c_imag, power, burning)
+                if interior_check and not julia else None)
     n, steps = escape_time.escape_loop(
-        g_real, g_imag, g_real, g_imag, total_steps=dyn, interior=interior,
-        cycle_check=cycle_check, return_steps=True)
+        zr0, zi0, c_real, c_imag, total_steps=dyn, interior=interior,
+        cycle_check=cycle_check, power=power, burning=burning,
+        return_steps=True)
     counts = escape_time.counts_from_survival(n, dyn)
     out = escape_time.scale_counts_to_uint8(counts, max_iter=int(mrd),
                                             clamp=clamp)
@@ -262,6 +341,68 @@ def escape_mega_plain(rows, mrd_rows, *, height: int, width: int,
     return out + (torch.stack(steps), scout_ran) if return_steps else out
 
 
+def escape_pack_plain(rows, mrd_rows, *, height: int, width: int,
+                      clamp: bool = False, interior_check: bool = True,
+                      cycle_check: bool = False, power: int = 2,
+                      burning: bool = False, device="cpu",
+                      return_steps: bool = False):
+    """K5's plain version: K1's plain version per state -> (n, height,
+    width) uint8 on ``device`` (the packed kernel steps each state
+    exactly as K1 does; ``return_steps`` adds the steps, (n, height,
+    width))."""
+    rows = np.asarray(rows, dtype=np.float32)
+    mrds = np.asarray(mrd_rows, dtype=np.int32).reshape(-1)
+    planes = [escape_tile_plain(row, int(mrd), height, width, clamp=clamp,
+                                interior_check=interior_check,
+                                cycle_check=cycle_check, power=power,
+                                burning=burning, device=device,
+                                return_steps=True)
+              for row, mrd in zip(rows, mrds)]
+    out = torch.stack([p for p, _ in planes])
+    if return_steps:
+        return out, torch.stack([st for _, st in planes])
+    return out
+
+
+def smooth_step_limit(max_iter: int, bailout: float) -> int:
+    """Steps a pixel still live at the end of K4 has run: the Pallas
+    kernel runs whole segments of ``u = min(DEFAULT_UNROLL,
+    bucket_cap(max_iter) - 1)`` steps while within ``max_iter - 1 +
+    extra`` (escape_time.segment_steps)."""
+    u = max(1, min(DEFAULT_UNROLL, max(1, bucket_cap(max_iter) - 1)))
+    return escape_time.segment_steps(
+        max_iter - 1 + escape_time.smooth_extra_steps(bailout), u)
+
+
+def escape_smooth_plain(row, mrd: int, height: int, width: int, *,
+                        bailout: float = 256.0, interior_check: bool = True,
+                        cycle_check: bool = False, power: int = 2,
+                        burning: bool = False, device="cpu",
+                        return_steps: bool = False):
+    """K4's plain version: one tile from its f32 params row and budget
+    -> (height, width) f32 smooth values on ``device`` (and, with
+    ``return_steps``, the steps each pixel ran)."""
+    zr0, zi0, c_real, c_imag, julia = _kernel_orbit_inputs(row, height,
+                                                           width, device)
+    dyn = int(mrd) - 1
+    if dyn <= 0:
+        out = torch.zeros((height, width), dtype=torch.float32,
+                          device=device)
+        steps = torch.zeros((height, width), dtype=torch.int32,
+                            device=device)
+        return (out, steps) if return_steps else out
+    interior = (escape_time.family_interior(c_real, c_imag, power, burning)
+                if interior_check and not julia else None)
+    n, n2, zr, zi, steps = escape_time.escape_smooth_loop(
+        zr0, zi0, c_real, c_imag, total_steps=dyn,
+        step_limit=smooth_step_limit(int(mrd), bailout), bailout=bailout,
+        interior=interior, cycle_check=cycle_check, power=power,
+        burning=burning, return_steps=True)
+    nu = escape_time.smooth_nu(n, n2, zr, zi, total_steps=dyn,
+                               bailout=bailout, power=power)
+    return (nu, steps) if return_steps else nu
+
+
 # --- wrappers ------------------------------------------------------------
 
 
@@ -282,33 +423,77 @@ def compute_tile_cuda_device(spec: TileSpec, max_iter: int, *,
                              clamp: bool = False,
                              interior_check: bool = True,
                              cycle_check: bool | None = None,
-                             use_mxu: bool = False,
+                             use_mxu: bool = False, power: int = 2,
+                             burning: bool = False,
+                             julia_c: complex | None = None,
                              device="cuda") -> torch.Tensor:
     """K1: one tile -> (height, width) uint8 tensor on ``device``, the
-    launch enqueued on the device's current stream (no sync).  The probe
-    policy follows the tile's requested budget."""
+    launch enqueued on the device's current stream (no sync).  Mandelbrot
+    by default; the Julia set of ``julia_c`` (z from the grid, no
+    interior shortcut), the degree-``power`` Multibrot, or the Burning
+    Ship (``burning``).  The probe policy follows the tile's requested
+    budget."""
+    julia = julia_c is not None
+    _check_dispatch_mode(power, burning, julia)
     _check_mxu(use_mxu)
     _guard_budget(max_iter)
-    row = np.asarray(_params_row(spec), dtype=np.float32)
+    row = np.asarray(_params_row(spec, julia_c), dtype=np.float32)
     cycle = escape_time.resolve_cycle_check(cycle_check, max_iter)
     dev = _cuda_device(device)
     if dev.type != "cuda":
         return escape_tile_plain(row, max_iter, spec.height, spec.width,
                                  clamp=clamp, interior_check=interior_check,
-                                 cycle_check=cycle, device=dev)
+                                 cycle_check=cycle, power=power,
+                                 burning=burning, device=dev)
     from distributedmandelbrot_tpu_torch.ops import _build
     lib = _build.load()
+    family, interior_mode, disk_lim = _mode_args(power, burning, julia,
+                                                 interior_check)
+    row6 = _row6(row)
     with torch.cuda.device(dev):
         out = torch.empty((spec.height, spec.width), dtype=torch.uint8,
                           device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.dm_escape_tile(
             ctypes.c_void_p(out.data_ptr()), spec.height, spec.width,
-            *(float(v) for v in row), int(max_iter), int(clamp),
-            int(interior_check), int(cycle), ctypes.c_void_p(stream))
+            ctypes.c_void_p(row6.ctypes.data), int(julia), int(max_iter),
+            int(clamp), interior_mode, disk_lim, int(cycle), family,
+            int(power), ctypes.c_void_p(stream))
     _check_rc(lib, rc, KERNEL_TILE)
     _count_launch(KERNEL_TILE)
     return out
+
+
+def compute_tile_cuda(spec: TileSpec, max_iter: int, *, clamp: bool = False,
+                      interior_check: bool = True,
+                      cycle_check: bool | None = None,
+                      device="cuda") -> np.ndarray:
+    """K1, Mandelbrot: one tile -> flat uint8 numpy array, real-fastest."""
+    return compute_tile_cuda_device(
+        spec, max_iter, clamp=clamp, interior_check=interior_check,
+        cycle_check=cycle_check, device=device).cpu().numpy().reshape(-1)
+
+
+def compute_tile_julia_cuda(spec: TileSpec, c: complex, max_iter: int, *,
+                            clamp: bool = False,
+                            cycle_check: bool | None = None,
+                            device="cuda") -> np.ndarray:
+    """K1, Julia set of ``c``: one tile -> flat uint8 numpy array."""
+    return compute_tile_cuda_device(
+        spec, max_iter, clamp=clamp, cycle_check=cycle_check, julia_c=c,
+        device=device).cpu().numpy().reshape(-1)
+
+
+def compute_tile_family_cuda(spec: TileSpec, max_iter: int, *,
+                             power: int = 2, burning: bool = False,
+                             clamp: bool = False,
+                             cycle_check: bool | None = None,
+                             device="cuda") -> np.ndarray:
+    """K1, Multibrot / Burning Ship: one tile -> flat uint8 numpy
+    array."""
+    return compute_tile_cuda_device(
+        spec, max_iter, clamp=clamp, cycle_check=cycle_check, power=power,
+        burning=burning, device=device).cpu().numpy().reshape(-1)
 
 
 def compute_tiles_mega_cuda(specs, max_iters, *, clamp: bool = False,
@@ -354,3 +539,108 @@ def compute_tiles_mega_cuda(specs, max_iters, *, clamp: bool = False,
     _check_rc(lib, rc, KERNEL_MEGA)
     _count_launch(KERNEL_MEGA)
     return tiles, census
+
+
+def compute_tile_smooth_cuda(spec: TileSpec, max_iter: int, *,
+                             bailout: float = 256.0,
+                             interior_check: bool = True,
+                             cycle_check: bool | None = None,
+                             julia_c: complex | None = None, power: int = 2,
+                             burning: bool = False,
+                             device="cuda") -> torch.Tensor:
+    """K4: one tile -> (height, width) f32 smooth values on ``device``
+    (0 = in the set), every mode of K1; the launch is enqueued on the
+    device's current stream (no sync)."""
+    julia = julia_c is not None
+    _check_dispatch_mode(power, burning, julia)
+    _guard_budget(max_iter)
+    if bailout < 2.0:
+        raise ValueError(f"bailout must be >= 2 (the escape radius), got "
+                         f"{bailout}")
+    row = np.asarray(_params_row(spec, julia_c), dtype=np.float32)
+    cycle = escape_time.resolve_cycle_check(cycle_check, max_iter)
+    dev = _cuda_device(device)
+    if dev.type != "cuda":
+        return escape_smooth_plain(row, max_iter, spec.height, spec.width,
+                                   bailout=bailout,
+                                   interior_check=interior_check,
+                                   cycle_check=cycle, power=power,
+                                   burning=burning, device=dev)
+    from distributedmandelbrot_tpu_torch.ops import _build
+    lib = _build.load()
+    family, interior_mode, disk_lim = _mode_args(power, burning, julia,
+                                                 interior_check)
+    row6 = _row6(row)
+    # Each constant rounded once to f32, as the plain version's 0-d
+    # tensors are.
+    b2 = float(np.float32(bailout * bailout))
+    two_ln_b = float(np.float32(2.0 * np.log(bailout)))
+    log2_power = float(np.float32(np.log2(power))) if power != 2 else 0.0
+    with torch.cuda.device(dev):
+        out = torch.empty((spec.height, spec.width), dtype=torch.float32,
+                          device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.dm_escape_smooth(
+            ctypes.c_void_p(out.data_ptr()), spec.height, spec.width,
+            ctypes.c_void_p(row6.ctypes.data), int(julia), int(max_iter),
+            smooth_step_limit(max_iter, bailout), b2, two_ln_b, log2_power,
+            interior_mode, disk_lim, int(cycle), family, int(power),
+            ctypes.c_void_p(stream))
+    _check_rc(lib, rc, KERNEL_SMOOTH)
+    _count_launch(KERNEL_SMOOTH)
+    return out
+
+
+def compute_tiles_packed_cuda(specs, max_iters, *, clamp: bool = False,
+                              interior_check: bool = True,
+                              cycle_check: bool | None = None,
+                              power: int = 2, burning: bool = False,
+                              julia_cs=None, device="cuda") -> torch.Tensor:
+    """K5: up to :data:`PACK_MAX` same-shaped tiles in one launch ->
+    (n, height, width) uint8 on ``device``, each plane equal to K1 on
+    that tile.  One family per pack; ``julia_cs`` gives a Julia constant
+    per tile (all set) or is None.  The probe policy follows the deepest
+    requested budget."""
+    n = len(specs)
+    julia = julia_cs is not None
+    _check_dispatch_mode(power, burning, julia)
+    if not 1 <= n <= PACK_MAX:
+        raise KernelUnsupported(f"pack of {n} tiles unsupported "
+                                f"(1..{PACK_MAX})")
+    if len(max_iters) != n:
+        raise ValueError("specs and max_iters length mismatch")
+    if julia and (len(julia_cs) != n or any(c is None for c in julia_cs)):
+        raise ValueError("julia_cs must give a constant per tile")
+    h, w = specs[0].height, specs[0].width
+    for spec in specs:
+        if (spec.height, spec.width) != (h, w):
+            raise KernelUnsupported("packed tiles must share height/width")
+    cap_req = max(int(m) for m in max_iters)
+    _guard_budget(cap_req)
+    rows = np.asarray([_params_row(spec, julia_cs[t] if julia else None)
+                       for t, spec in enumerate(specs)], dtype=np.float32)
+    mrds = np.asarray([int(m) for m in max_iters], dtype=np.int32)
+    cycle = escape_time.resolve_cycle_check(cycle_check, cap_req)
+    interior = interior_check and not julia
+    dev = _cuda_device(device)
+    if dev.type != "cuda":
+        return escape_pack_plain(rows, mrds, height=h, width=w, clamp=clamp,
+                                 interior_check=interior, cycle_check=cycle,
+                                 power=power, burning=burning, device=dev)
+    from distributedmandelbrot_tpu_torch.ops import _build
+    lib = _build.load()
+    family, interior_mode, disk_lim = _mode_args(power, burning, julia,
+                                                 interior)
+    rows6 = np.ascontiguousarray(np.stack([_row6(r) for r in rows]))
+    with torch.cuda.device(dev):
+        out = torch.empty((n, h, w), dtype=torch.uint8, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.dm_escape_pack(
+            ctypes.c_void_p(out.data_ptr()), n, h, w,
+            ctypes.c_void_p(rows6.ctypes.data),
+            ctypes.c_void_p(mrds.ctypes.data), int(julia), int(clamp),
+            interior_mode, disk_lim, int(cycle), family, int(power),
+            ctypes.c_void_p(stream))
+    _check_rc(lib, rc, KERNEL_PACK)
+    _count_launch(KERNEL_PACK)
+    return out

@@ -108,12 +108,14 @@ def test_interior_mask_follows_the_reference_expressions(dtype):
     got = et.family_interior(torch.from_numpy(cr), torch.from_numpy(ci))
     assert np.array_equal(got.numpy(), want)
     assert 0.2 < want.mean() < 0.6
-    with pytest.raises(ValueError, match="degree-2"):
-        et.family_interior(torch.from_numpy(cr), torch.from_numpy(ci),
-                           power=3)
-    with pytest.raises(ValueError, match="degree-2"):
-        et.family_interior(torch.from_numpy(cr), torch.from_numpy(ci),
-                           burning=True)
+    # Above degree 2 the family's interior is the inscribed disk, and the
+    # Burning Ship has none.
+    disk = et.family_interior(torch.from_numpy(cr), torch.from_numpy(ci),
+                              power=3)
+    assert np.array_equal(disk.numpy(), np.asarray(
+        ref_et.multibrot_interior(cr, ci, 3)))
+    assert et.family_interior(torch.from_numpy(cr), torch.from_numpy(ci),
+                              burning=True) is None
 
 
 def test_constants_and_probe_policy_match_the_reference():

@@ -75,7 +75,8 @@ def test_launch_counts_count_card_launches_only(cuda):
     ce.compute_tile_cuda_device(spec, 100, device=cuda)
     ce.compute_tiles_mega_cuda([spec, spec], [100, 300], device=cuda)
     ce.compute_tile_cuda_device(spec, 100, device="cpu")
-    assert ce.launch_counts() == {ce.KERNEL_TILE: 1, ce.KERNEL_MEGA: 1}
+    assert ce.launch_counts() == {ce.KERNEL_TILE: 1, ce.KERNEL_MEGA: 1,
+                                  ce.KERNEL_SMOOTH: 0, ce.KERNEL_PACK: 0}
 
 
 def test_a_refused_launch_raises(cuda):
@@ -122,3 +123,89 @@ def test_backend_dispatches_and_materializes_across_threads(cuda):
     assert reg.counter_value(obs_names.WORKER_KERNEL_FUSED_LAUNCHES) == 8
     assert reg.counter_value(obs_names.WORKER_KERNEL_BF16_PRUNED) > 0
     assert bk.auto_backend().devices()[0].type == "cuda"
+
+
+# --- the render path's kernels ------------------------------------------
+
+JULIA_C = complex(-0.8, 0.156)
+MODES = {"mandelbrot": {}, "julia": {"julia_c": JULIA_C},
+         "multibrot3": {"power": 3}, "multibrot5": {"power": 5},
+         "ship": {"burning": True}}
+
+
+def _mode_args(kw):
+    return dict(power=kw.get("power", 2), burning=kw.get("burning", False))
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("max_iter", [2, 256, 2000])
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_k1_modes_and_k4_are_bitwise_their_plain_versions(cuda, mode,
+                                                          max_iter):
+    """K1 in every mode and K4 (smooth values compared as bits) against
+    their plain versions on the same device."""
+    kw = MODES[mode]
+    cyc = ce.escape_time.resolve_cycle_check(None, max_iter)
+    specs = _views() + [TileSpec(-0.75, 0.05, 0.3, 0.1, width=200,
+                                 height=77)]
+    for spec in specs:
+        row = ce._params_row(spec, kw.get("julia_c"))
+        got = ce.compute_tile_cuda_device(spec, max_iter, device=cuda, **kw)
+        want = ce.escape_tile_plain(row, max_iter, spec.height, spec.width,
+                                    cycle_check=cyc, device=cuda,
+                                    **_mode_args(kw))
+        assert torch.equal(got, want), (mode, spec)
+        got = ce.compute_tile_smooth_cuda(spec, max_iter, device=cuda, **kw)
+        want = ce.escape_smooth_plain(row, max_iter, spec.height, spec.width,
+                                      cycle_check=cyc, device=cuda,
+                                      **_mode_args(kw))
+        assert got.dtype == torch.float32
+        assert torch.equal(_bits(got), _bits(want)), (mode, spec)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_k5_is_bitwise_its_plain_version_and_k1(cuda, mode, n):
+    kw = dict(MODES[mode])
+    jc = kw.pop("julia_c", None)
+    specs = _views()[:n]
+    mis = [300, 2000, 90, 1100][:n]
+    got = ce.compute_tiles_packed_cuda(
+        specs, mis, julia_cs=[jc] * n if jc is not None else None,
+        device=cuda, **kw)
+    assert got.shape == (n, 128, 128) and got.device == cuda
+    rows = np.asarray([ce._params_row(s, jc) for s in specs], np.float32)
+    cyc = ce.escape_time.resolve_cycle_check(None, max(mis))
+    want = ce.escape_pack_plain(rows, mis, height=128, width=128,
+                                cycle_check=cyc, device=cuda,
+                                **_mode_args(kw))
+    assert torch.equal(got, want)
+    for t, (spec, mi) in enumerate(zip(specs, mis)):
+        one = ce.compute_tile_cuda_device(spec, mi, julia_c=jc,
+                                          cycle_check=cyc, device=cuda, **kw)
+        assert torch.equal(got[t], one), t
+
+
+@pytest.mark.parametrize("flags,kernel", [
+    ([], ce.KERNEL_TILE),
+    (["--fractal", "julia"], ce.KERNEL_TILE),
+    (["--fractal", "ship"], ce.KERNEL_TILE),
+    (["--fractal", "multibrot", "--smooth", "--dtype", "f32"],
+     ce.KERNEL_SMOOTH),
+    (["--supersample", "4"], ce.KERNEL_PACK),
+])
+def test_render_launches_its_kernel_once(cuda, tmp_path, flags, kernel):
+    from distributedmandelbrot_tpu_torch import cli
+    ce.reset_launch_counts()
+    cli.reset_kernel_declines()
+    out = tmp_path / "view.png"
+    assert cli.main(["render", *flags, "--definition", "512", "--out",
+                     str(out), "-q"]) == 0
+    torch.cuda.synchronize()
+    counts = ce.launch_counts()
+    assert counts == {k: int(k == kernel) for k in counts}
+    assert cli.kernel_declines() == {}
+    assert out.read_bytes().startswith(b"\x89PNG")

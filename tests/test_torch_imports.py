@@ -57,8 +57,41 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["forbidden"] == []
     for mod in ("ops.cuda_escape", "ops.escape_time", "ops._build",
+                "ops.families", "serve.render", "viewer.render",
                 "worker.backends", "worker.pipeline", "cli", "__main__"):
         assert f"distributedmandelbrot_tpu_torch.{mod}" in report["modules"]
+
+
+_RENDER = r"""
+import json, sys
+from distributedmandelbrot_tpu_torch import cli
+out = sys.argv[1]
+for flags in ([], ["--fractal", "julia", "--smooth", "--dtype", "f32"],
+              ["--fractal", "ship", "--supersample", "4"],
+              ["--fractal", "multibrot", "--smooth"]):
+    assert cli.main(["render", *flags, "--definition", "64", "--max-iter",
+                     "200", "--device", "cpu", "--out", out, "-q"]) == 0
+loaded = sorted(
+    n for n in sys.modules
+    if n.split(".")[0] in ("jax", "distributedmandelbrot_tpu", "matplotlib",
+                           "PIL"))
+print(json.dumps({"forbidden": loaded}))
+"""
+
+
+def test_render_needs_neither_jax_nor_matplotlib(tmp_path):
+    """A CPU render of every kind, in a fresh interpreter, loads no
+    module of JAX, the JAX package, matplotlib or PIL (the machine with
+    the card has none of the last two)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = tmp_path / "view.png"
+    proc = subprocess.run([sys.executable, "-c", _RENDER, str(out)],
+                          cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["forbidden"] == []
+    assert out.read_bytes().startswith(b"\x89PNG")
 
 
 @pytest.mark.parametrize("rel", CARRIED)
