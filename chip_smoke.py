@@ -36,11 +36,28 @@ JSON line; any failure raises and the script exits non-zero.
    must launch its kernel once and no other, with no decline to the
    torch loop; its PNG must equal, byte for byte, the PNG of the plain
    versions' planes through the same colormap.
-7. kernels: per kernel, its launches on the paths above and its median
+7. mesh_path: the port's ``Worker`` with ``MeshBackend`` drains three
+   grant sets in batches of 4 full chunks: level 4 at budget 5000 (the
+   K3 route), level 10 at 1000 with ``DMTPU_COMPACT=1`` (K6/K7) and
+   level 10 at 256 (the K1 chain); each chunk equals K1 by checksum,
+   sampled chunks equal the plain versions bitwise, and each drain
+   launches its route's kernel and no other, with no demotion.  Then
+   the ring ``[cuda:0, cuda:0]`` (two shards, two streams): MeshBackend,
+   ``CudaBackend.dispatch_many`` and the row-sharded torch loop, each
+   bitwise its one-device result.
+8. multihost: the script re-launches itself as two ``gloo`` ranks on
+   ``cuda:0``; each runs ``batched_escape_pixels_multihost`` on its half
+   of a 4-chunk level-10 batch at budget 5000 (K3 on two chunks), and
+   the gathered result must equal K3 on the whole batch in this
+   process, bitwise.  A rank that fails or outlives its timeout fails
+   the phase.
+9. kernels: per kernel, its launches on the paths above and its median
    time by CUDA events at 4096^2 beside the plain version's and the
    bound (the larger of its f32 operations over the non-FMA f32 rate
-   and its output bytes over the memory rate); K1 per mode, and K5
-   beside four K1 launches on the same windows.
+   and the bytes it must move over the memory rate); K1 per mode, K5
+   beside four K1 launches on the same windows, and the compacted
+   pipeline's wall time beside K3's on one 4-chunk batch with the warp
+   lane-steps each issues over the steps the pixels need.
 
 The second-to-last line is ``nvidia-smi``'s name and power limit, the
 last ``{"ok": true, "device": {...}}``.
@@ -80,7 +97,18 @@ REPLACES = {
     "escape_mega": "distributedmandelbrot_tpu/ops/pallas_escape.py:638",
     "escape_smooth": "distributedmandelbrot_tpu/ops/pallas_escape.py:1211",
     "escape_pack": "distributedmandelbrot_tpu/ops/pallas_escape.py:951",
+    "escape_batch": "distributedmandelbrot_tpu/ops/pallas_escape.py:493",
+    "escape_state": "distributedmandelbrot_tpu/ops/compact_escape.py:95",
+    "escape_resume": "distributedmandelbrot_tpu/ops/compact_escape.py:167",
 }
+# K6 writes c, z (f32) and n, act (int32) per pixel; K7 reads c, z, n,
+# act and the budget and writes z, n, act per lane and round.
+STATE_BYTES_PER_PIXEL = 24
+RESUME_BYTES_PER_LANE = 28 + 16
+# The multi-process phase: two ranks, each on cuda:0, each with its own
+# timeout (seconds).
+RANKS = 2
+RANK_TIMEOUT_S = 300
 JULIA_C = complex(-0.8, 0.156)
 # K1's modes, as wrapper keywords.
 MODES = {"mandelbrot": {}, "julia": {"julia_c": JULIA_C},
@@ -133,7 +161,7 @@ def median_ms(fn, reps: int, warmup: int = 2) -> float:
 def max_abs_err(a, b):
     if a.is_floating_point():
         return float((a - b).abs().max())
-    return int((a.to(torch.int16) - b.to(torch.int16)).abs().max())
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
 def bit_diff(a, b) -> tuple[int, int]:
@@ -143,7 +171,7 @@ def bit_diff(a, b) -> tuple[int, int]:
         d = (a.view(torch.int32).to(torch.int64)
              - b.view(torch.int32).to(torch.int64)).abs()
     else:
-        d = (a.to(torch.int16) - b.to(torch.int16)).abs()
+        d = (a.to(torch.int64) - b.to(torch.int64)).abs()
     return int((d != 0).sum()), int(d.max()) if d.numel() else 0
 
 
@@ -274,7 +302,8 @@ def phase_kernel_vs_plain(ce, TileSpec):
     chunks = [TileSpec.for_chunk(4, i, j) for i, j in ((1, 1), (1, 2),
                                                          (3, 3))]
     err = {"escape_tile": 0, "escape_mega": 0, "escape_smooth": 0.0,
-           "escape_pack": 0}
+           "escape_pack": 0, "escape_batch": 0, "escape_state": 0.0,
+           "escape_resume": 0.0}
     cases = 0
 
     def check(name, got, want, what):
@@ -353,10 +382,92 @@ def phase_kernel_vs_plain(ce, TileSpec):
                 one = plain_tile(ce, spec, mi, kw, dev, cycle_budget=max(mis))
                 check("escape_pack", got[t], one,
                       f"K1's plain version per state ({mode}, {mis})")
+    check_mesh_kernels(ce, TileSpec, views, check)
     torch.cuda.synchronize()
     emit({"phase": "kernel_vs_plain", "ok": True, "cases": cases,
           "bitwise": True, "max_abs_err": err})
     return err
+
+
+def mode_args(kw: dict) -> dict:
+    return dict(power=kw.get("power", 2), burning=kw.get("burning", False))
+
+
+def check_mesh_kernels(ce, TileSpec, views, check) -> int:
+    """The mesh routes' kernels, bitwise: K3 at k = 2 and 4 with mixed
+    budgets in every mode on the 128^2 views and, for Mandelbrot, on
+    4096^2 chunks at budgets 256, 1024 and 5000 (the probe armed), each
+    plane also against K1; K6's six planes and one K7 round (floats
+    compared as bits) against their plain versions; the compacted
+    pipeline against K3 on boundary batches, with and without the
+    overflow path."""
+    from distributedmandelbrot_tpu_torch.ops import compact_escape as cx
+    dev = torch.device("cuda", 0)
+
+    deep = [TileSpec.for_chunk(10, i, j) for i, j in ((3, 5), (3, 4),
+                                                       (2, 4), (2, 5))]
+    shallow = [TileSpec.for_chunk(4, i, j) for i, j in ((1, 1), (1, 2),
+                                                         (3, 3))]
+    sets = [(views[:2], [2000, 256]), (views[1:], [256, 1024, 5000, 300]),
+            (shallow[:2], [5000, 256]),
+            ([shallow[0], deep[0], shallow[2], deep[1]],
+             [256, 1024, 5000, 300])]
+    for mode, kw in MODES.items():
+        jc, fam = kw.get("julia_c"), mode_args(kw)
+        for specs, mis in sets:
+            if mode != "mandelbrot" and specs[0].width > 128:
+                continue
+            h, w = specs[0].height, specs[0].width
+            rows = np.asarray([ce._params_row(sp, jc) for sp in specs],
+                              np.float32)
+            got = ce.compute_tiles_batch_cuda(rows, mis, height=h, width=w,
+                                              device=dev, **fam)
+            cyc = ce.escape_time.resolve_cycle_check(None, max(mis))
+            want = ce.escape_batch_plain(rows, mis, height=h, width=w,
+                                         cycle_check=cyc, device=dev, **fam)
+            check("escape_batch", got, want, f"plain ({mode}, {mis})")
+            for t, (row, mi) in enumerate(zip(rows, mis)):
+                one = ce.compute_tile_row_cuda(row, mi, h, w, cycle_check=cyc,
+                                               device=dev, **fam)
+                check("escape_batch", got[t], one, f"K1 ({mode}, {mis})")
+        # K6, K7 and the pipeline: boundary views at budgets in the
+        # compaction band (and one that fits in phase 1).
+        rows = np.asarray([ce._params_row(sp, jc) for sp in views[:4]],
+                          np.float32)
+        mis = [700, 650, 200, 1000]
+        state = cx.escape_state_cuda(rows, mis, height=128, width=128,
+                                     device=dev, **fam)
+        plain = cx.escape_state_plain(rows, mis, height=128, width=128,
+                                      device=dev, **fam)
+        for got, want in zip(state, plain):
+            check("escape_state", got, want, f"plain ({mode})")
+        lanes = [t.reshape(-1).contiguous() for t in plain]
+        dyn = torch.from_numpy(np.repeat(np.asarray(mis, np.int32) - 1,
+                                         128 * 128)).to(dev)
+        want = cx.escape_resume_plain(257, 256, dyn, *lanes, **fam)
+        got = cx.escape_resume_cuda(257, 256, dyn,
+                                    *(t.clone() for t in lanes), **fam)
+        for g, w_ in zip(got, want):
+            check("escape_resume", g, w_, f"plain ({mode})")
+        k3 = ce.compute_tiles_batch_cuda(rows, mis, height=128, width=128,
+                                         device=dev, **fam)
+        for extra in ({}, {"cap_lanes": 4096}):
+            out = cx.compact_escape_batch(rows, mis, k=4, height=128,
+                                          width=128, max_iter=max(mis),
+                                          device=dev, **fam, **extra)
+            check("escape_resume", out, k3, f"the pipeline vs K3 ({mode}, "
+                 f"{extra or 'no overflow'})")
+    # The pipeline at 4096^2 on the seahorse valley's edge: the capacity
+    # of the policy, and one small enough to overflow.
+    rows = np.asarray([ce._params_row(sp) for sp in deep[:2]], np.float32)
+    k3 = ce.compute_tiles_batch_cuda(rows, [1000, 1000], height=4096,
+                                     width=4096, device=dev)
+    for extra in ({}, {"cap_lanes": 1 << 20}):
+        out = cx.compact_escape_batch(rows, [1000, 1000], k=2, height=4096,
+                                      width=4096, max_iter=1000, device=dev,
+                                      **extra)
+        check("escape_resume", out, k3, f"the 4096^2 pipeline vs K3 "
+             f"({extra or 'no overflow'})")
 
 
 def phase_golden(wk, TileSpec, escape_time, Workload):
@@ -651,6 +762,220 @@ def phase_render_path(ce, cli, srender, TileSpec):
     return launches
 
 
+# The mesh path's drains: (name, workloads, env, the kernel the route
+# launches).  Level 10's 16 chunks span the set's boundary around the
+# seahorse valley ([-1.2, 0.4] x [-0.8, 0.8]).
+LEVEL10 = [(i, j) for j in range(3, 7) for i in range(2, 6)]
+MESH_DRAINS = [
+    ("k3_level4_5000", [(4, 5000, i, j) for j in range(4) for i in range(4)],
+     {}, "escape_batch"),
+    ("compact_level10_1000", [(10, 1000, i, j) for i, j in LEVEL10],
+     {"DMTPU_COMPACT": "1"}, "escape_state"),
+    ("k1_chain_level10_256", [(10, 256, i, j) for i, j in LEVEL10], {},
+     "escape_tile"),
+]
+# The 4-chunk batch of the multihost phase and of the compaction
+# finding: the seahorse valley's edge at level 10.
+EDGE4 = [(3, 5), (3, 4), (2, 4), (2, 5)]
+
+
+def drain_mesh(wk, parallel, workloads):
+    """One drain of ``workloads`` by the port's Worker with MeshBackend
+    (batches of 4, the classic loop) -> (source, backend, worker, wall)."""
+    source = GrantSource(workloads, [w.key for w in workloads[::5]])
+    backend = parallel.MeshBackend()
+    worker = wk.Worker(source, backend, batch_size=4, window=0)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    rounds = worker.run_until_drained()
+    torch.cuda.synchronize()
+    return source, backend, rounds, time.monotonic() - t0
+
+
+def phase_mesh_path(wk, ce, parallel, TileSpec, Workload):
+    """The mesh route end to end, one drain per kernel route, each read
+    from launch counts set to 0 just before it; then the two-shard ring
+    on one card."""
+    from distributedmandelbrot_tpu_torch.parallel import sharding as sh
+    from distributedmandelbrot_tpu_torch.parallel.mesh import (make_mesh,
+                                                               tile_row_mesh)
+    dev = torch.device("cuda", 0)
+    drains, launches = {}, {k: 0 for k in ce.launch_counts()}
+    for name, grants, env, kernel in MESH_DRAINS:
+        workloads = [Workload(*g) for g in grants]
+        os.environ.update(env)
+        try:
+            torch.cuda.synchronize()
+            ce.reset_launch_counts()
+            source, backend, rounds, wall = drain_mesh(wk, parallel,
+                                                       workloads)
+            counts = ce.launch_counts()
+        finally:
+            for key in env:
+                os.environ.pop(key, None)
+        missing = [w.key for w in workloads if w.key not in source.crc]
+        if missing or source.bad_sizes:
+            raise AssertionError(f"{name}: missing {missing[:5]}, bad sizes "
+                                 f"{source.bad_sizes[:5]}")
+        route = {k: v for k, v in counts.items() if v}
+        if kernel not in route or backend.demotions():
+            raise AssertionError(f"{name}: launches {route}, demotions "
+                                 f"{backend.demotions()}")
+        if name.startswith("compact") and set(route) != {"escape_state",
+                                                          "escape_resume"}:
+            raise AssertionError(f"{name}: launches {route}")
+        if not name.startswith("compact") and set(route) != {kernel}:
+            raise AssertionError(f"{name}: launches {route}")
+        for k, v in counts.items():
+            launches[k] += v
+        differ = []
+        for w in workloads:
+            spec = TileSpec.for_chunk(w.level, w.index_real, w.index_imag)
+            one = ce.compute_tile_cuda_device(spec, w.max_iter, device=dev)
+            if zlib.crc32(memoryview(one.cpu().numpy())) != source.crc[w.key]:
+                differ.append(w.key)
+        if differ:
+            raise AssertionError(f"{name}: {len(differ)} chunks differ from "
+                                 f"K1: {differ[:5]}")
+        for w in workloads[::5]:
+            spec = TileSpec.for_chunk(w.level, w.index_real, w.index_imag)
+            plain = ce.escape_tile_plain(
+                ce._params_row(spec), w.max_iter, 4096, 4096,
+                cycle_check=ce.escape_time.resolve_cycle_check(
+                    None, w.max_iter), device=dev)
+            if not np.array_equal(source.samples[w.key],
+                                  plain.cpu().numpy().ravel()):
+                raise AssertionError(f"{name}: sampled chunk {w.key} "
+                                     "differs from the plain version")
+        n = len(workloads)
+        drains[name] = {"chunks": n, "rounds": rounds, "seconds": wall,
+                        "chunks_per_s": n / wall,
+                        "mpix_per_s": n * 4096 * 4096 / wall / 1e6,
+                        "launches": route, "demotions": 0,
+                        "k1_checksum_equal": n,
+                        "sample_bitwise_vs_plain": len(source.samples),
+                        "env": env}
+
+    # The ring [cuda:0, cuda:0]: two shards, each on its own stream.
+    one, two = make_mesh([dev]), make_mesh([dev, dev])
+    edge = [Workload(10, 1000, i, j) for i, j in EDGE4]
+    ring = {}
+    for name, ws, env in (
+            ("mesh_backend_k3", edge + [Workload(4, 5000, 1, 1)], {}),
+            ("mesh_backend_compact", edge, {"DMTPU_COMPACT": "1"})):
+        os.environ.update(env)
+        try:
+            got = parallel.MeshBackend(mesh=two).compute_batch(ws)
+            want = parallel.MeshBackend(mesh=one).compute_batch(ws)
+        finally:
+            for key in env:
+                os.environ.pop(key, None)
+        ring[name] = all(np.array_equal(a, b) for a, b in zip(got, want))
+    cb = wk.CudaBackend(mesh=two)
+    if cb.mesh_width != 2:
+        raise AssertionError(f"ring mesh width {cb.mesh_width}")
+    got = [cb.materialize_tile(h) for h in cb.dispatch_many(edge)]
+    want = [cb.materialize_tile(h) for h in cb.dispatch_many(edge,
+                                                             device=dev)]
+    ring["cuda_backend_dispatch_many"] = all(
+        np.array_equal(a, b) for a, b in zip(got, want))
+    spec = TileSpec.for_chunk(10, 3, 5)
+    ring["row_sharded_loop"] = bool(np.array_equal(
+        sh.compute_tile_row_sharded(tile_row_mesh(1, 2, [dev, dev]), spec,
+                                    1024),
+        sh.compute_tile_row_sharded(tile_row_mesh(1, 1, [dev]), spec, 1024)))
+    if not all(ring.values()):
+        raise AssertionError(f"the two-shard ring differs from one device: "
+                             f"{ring}")
+    emit({"phase": "mesh_path", "ok": True, "drains": drains,
+          "launches": launches, "ring_cuda0_x2_bitwise": ring,
+          "timing": "host clock around run_until_drained(), ended by "
+                    "torch.cuda.synchronize()"})
+    return launches
+
+
+def run_rank(rank: int, port: int, out: str) -> int:
+    """One rank of the multihost phase (``chip_smoke.py --rank R --port P
+    --out DIR``): half of the EDGE4 batch at budget 5000 on cuda:0."""
+    from distributedmandelbrot_tpu_torch.ops import cuda_escape as ce
+    from distributedmandelbrot_tpu_torch.parallel import multihost
+    from distributedmandelbrot_tpu_torch.parallel.backend import batch_params
+    from distributedmandelbrot_tpu_torch.core.workload import Workload
+    multihost.initialize(f"127.0.0.1:{port}", num_processes=RANKS,
+                         process_id=rank)
+    try:
+        mesh = multihost.global_tile_mesh([torch.device("cuda", 0)])
+        params, mrds = batch_params([Workload(10, 5000, i, j)
+                                     for i, j in EDGE4], 4096)
+        k = len(EDGE4) // RANKS
+        ce.reset_launch_counts()
+        got = multihost.batched_escape_pixels_multihost(
+            mesh, params[rank * k:(rank + 1) * k],
+            mrds[rank * k:(rank + 1) * k], definition=4096)
+        torch.cuda.synchronize()
+        np.save(os.path.join(out, f"rank{rank}.npy"), got)
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as fh:
+            json.dump(ce.launch_counts(), fh)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_multihost(ce, TileSpec):
+    """Two gloo ranks on cuda:0, re-launched from this script; the
+    gathered result must equal K3 on the whole batch here, bitwise."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.monotonic()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+             "--port", str(port), "--out", out],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(RANKS)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=RANK_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.monotonic() - t0
+        bad = [(r, p.returncode, log[-2000:])
+               for r, (p, log) in enumerate(zip(procs, logs))
+               if p.returncode != 0]
+        if bad or len(logs) != RANKS:
+            raise AssertionError(f"multihost ranks failed: {bad}")
+        got = np.concatenate([np.load(os.path.join(out, f"rank{r}.npy"))
+                              for r in range(RANKS)])
+        counts = []
+        for r in range(RANKS):
+            with open(os.path.join(out, f"rank{r}.json")) as fh:
+                counts.append(json.load(fh))
+    specs = [TileSpec.for_chunk(10, i, j) for i, j in EDGE4]
+    rows = np.asarray([ce._params_row(sp) for sp in specs], np.float32)
+    want = ce.compute_tiles_batch_cuda(rows, [5000] * len(specs),
+                                       height=4096, width=4096,
+                                       device="cuda").cpu().numpy()
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError("the two-rank result differs from K3 in one "
+                             "process")
+    if any(c.get("escape_batch") != 1 for c in counts):
+        raise AssertionError(f"each rank must launch K3 once: {counts}")
+    launches = {k: sum(c.get(k, 0) for c in counts) for k in counts[0]}
+    emit({"phase": "multihost", "ok": True, "ranks": RANKS,
+          "device": "cuda:0 (both ranks)", "backend": "gloo",
+          "chunks": len(specs), "max_iter": 5000, "seconds": wall,
+          "bitwise_vs_one_process_k3": True, "launches_by_rank": counts,
+          "timing": "host clock from the ranks' start to their exit "
+                    "(interpreter start and process-group setup included)"})
+    return launches
+
+
 def warp_steps(steps) -> int:
     """Steps the warps execute: a warp spans 32 adjacent pixels of a row
     and runs until its slowest lane retires (per-thread early exit
@@ -708,6 +1033,164 @@ def time_k1_modes(ce, TileSpec, dev) -> dict:
                      "f32_warp_steps": warp_steps(steps),
                      "input": f"{mode} render view (span 3) at 4096^2, "
                               f"max_iter {mi}"}
+    return out
+
+
+def compact_warp_steps(steps, phase: int, seg: int, cap: int):
+    """Warp lane-steps of the compacted pipeline for these per-pixel
+    steps: K6 runs every pixel for at most ``phase`` steps in the tile
+    layout; K7's rounds run the live lanes packed in pixel order (warps
+    of 32 consecutive lanes, re-packed after each round), the lanes past
+    ``cap`` in place in the tile layout.  Returns (K6, K7) lane-steps."""
+    s = steps.reshape(-1).to(torch.int64)
+    k6 = warp_steps(s.clamp(max=phase))
+    live = torch.nonzero(s > phase).squeeze(1)
+    packed, over = s[live[:cap]], live[cap:]
+    k7, it0 = 0, phase + 1
+    while packed.numel() or over.numel():
+        end = it0 + seg - 1
+        if packed.numel():
+            run = (packed.clamp(max=end) - it0 + 1).clamp(min=0)
+            run = torch.nn.functional.pad(run, (0, -run.numel() % 32))
+            k7 += int(run.reshape(-1, 32).max(dim=1).values.sum()) * 32
+            packed = packed[packed > end]
+        if over.numel():
+            run = torch.zeros_like(s)
+            run[over] = (s[over].clamp(max=end) - it0 + 1).clamp(min=0)
+            k7 += warp_steps(run)
+            over = over[s[over] > end]
+        it0 += seg
+    return k6, k7
+
+
+def time_mesh_kernels(ce, TileSpec, dev) -> dict:
+    """K3, K6 and K7 on the 4-chunk batch at the seahorse valley's edge
+    (EDGE4): K3 at budget 5000 (its route's class, the probe armed), and
+    at 1000 beside the compacted pipeline (wall time, host clock around
+    the call and a synchronize, which includes its host reads), K6 on
+    the batch and K7's first round on its packed lanes."""
+    from distributedmandelbrot_tpu_torch.ops import compact_escape as cx
+    specs = [TileSpec.for_chunk(10, i, j) for i, j in EDGE4]
+    rows = np.asarray([ce._params_row(sp) for sp in specs], np.float32)
+    k, n_pix = len(specs), len(specs) * 4096 * 4096
+    out = {}
+
+    def k3(mi):
+        return ce.compute_tiles_batch_cuda(rows, [mi] * k, height=4096,
+                                           width=4096, device=dev)
+
+    def k3_plain(mi, **kw):
+        return ce.escape_batch_plain(
+            rows, [mi] * k, height=4096, width=4096, device=dev,
+            cycle_check=ce.escape_time.resolve_cycle_check(None, mi), **kw)
+
+    got = k3(5000)
+    want, steps = k3_plain(5000, return_steps=True)
+    b_ms, b_by, ops = bound(int(steps.sum()), 0, n_pix)
+    out["escape_batch"] = {
+        "ms": median_ms(lambda: k3(5000), reps=20),
+        "plain_ms": median_ms(lambda: k3_plain(5000), reps=1, warmup=0),
+        "bound_ms": b_ms, "bound_by": b_by, "ops": ops,
+        "bitwise_vs_plain": bool(torch.equal(got, want)),
+        "f32_steps": int(steps.sum()), "f32_warp_steps": warp_steps(steps),
+        "input": "k=4: level-10 chunks (3,5), (3,4), (2,4), (2,5) at "
+                 "4096^2, max_iter 5000, probe armed"}
+
+    mi = 1000
+    got = k3(mi)
+    want, steps = k3_plain(mi, return_steps=True)
+    needed = int(steps.sum())
+
+    def wall(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def compact():
+        return cx.compact_escape_batch(rows, [mi] * k, k=k, height=4096,
+                                       width=4096, max_iter=mi, device=dev)
+
+    cap = cx.compact_capacity(n_pix)
+    k6_lanes, k7_lanes = compact_warp_steps(steps, cx.PHASE1_BUDGET,
+                                            cx.RESUME_SEG, cap)
+    k3_lanes = warp_steps(steps)
+    finding = {
+        "input": "k=4: level-10 chunks (3,5), (3,4), (2,4), (2,5) at "
+                 "4096^2, max_iter 1000",
+        "k3_ms": median_ms(lambda: k3(mi), reps=20),
+        "k3_wall_ms": wall(lambda: k3(mi)),
+        "compact_wall_ms": wall(compact),
+        "compact_bitwise_vs_k3": bool(torch.equal(compact(), got)),
+        "f32_steps_needed": needed,
+        "k3_warp_lane_steps": k3_lanes,
+        "compact_warp_lane_steps": {"escape_state": k6_lanes,
+                                    "escape_resume": k7_lanes},
+        "k3_lane_steps_over_needed": k3_lanes / needed,
+        "compact_lane_steps_over_needed": (k6_lanes + k7_lanes) / needed,
+        "capacity": cap,
+        "live_after_phase1": int((steps > cx.PHASE1_BUDGET).sum())}
+
+    state = cx.escape_state_cuda(rows, [mi] * k, height=4096, width=4096,
+                                 device=dev)
+    plain = cx.escape_state_plain(rows, [mi] * k, height=4096, width=4096,
+                                  device=dev)
+    state_bitwise = all(bit_diff(a, b)[0] == 0 for a, b in zip(state, plain))
+    b_ms, b_by, ops = bound(int(steps.clamp(max=cx.PHASE1_BUDGET).sum()), 0,
+                            STATE_BYTES_PER_PIXEL * n_pix)
+    out["escape_state"] = {
+        "ms": median_ms(lambda: cx.escape_state_cuda(
+            rows, [mi] * k, height=4096, width=4096, device=dev), reps=20),
+        "plain_ms": median_ms(lambda: cx.escape_state_plain(
+            rows, [mi] * k, height=4096, width=4096, device=dev), reps=1),
+        "bound_ms": b_ms, "bound_by": b_by, "ops": ops,
+        "bitwise_vs_plain": state_bitwise,
+        "f32_warp_steps": k6_lanes,
+        "input": finding["input"] + ", phase 1 (256 steps)"}
+
+    # K7's first round on the packed live lanes, each timed launch on a
+    # fresh copy (the kernel updates its lanes in place).
+    cr, ci, zr, zi, n, act = (t.reshape(-1) for t in plain)
+    live = act != 0
+    pos, n_live = cx._positions(live)
+    take = cx._pack(live, pos, min(n_live, cap))
+    dyn = torch.full((take.numel(),), mi - 1, dtype=torch.int32, device=dev)
+    lanes = [t[take].contiguous() for t in (cr, ci, zr, zi, n)]
+    lanes.append(torch.ones_like(dyn))
+    want = cx.escape_resume_plain(257, cx.RESUME_SEG, dyn, *lanes)
+    got = cx.escape_resume_cuda(257, cx.RESUME_SEG, dyn,
+                                *(t.clone() for t in lanes))
+    times = []
+    for _ in range(22):
+        fresh = [t.clone() for t in lanes]
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        cx.escape_resume_cuda(257, cx.RESUME_SEG, dyn, *fresh)
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    run = (steps.reshape(-1)[take].to(torch.int64).clamp(max=512) - 256
+           ).clamp(min=0)
+    b_ms, b_by, ops = bound(int(run.sum()), 0,
+                            RESUME_BYTES_PER_LANE * take.numel())
+    out["escape_resume"] = {
+        "ms": statistics.median(times[2:]),
+        "plain_ms": median_ms(lambda: cx.escape_resume_plain(
+            257, cx.RESUME_SEG, dyn, *lanes), reps=3, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "ops": ops,
+        "bitwise_vs_plain": all(bit_diff(a, b)[0] == 0
+                                for a, b in zip(got, want)),
+        "lanes": take.numel(),
+        "input": finding["input"] + ", the first resume round (steps "
+                 "257-512) over the packed live lanes"}
+    out["compaction_vs_k3"] = finding
     return out
 
 
@@ -776,8 +1259,12 @@ def phase_kernels(ce, TileSpec, launches, err):
     k5_bitwise = bool(torch.equal(k5_got, k5_want))
     k5_bound, k5_by, k5_ops = bound(int(k5_steps.sum()), 0, 4 * 4096 * 4096)
     modes = time_k1_modes(ce, TileSpec, dev)
+    mesh = time_mesh_kernels(ce, TileSpec, dev)
+    finding = mesh.pop("compaction_vs_k3")
 
-    if not (k1_bitwise and k2_bitwise and k4_bitwise and k5_bitwise):
+    if not (k1_bitwise and k2_bitwise and k4_bitwise and k5_bitwise
+            and all(m["bitwise_vs_plain"] for m in mesh.values())
+            and finding["compact_bitwise_vs_k3"]):
         raise AssertionError("timed kernels differ from their plain versions")
 
     def runs(kernel):
@@ -835,6 +1322,13 @@ def phase_kernels(ce, TileSpec, launches, err):
          "warp_steps_states_issued": len(win) * warp_steps(
              k5_steps.max(dim=0).values)},
     ]
+    for name, m in mesh.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": REPLACES[name], **runs(name),
+            "max_abs_err": err[name], "library_ms": None,
+            "library_reason": NO_LIBRARY, **m})
+    kernels[-1]["compaction_vs_k3"] = finding
     return kernels
 
 
@@ -843,7 +1337,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available; this check runs "
               "only on a GPU", file=sys.stderr)
         return 1
-    from distributedmandelbrot_tpu_torch import cli
+    from distributedmandelbrot_tpu_torch import cli, parallel
     from distributedmandelbrot_tpu_torch import worker as wk
     from distributedmandelbrot_tpu_torch.core.geometry import TileSpec
     from distributedmandelbrot_tpu_torch.core.workload import Workload
@@ -860,8 +1354,12 @@ def main() -> int:
                                                Workload)
     phase_main_path_profile(wk, workloads)
     render_launches = phase_render_path(ce, cli, srender, TileSpec)
+    mesh_launches = phase_mesh_path(wk, ce, parallel, TileSpec, Workload)
+    multihost_launches = phase_multihost(ce, TileSpec)
     kernels = phase_kernels(ce, TileSpec, {"main_path": main_launches,
-                                           "render_path": render_launches},
+                                           "render_path": render_launches,
+                                           "mesh_path": mesh_launches,
+                                           "multihost": multihost_launches},
                             err)
     emit({"phase": "kernels", "ok": True,
           "seconds_total": time.monotonic() - t_start,
@@ -874,4 +1372,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--rank" in sys.argv:
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        sys.exit(run_rank(int(args["--rank"]), int(args["--port"]),
+                          args["--out"]))
     sys.exit(main())

@@ -5,9 +5,15 @@
 
 ``worker`` takes the flags of ``dmtpu worker`` of the JAX package, with
 ``--backend`` choosing among the port's backends (auto, cuda, torch,
-numpy) and ``--device``/``--dtype`` beside it.  ``--ring``,
-``--multihost``, ``--exporter-port``, ``--profile`` and ``--kernel`` come
-with the slices that port what they drive.
+numpy, mesh) and ``--device``/``--dtype`` beside it.  ``--backend mesh``
+computes each lease batch sharded over every local GPU, ``--kernel
+auto|cuda|torch`` picking its compute (the reference's
+``auto|pallas|xla``); ``--multihost`` runs the group-spanning worker
+over ``torch.distributed`` ranks (``--mh-coordinator``,
+``--mh-processes``, ``--mh-process-id``).  ``--device cpu`` runs either
+on the CPU (the kernels' plain versions).  ``--ring``,
+``--exporter-port`` and ``--profile`` come with the slices that port
+what they drive.
 
 ``render`` is ``dmtpu render``'s direct route: Mandelbrot, Julia,
 Multibrot and Burning Ship views, integer or smooth, supersampled or
@@ -44,7 +50,16 @@ def _configure_logging(args: argparse.Namespace) -> None:
         format="%(asctime)s %(name)s %(levelname)s: %(message)s")
 
 
-def _make_backend(name: str, dtype: str | None, device: str):
+def _mesh_for(device: str):
+    """The worker's mesh: every local GPU for the default ``cuda`` (None
+    here, so the backend builds it and raises without a GPU), else the
+    one named device."""
+    from distributedmandelbrot_tpu_torch.parallel.mesh import make_mesh
+    return None if device == "cuda" else make_mesh([device])
+
+
+def _make_backend(name: str, dtype: str | None, device: str,
+                  kernel: str = "auto"):
     from distributedmandelbrot_tpu_torch import worker as wk
     if name == "numpy":
         return wk.NumpyBackend()
@@ -59,6 +74,10 @@ def _make_backend(name: str, dtype: str | None, device: str):
     if name == "auto":
         return wk.auto_backend(
             dtype=None if dtype is None else _NP_DTYPES[dtype])
+    if name == "mesh":
+        from distributedmandelbrot_tpu_torch.parallel import MeshBackend
+        return MeshBackend(dtype=_NP_DTYPES[dtype or "f32"], kernel=kernel,
+                           mesh=_mesh_for(device))
     raise ValueError(f"unknown backend {name!r}")
 
 
@@ -69,17 +88,21 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int,
                    default=proto.DEFAULT_DISTRIBUTER_PORT)
-    p.add_argument("--backend", choices=["auto", "cuda", "torch", "numpy"],
+    p.add_argument("--backend",
+                   choices=["auto", "cuda", "torch", "numpy", "mesh"],
                    default="auto",
-                   help="auto = the CUDA kernels (raises without a GPU)")
+                   help="auto = the CUDA kernels (raises without a GPU); "
+                        "mesh = each batch sharded over every local GPU")
     p.add_argument("--device", default="cuda",
-                   help="torch device of the cuda/torch backends "
-                        "(default cuda; 'cpu' runs the plain versions)")
+                   help="torch device of the cuda/torch/mesh backends and "
+                        "--multihost (default cuda: every local GPU for "
+                        "mesh; 'cpu' runs the plain versions)")
     p.add_argument("--dtype", choices=["f32", "f64"], default=None,
                    help="pin output precision (f32 kernels / f64 "
                         "bit-exact torch loop)")
     p.add_argument("--batch-size", type=int, default=0,
-                   help="tiles leased per exchange (default 0 = 1)")
+                   help="tiles leased per exchange (default: the device "
+                        "count for mesh, else 1)")
     p.add_argument("--poll", type=float, default=0.0,
                    help="keep polling every N seconds after the "
                         "coordinator drains (default: exit)")
@@ -108,25 +131,82 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--stats-json", metavar="PATH", default="",
                    help="on a drained exit, dump the counter snapshot and "
                         "pipeline stage stats to PATH as JSON")
+    p.add_argument("--kernel", choices=["auto", "cuda", "torch"],
+                   default="auto",
+                   help="compute of the mesh backend and --multihost: "
+                        "auto = the CUDA kernels on CUDA devices in f32, "
+                        "the torch loop otherwise")
+    p.add_argument("--multihost", action="store_true",
+                   help="group-spanning worker: run the SAME invocation on "
+                        "every process; the primary leases and uploads over "
+                        "TCP, every process computes on its devices")
+    p.add_argument("--mh-coordinator", default=None, metavar="HOST:PORT",
+                   help="torch.distributed rendezvous address (default: "
+                        "the MASTER_ADDR/MASTER_PORT environment)")
+    p.add_argument("--mh-processes", type=int, default=None)
+    p.add_argument("--mh-process-id", type=int, default=None)
     p.add_argument("-v", "--verbose", action="store_true",
                    help="debug logging")
     p.add_argument("-q", "--quiet", action="store_true", help="errors only")
     return p
 
 
+def _cmd_multihost(args: argparse.Namespace) -> int:
+    """``worker --multihost``: every process computes on its devices
+    (all local GPUs, or ``--device``) and the primary talks to the
+    coordinator."""
+    if args.backend != "auto":
+        raise SystemExit("--multihost ignores --backend (it always "
+                         "computes on the group's mesh); use --kernel to "
+                         "pick the device compute")
+    from distributedmandelbrot_tpu_torch.parallel import multihost
+    from distributedmandelbrot_tpu_torch.parallel.mesh import local_devices
+    # Resolved before joining the group: no GPU raises here, not after
+    # the other ranks have started waiting.
+    devices = local_devices() if args.device == "cuda" else [args.device]
+    multihost.initialize(coordinator_address=args.mh_coordinator,
+                         num_processes=args.mh_processes,
+                         process_id=args.mh_process_id)
+    mesh = multihost.global_tile_mesh(devices)
+    n_dev = mesh.devices.size
+    per_dev = max(1, -(-args.batch_size // n_dev)) \
+        if args.batch_size > 0 else 1
+    if args.batch_size > 0 and per_dev * n_dev != args.batch_size:
+        logger.warning(
+            "--batch-size %d rounded to %d (the SPMD batch must be a "
+            "multiple of the %d global devices)", args.batch_size,
+            per_dev * n_dev, n_dev)
+    rounds = multihost.run_spmd_worker(
+        args.host, args.port, batch_per_device=per_dev, poll=args.poll,
+        dtype=_NP_DTYPES[args.dtype or "f32"], mesh=mesh,
+        kernel=args.kernel)
+    if multihost.is_primary():
+        print(f"multihost worker: drained after {rounds} round(s) "
+              f"({multihost.process_count()} processes, {n_dev} devices)",
+              flush=True)
+    return 0
+
+
 def cmd_worker(argv: Sequence[str]) -> int:
     args = _parser().parse_args(argv)
     _configure_logging(args)
+    if args.multihost:
+        return _cmd_multihost(args)
     from distributedmandelbrot_tpu_torch.worker import (DistributerClient,
                                                         Worker)
-    backend = _make_backend(args.backend, args.dtype, args.device)
+    backend = _make_backend(args.backend, args.dtype, args.device,
+                            args.kernel)
+    batch_size = args.batch_size
+    if batch_size <= 0:
+        batch_size = (len(backend.devices()) if args.backend == "mesh"
+                      else 1)
     window = args.window
     if window < 0:
         window = (2 * args.depth * max(1, len(backend.devices()))
                   if hasattr(backend, "dispatch_tile") else 0)
     worker = Worker(DistributerClient(args.host, args.port,
                                       reconnect_attempts=args.reconnect),
-                    backend, batch_size=max(1, args.batch_size),
+                    backend, batch_size=batch_size,
                     window=window, depth=args.depth,
                     upload_lanes=args.upload_lanes,
                     batch_tiles=args.batch_tiles,

@@ -94,11 +94,15 @@ WORKER_KERNEL_BF16_PRUNED = "worker_kernel_bf16_pruned_pixels"
 # Demotions along the CUDA backend's chain (label ``route``:
 # ``fused_to_per_tile`` when a fused batch falls back to per-tile
 # launches, ``per_tile_to_torch`` when a tile the kernel declines runs
-# the torch escape loop instead).  Port-only: the JAX backend records
-# these as flight events alone.
+# the torch escape loop instead, ``mesh_to_fused`` when a batch the mesh
+# route declines takes the one-device fused launch, ``batch_to_torch``
+# when the mesh backend's kernels decline a batch).  Port-only: the JAX
+# backends record these as flight events alone.
 WORKER_KERNEL_DEMOTIONS = "worker_kernel_demotions"
 ROUTE_FUSED_TO_PER_TILE = "fused_to_per_tile"
 ROUTE_PER_TILE_TO_TORCH = "per_tile_to_torch"
+ROUTE_MESH_TO_FUSED = "mesh_to_fused"
+ROUTE_BATCH_TO_TORCH = "batch_to_torch"
 
 # Mesh megakernel route (one fused launch shard_map'd over every local
 # device): launches that took the route, and device-launch equivalents

@@ -120,6 +120,15 @@ def load() -> ctypes.CDLL:
             lib.dm_escape_smooth.argtypes = [vp, i, i, vp, i, i, i, f, f, f,
                                              i, f, i, i, i, vp]
             lib.dm_escape_smooth.restype = i
+            lib.dm_escape_batch.argtypes = [vp, vp, vp, i, i, i, i, i, i, f,
+                                            i, i, i, vp]
+            lib.dm_escape_batch.restype = i
+            lib.dm_escape_state.argtypes = [vp] * 8 + [i, i, i, i, i, f, i,
+                                                       i, i, vp]
+            lib.dm_escape_state.restype = i
+            lib.dm_escape_resume.argtypes = [vp] * 7 + [ctypes.c_longlong,
+                                                        i, i, i, i, vp]
+            lib.dm_escape_resume.restype = i
             lib.dm_mega_max_tiles.argtypes = []
             lib.dm_mega_max_tiles.restype = i
             lib.dm_error_string.argtypes = [i]

@@ -13,9 +13,21 @@
 //   supersampled render's samples), out as (n, H, W) uint8.
 // - escape_smooth_kernel (K4, _smooth_block_kernel): one tile's f32
 //   smooth value nu, for every family.
+// - escape_batch_kernel (K3, _escape_batch_kernel): k same-shaped tiles
+//   in one launch, every family, with the params rows and budgets in
+//   device memory (k is a mesh shard's size, unbounded).
+// - escape_state_kernel (K6, compact_escape.py's _state_batch_kernel):
+//   K3's loop capped at a phase budget, writing the raw per-pixel state
+//   (c, z, n, act) instead of bytes.
+// - escape_resume_kernel (K7, compact_escape.py's _resume_block_kernel):
+//   one resume round over a flat buffer of lanes, each carrying its own
+//   c and budget.
 //
-// All run the per-pixel functions of escape.cuh, so a fused or packed
-// launch equals single-tile launches bitwise.
+// All run the per-pixel functions of escape.cuh, so a fused, packed or
+// batched launch equals single-tile launches bitwise, and K6 then K7
+// rounds equal K3: a resumed lane recomputes its cached squares with
+// the same correctly rounded multiply and continues the same step
+// sequence (per-pixel exit makes every seam exact).
 //
 // What bounds them on an H100: operations.  A pixel reads nothing and
 // writes one byte (four for nu); each step is 8 f32 operations at
@@ -33,7 +45,10 @@
 // exit far apart, the uncontracted arithmetic that bit-parity asks for)
 // is later work.  None of the TPU workarounds is carried: no scratch
 // state, no 64x128 blocks (any H, W; the ragged edge is masked), no
-// prologue pipelining, no byte-lane packing.
+// prologue pipelining, no byte-lane packing.  K6 and K7 move state
+// through device memory (24 B written per pixel by K6; per lane and
+// round, K7 reads 28 B and writes 16 B), which is what the compacted
+// pipeline pays so that K7's warps hold only live lanes.
 
 #include <cfloat>
 #include <cmath>
@@ -247,6 +262,119 @@ __global__ void escape_smooth_kernel(float* __restrict__ out, int height,
   *px = dm::fsub(__int2float_rn(n + 2), corr);
 }
 
+// One pixel of tile t = t0 + blockIdx.z of a batch whose params rows
+// (kRow floats each) and budgets lie in device memory.
+struct BatchPixel {
+  int t, row, col;
+  float gr, gi, cr, ci;
+  int mrd;
+};
+
+DM_D bool batch_pixel(BatchPixel& p, const float* __restrict__ rows,
+                      const int* __restrict__ mrds, int t0, int height,
+                      int width, int julia) {
+  p.t = t0 + static_cast<int>(blockIdx.z);
+  p.col = blockIdx.x * blockDim.x + threadIdx.x;
+  p.row = blockIdx.y * blockDim.y + threadIdx.y;
+  if (p.row >= height || p.col >= width) return false;
+  const float* r = rows + static_cast<size_t>(p.t) * kRow;
+  p.gr = dm::grid(r[0], r[2], p.col);
+  p.gi = dm::grid(r[1], r[3], p.row);
+  p.cr = julia ? r[4] : p.gr;
+  p.ci = julia ? r[5] : p.gi;
+  p.mrd = mrds[p.t];
+  return true;
+}
+
+template <int F>
+__global__ void escape_batch_kernel(uint8_t* __restrict__ out,
+                                    const float* __restrict__ rows,
+                                    const int* __restrict__ mrds, int t0,
+                                    int height, int width, int julia,
+                                    int clamp, int interior_mode,
+                                    float disk_lim, int cycle_check,
+                                    int power) {
+  BatchPixel p;
+  if (!batch_pixel(p, rows, mrds, t0, height, width, julia)) return;
+  out[(static_cast<size_t>(p.t) * height + p.row) * width + p.col] =
+      dm::escape_pixel<F>(p.gr, p.gi, p.cr, p.ci, p.mrd, clamp,
+                          interior_mode, disk_lim, cycle_check, power);
+}
+
+// Phase 1 of the compacted pipeline: K3's pixel for at most
+// min(dyn, phase_budget) steps, the probe off.  A proven-interior pixel
+// starts with n = dyn and act = 0; act stays 1 only for a pixel still
+// live whose budget runs past the phase (a tile whose budget fits in
+// the phase is complete).
+template <int F>
+__global__ void escape_state_kernel(
+    float* __restrict__ cr_out, float* __restrict__ ci_out,
+    float* __restrict__ zr_out, float* __restrict__ zi_out,
+    int* __restrict__ n_out, int* __restrict__ act_out,
+    const float* __restrict__ rows, const int* __restrict__ mrds, int t0,
+    int height, int width, int julia, int interior_mode, float disk_lim,
+    int power, int phase_budget) {
+  BatchPixel p;
+  if (!batch_pixel(p, rows, mrds, t0, height, width, julia)) return;
+  const int dyn = p.mrd - 1;
+  dm::Orbit o;
+  dm::start(o, p.gr, p.gi, p.cr, p.ci);
+  bool live = dyn > 0;
+  if (live && dm::proven_interior(interior_mode, p.cr, p.ci, disk_lim)) {
+    o.n = dyn;
+    live = false;
+  }
+  const int cap = dyn < phase_budget ? dyn : phase_budget;
+  for (int s = 1; live && s <= cap; ++s)
+    live = dm::advance<F>(o, s, dyn, false, power);
+  const size_t i = (static_cast<size_t>(p.t) * height + p.row) * width + p.col;
+  cr_out[i] = p.cr;
+  ci_out[i] = p.ci;
+  zr_out[i] = o.zr;
+  zi_out[i] = o.zi;
+  n_out[i] = o.n;
+  act_out[i] = (live && dyn > phase_budget) ? 1 : 0;
+}
+
+// One resume round over ``lanes`` lanes, in place: a live lane runs
+// steps it0 .. min(it0 + seg - 1, dyn) while it stays inside radius 2,
+// its squares recomputed from z (the bits update() cached).  A lane
+// leaves act = 1 only if it is still live with budget left.
+template <int F>
+__global__ void escape_resume_kernel(float* __restrict__ zr,
+                                     float* __restrict__ zi,
+                                     int* __restrict__ n,
+                                     int* __restrict__ act,
+                                     const float* __restrict__ cr,
+                                     const float* __restrict__ ci,
+                                     const int* __restrict__ dyn,
+                                     long long lanes, int it0, int seg,
+                                     int power) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= lanes || !act[i]) return;
+  const int d = dyn[i];
+  dm::Orbit o;
+  o.zr = zr[i];
+  o.zi = zi[i];
+  o.zr2 = dm::fmul(o.zr, o.zr);
+  o.zi2 = dm::fmul(o.zi, o.zi);
+  o.cr = cr[i];
+  o.ci = ci[i];
+  o.szr = o.zr;
+  o.szi = o.zi;
+  o.n = n[i];
+  const long long end = static_cast<long long>(it0) + seg - 1;
+  const int last = end < d ? static_cast<int>(end) : d;
+  bool live = true;
+  for (int s = it0; live && s <= last; ++s)
+    live = dm::advance<F>(o, s, d, false, power);
+  zr[i] = o.zr;
+  zi[i] = o.zi;
+  n[i] = o.n;
+  act[i] = (live && last < d) ? 1 : 0;
+}
+
 dim3 grid_for(int height, int width, int k) {
   return dim3((width + kBlockX - 1) / kBlockX,
               (height + kBlockY - 1) / kBlockY, k);
@@ -260,6 +388,21 @@ TileParams tile_params(const float* row, int julia, int interior_mode,
   p.interior_mode = interior_mode;
   p.disk_lim = disk_lim;
   return p;
+}
+
+// Tiles per launch of a batched kernel: the grid's z extent.
+constexpr int kMaxGridZ = 65535;
+
+// Launches ``launch(t0, tiles)`` over [0, k) in slices of kMaxGridZ
+// tiles; returns the first launch error (0 = all launched).
+template <typename L>
+int over_tiles(int k, L launch) {
+  for (int t0 = 0; t0 < k; t0 += kMaxGridZ) {
+    launch(t0, k - t0 < kMaxGridZ ? k - t0 : kMaxGridZ);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
 }
 
 template <int N>
@@ -390,6 +533,99 @@ int dm_escape_smooth(void* out, int height, int width, const float* row,
   else
     escape_smooth_kernel<dm::kQuadratic><<<g, b, 0, s>>>(
         o, height, width, p, mrd, cycle_check, power);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3: k tiles into ``out`` (k, height, width) uint8.  ``rows`` (k x 6
+// f32) and ``mrds`` (k int32) are DEVICE pointers, read by the kernel
+// on ``stream``.
+int dm_escape_batch(void* out, const void* rows, const void* mrds, int k,
+                    int height, int width, int julia, int clamp,
+                    int interior_mode, float disk_lim, int cycle_check,
+                    int family, int power, void* stream) {
+  if (k < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (k == 0 || height <= 0 || width <= 0) return 0;
+  uint8_t* o = static_cast<uint8_t*>(out);
+  const float* r = static_cast<const float*>(rows);
+  const int* m = static_cast<const int*>(mrds);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 b(kBlockX, kBlockY);
+  return over_tiles(k, [&](int t0, int n) {
+    const dim3 g = grid_for(height, width, n);
+    if (family == dm::kShip)
+      escape_batch_kernel<dm::kShip><<<g, b, 0, s>>>(
+          o, r, m, t0, height, width, julia, clamp, interior_mode, disk_lim,
+          cycle_check, power);
+    else if (family == dm::kMultibrot)
+      escape_batch_kernel<dm::kMultibrot><<<g, b, 0, s>>>(
+          o, r, m, t0, height, width, julia, clamp, interior_mode, disk_lim,
+          cycle_check, power);
+    else
+      escape_batch_kernel<dm::kQuadratic><<<g, b, 0, s>>>(
+          o, r, m, t0, height, width, julia, clamp, interior_mode, disk_lim,
+          cycle_check, power);
+  });
+}
+
+// K6: the six (k, height, width) state planes c_re, c_im, z_re, z_im
+// (f32) and n, act (int32).  ``rows``/``mrds`` are DEVICE pointers, as
+// for K3.
+int dm_escape_state(void* cr, void* ci, void* zr, void* zi, void* n,
+                    void* act, const void* rows, const void* mrds, int k,
+                    int height, int width, int julia, int interior_mode,
+                    float disk_lim, int family, int power, int phase_budget,
+                    void* stream) {
+  if (k < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (k == 0 || height <= 0 || width <= 0) return 0;
+  float* const planes[4] = {static_cast<float*>(cr), static_cast<float*>(ci),
+                            static_cast<float*>(zr), static_cast<float*>(zi)};
+  int* const np = static_cast<int*>(n);
+  int* const ap = static_cast<int*>(act);
+  const float* r = static_cast<const float*>(rows);
+  const int* m = static_cast<const int*>(mrds);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 b(kBlockX, kBlockY);
+  return over_tiles(k, [&](int t0, int cnt) {
+    const dim3 g = grid_for(height, width, cnt);
+#define DM_STATE(F)                                                         \
+  escape_state_kernel<F><<<g, b, 0, s>>>(                                   \
+      planes[0], planes[1], planes[2], planes[3], np, ap, r, m, t0, height, \
+      width, julia, interior_mode, disk_lim, power, phase_budget)
+    if (family == dm::kShip)
+      DM_STATE(dm::kShip);
+    else if (family == dm::kMultibrot)
+      DM_STATE(dm::kMultibrot);
+    else
+      DM_STATE(dm::kQuadratic);
+#undef DM_STATE
+  });
+}
+
+// K7: one resume round over ``lanes`` lanes, updating zr, zi, n and act
+// in place (all DEVICE pointers, flat).
+int dm_escape_resume(void* zr, void* zi, void* n, void* act, const void* cr,
+                     const void* ci, const void* dyn, long long lanes,
+                     int it0, int seg, int family, int power, void* stream) {
+  if (lanes < 0 || seg < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (lanes == 0) return 0;
+  constexpr int kThreads = 256;
+  const long long blocks = (lanes + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 g(static_cast<unsigned>(blocks)), b(kThreads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DM_RESUME(F)                                                        \
+  escape_resume_kernel<F><<<g, b, 0, s>>>(                                  \
+      static_cast<float*>(zr), static_cast<float*>(zi),                     \
+      static_cast<int*>(n), static_cast<int*>(act),                         \
+      static_cast<const float*>(cr), static_cast<const float*>(ci),         \
+      static_cast<const int*>(dyn), lanes, it0, seg, power)
+  if (family == dm::kShip)
+    DM_RESUME(dm::kShip);
+  else if (family == dm::kMultibrot)
+    DM_RESUME(dm::kMultibrot);
+  else
+    DM_RESUME(dm::kQuadratic);
+#undef DM_RESUME
   return static_cast<int>(cudaGetLastError());
 }
 

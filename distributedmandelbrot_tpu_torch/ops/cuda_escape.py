@@ -1,7 +1,7 @@
 """Host side of the escape-time kernels: the port of the host half of the
 JAX package's ``ops/pallas_escape.py``.
 
-Four kernels (``ops/csrc/escape_kernels.cu``), each with a wrapper, a
+Five kernels (``ops/csrc/escape_kernels.cu``), each with a wrapper, a
 plain PyTorch version and a launch counter:
 
 - K1, ``escape_tile`` (replaces ``_escape_block_kernel``):
@@ -20,6 +20,14 @@ plain PyTorch version and a launch counter:
 - K5, ``escape_pack`` (replaces ``_escape_pack_kernel``):
   :func:`compute_tiles_packed_cuda`, n <= 4 same-shaped tiles in one
   launch -> (n, height, width) uint8, every mode of K1.
+- K3, ``escape_batch`` (replaces ``_escape_batch_kernel``):
+  :func:`compute_tiles_batch_cuda`, k same-shaped tiles from raw params
+  rows in one launch -> (k, height, width) uint8, every mode of K1, each
+  plane equal to K1 on its row; :func:`prefer_batch_grid` is the
+  reference's policy for when a mesh shard takes it.
+
+K6 and K7, the compacted pipeline's kernels, have their host side in
+``ops/compact_escape.py``; their launches are counted here too.
 
 A wrapper given CUDA tensors' device launches its kernel (or raises); it
 takes the plain version only for the CPU, the counterpart of the
@@ -59,10 +67,25 @@ KERNEL_TILE = "escape_tile"
 KERNEL_MEGA = "escape_mega"
 KERNEL_SMOOTH = "escape_smooth"
 KERNEL_PACK = "escape_pack"
+KERNEL_BATCH = "escape_batch"
+KERNEL_STATE = "escape_state"
+KERNEL_RESUME = "escape_resume"
 
 _counts_lock = threading.Lock()
 _launches = {KERNEL_TILE: 0, KERNEL_MEGA: 0, KERNEL_SMOOTH: 0,
-             KERNEL_PACK: 0}
+             KERNEL_PACK: 0, KERNEL_BATCH: 0, KERNEL_STATE: 0,
+             KERNEL_RESUME: 0}
+
+# The batch-grid policy (pallas_escape.prefer_batch_grid): one K3 launch
+# per shard when the deepest budget reaches BATCH_GRID_MIN_ITER, or when
+# a tile has fewer than BATCH_GRID_MIN_PROGRAMS blocks of the
+# reference's (64, 128) block shape; a chain of K1 launches otherwise.
+# The port has no blocks: the shape only counts programs, so the
+# decision equals the reference's wherever the reference accepts the
+# tile, and no extent is refused.
+BATCH_GRID_MIN_ITER = 4096
+BATCH_GRID_MIN_PROGRAMS = 64
+REF_BLOCK_H, REF_BLOCK_W = 64, 128
 
 # The kernels' family and interior-test codes (escape.cuh: dm::Family,
 # dm::Interior).
@@ -173,6 +196,16 @@ def bucket_cap(max_iter: int) -> int:
     at least 256).  The CUDA kernels need no cap; it survives because
     the census window and the degenerate-batch rule are defined by it."""
     return 1 << max(8, (max_iter - 1).bit_length()) if max_iter > 1 else 1
+
+
+def prefer_batch_grid(budget: int, height: int, width: int) -> bool:
+    """Whether a mesh shard runs as one K3 launch: the deepest budget
+    (the TRUE one, not the bucketed cap) reaches
+    :data:`BATCH_GRID_MIN_ITER`, or a tile holds fewer than
+    :data:`BATCH_GRID_MIN_PROGRAMS` reference blocks."""
+    programs = (height // REF_BLOCK_H) * (width // REF_BLOCK_W)
+    return (budget >= BATCH_GRID_MIN_ITER
+            or programs < BATCH_GRID_MIN_PROGRAMS)
 
 
 def mega_dispatch_plan(specs, max_iters, *, clamp: bool = False,
@@ -364,6 +397,22 @@ def escape_pack_plain(rows, mrd_rows, *, height: int, width: int,
     return out
 
 
+def escape_batch_plain(rows, mrd_rows, *, height: int, width: int,
+                       clamp: bool = False, interior_check: bool = True,
+                       cycle_check: bool = False, power: int = 2,
+                       burning: bool = False, device="cpu",
+                       return_steps: bool = False):
+    """K3's plain version: K1's plain version per params row (4 wide, or
+    6 with a Julia constant) -> (k, height, width) uint8 on ``device``
+    (``return_steps`` adds the steps, (k, height, width)).  Same as K5's
+    plain version: both kernels step every tile exactly as K1 does."""
+    return escape_pack_plain(rows, mrd_rows, height=height, width=width,
+                             clamp=clamp, interior_check=interior_check,
+                             cycle_check=cycle_check, power=power,
+                             burning=burning, device=device,
+                             return_steps=return_steps)
+
+
 def smooth_step_limit(max_iter: int, bailout: float) -> int:
     """Steps a pixel still live at the end of K4 has run: the Pallas
     kernel runs whole segments of ``u = min(DEFAULT_UNROLL,
@@ -433,16 +482,33 @@ def compute_tile_cuda_device(spec: TileSpec, max_iter: int, *,
     interior shortcut), the degree-``power`` Multibrot, or the Burning
     Ship (``burning``).  The probe policy follows the tile's requested
     budget."""
-    julia = julia_c is not None
-    _check_dispatch_mode(power, burning, julia)
+    _check_dispatch_mode(power, burning, julia_c is not None)
     _check_mxu(use_mxu)
     _guard_budget(max_iter)
-    row = np.asarray(_params_row(spec, julia_c), dtype=np.float32)
+    return compute_tile_row_cuda(
+        _params_row(spec, julia_c), max_iter, spec.height, spec.width,
+        clamp=clamp, interior_check=interior_check,
+        cycle_check=cycle_check, power=power, burning=burning, device=device)
+
+
+def compute_tile_row_cuda(row, max_iter: int, height: int, width: int, *,
+                          clamp: bool = False, interior_check: bool = True,
+                          cycle_check: bool | None = None, power: int = 2,
+                          burning: bool = False,
+                          device="cuda") -> torch.Tensor:
+    """K1 from a raw params row (4 wide, or 6 with a Julia constant; no
+    resolvability guard, as the reference's mesh rows have none) ->
+    (height, width) uint8 on ``device``, enqueued on its current
+    stream."""
+    row = np.asarray(row, dtype=np.float32)
+    julia = row.size == 6
+    _check_dispatch_mode(power, burning, julia)
+    _guard_budget(max_iter)
     cycle = escape_time.resolve_cycle_check(cycle_check, max_iter)
     dev = _cuda_device(device)
     if dev.type != "cuda":
-        return escape_tile_plain(row, max_iter, spec.height, spec.width,
-                                 clamp=clamp, interior_check=interior_check,
+        return escape_tile_plain(row, max_iter, height, width, clamp=clamp,
+                                 interior_check=interior_check,
                                  cycle_check=cycle, power=power,
                                  burning=burning, device=dev)
     from distributedmandelbrot_tpu_torch.ops import _build
@@ -451,11 +517,10 @@ def compute_tile_cuda_device(spec: TileSpec, max_iter: int, *,
                                                  interior_check)
     row6 = _row6(row)
     with torch.cuda.device(dev):
-        out = torch.empty((spec.height, spec.width), dtype=torch.uint8,
-                          device=dev)
+        out = torch.empty((height, width), dtype=torch.uint8, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.dm_escape_tile(
-            ctypes.c_void_p(out.data_ptr()), spec.height, spec.width,
+            ctypes.c_void_p(out.data_ptr()), height, width,
             ctypes.c_void_p(row6.ctypes.data), int(julia), int(max_iter),
             int(clamp), interior_mode, disk_lim, int(cycle), family,
             int(power), ctypes.c_void_p(stream))
@@ -519,6 +584,19 @@ def compute_tiles_mega_cuda(specs, max_iters, *, clamp: bool = False,
     if rows.shape != (k, 4) or mrds.shape != (k, 1):
         raise ValueError(f"rows must be ({k}, 4) and mrd_rows ({k}, 1), "
                          f"got {rows.shape} and {mrds.shape}")
+    return launch_mega(rows, mrds, kw, device)
+
+
+def launch_mega(rows: np.ndarray, mrds: np.ndarray, kw: dict, device):
+    """K2 on a resolved plan: ``rows`` (k, 4) f32 and ``mrds`` (k, 1)
+    int32 C-contiguous numpy arrays and the plan's launch keywords ->
+    ``(tiles, census)`` on ``device``, enqueued on its current stream
+    (the plain version on the CPU).  The mesh route launches each shard
+    of one plan through here."""
+    k = rows.shape[0]
+    if k > MEGA_MAX_TILES:
+        raise KernelUnsupported(
+            f"{k} tiles exceed one fused launch ({MEGA_MAX_TILES})")
     dev = _cuda_device(device)
     if dev.type != "cuda":
         return escape_mega_plain(rows, mrds, device=dev, **kw)
@@ -643,4 +721,71 @@ def compute_tiles_packed_cuda(specs, max_iters, *, clamp: bool = False,
             ctypes.c_void_p(stream))
     _check_rc(lib, rc, KERNEL_PACK)
     _count_launch(KERNEL_PACK)
+    return out
+
+
+def batch_rows(rows, mrd_rows) -> tuple[np.ndarray, np.ndarray]:
+    """A batch's params rows as (k, 6) f32 (the Julia slots zero for
+    4-wide rows) and its budgets as (k,) int32, both C-contiguous."""
+    rows = np.asarray(rows, dtype=np.float32)
+    rows6 = np.zeros((rows.shape[0], 6), dtype=np.float32)
+    rows6[:, :rows.shape[1]] = rows
+    return rows6, np.ascontiguousarray(
+        np.asarray(mrd_rows, dtype=np.int32).reshape(-1))
+
+
+def device_rows(rows, mrd_rows, dev: torch.device):
+    """:func:`batch_rows` uploaded to ``dev`` on its current stream: the
+    kernels that take a whole shard read them from device memory."""
+    rows6, mrds = batch_rows(rows, mrd_rows)
+    return (torch.from_numpy(rows6).to(dev), torch.from_numpy(mrds).to(dev))
+
+
+def compute_tiles_batch_cuda(rows, mrd_rows, *, height: int, width: int,
+                             clamp: bool = False, interior_check: bool = True,
+                             cycle_check: bool | None = None, power: int = 2,
+                             burning: bool = False,
+                             device="cuda") -> torch.Tensor:
+    """K3: k same-shaped tiles from their params rows ((k, 4) f32, or
+    (k, 6) with Julia constants) and budgets ((k,) or (k, 1) int32) in
+    one launch -> (k, height, width) uint8 on ``device``, enqueued on
+    its current stream; each plane equals K1 on its row.  The rows and
+    budgets travel to the card as tensors, so k has no limit (a mesh
+    shard's size).  The probe policy follows the deepest budget."""
+    rows = np.asarray(rows, dtype=np.float32)
+    if rows.ndim != 2 or rows.shape[1] not in (4, 6):
+        raise ValueError(f"rows must be (k, 4) or (k, 6), got {rows.shape}")
+    k = rows.shape[0]
+    julia = rows.shape[1] == 6
+    _check_dispatch_mode(power, burning, julia)
+    mrds = np.asarray(mrd_rows, dtype=np.int32).reshape(-1)
+    if mrds.shape != (k,):
+        raise ValueError(f"{k} rows but {mrds.size} budgets")
+    cap = int(mrds.max()) if k else 1
+    _guard_budget(cap)
+    cycle = escape_time.resolve_cycle_check(cycle_check, cap)
+    dev = _cuda_device(device)
+    if k == 0:
+        return torch.zeros((0, height, width), dtype=torch.uint8, device=dev)
+    if dev.type != "cuda":
+        return escape_batch_plain(rows, mrds, height=height, width=width,
+                                  clamp=clamp, interior_check=interior_check,
+                                  cycle_check=cycle, power=power,
+                                  burning=burning, device=dev)
+    from distributedmandelbrot_tpu_torch.ops import _build
+    lib = _build.load()
+    family, interior_mode, disk_lim = _mode_args(power, burning, julia,
+                                                 interior_check)
+    with torch.cuda.device(dev):
+        rows_d, mrds_d = device_rows(rows, mrds, dev)
+        out = torch.empty((k, height, width), dtype=torch.uint8, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.dm_escape_batch(
+            ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(rows_d.data_ptr()),
+            ctypes.c_void_p(mrds_d.data_ptr()), k, height, width,
+            int(julia), int(clamp), interior_mode, disk_lim, int(cycle),
+            family, int(power), ctypes.c_void_p(stream))
+    _check_rc(lib, rc, KERNEL_BATCH)
+    _count_launch(KERNEL_BATCH)
     return out

@@ -8,10 +8,13 @@ order`` — has three implementations here, the port of the JAX package's
   carried as it is;
 - :class:`TorchBackend` — the torch escape loop on one device, f32 fast
   or f64 bit-exact (the counterpart of ``JaxBackend``);
-- :class:`CudaBackend` — the throughput path on one GPU: the fused
-  megakernel (K2) for batches, the single-tile kernel (K1) for
-  singletons and demotions, the torch loop on the same device for tiles
-  the kernels decline (the counterpart of ``PallasBackend``).
+- :class:`CudaBackend` — the throughput path: the fused megakernel (K2)
+  for batches, split over every device of its ring when there are
+  several (the mesh route), the single-tile kernel (K1) for singletons
+  and demotions, the torch loop on the same device for tiles the
+  kernels decline (the counterpart of ``PallasBackend``);
+- the mesh backend lives in
+  :mod:`distributedmandelbrot_tpu_torch.parallel`.
 
 :func:`auto_backend` picks the CUDA path and raises when there is no
 GPU: the CPU is used only when a caller asks for it.
@@ -38,6 +41,8 @@ from distributedmandelbrot_tpu_torch.obs import names as obs_names
 from distributedmandelbrot_tpu_torch.obs.metrics import Registry
 from distributedmandelbrot_tpu_torch.ops import cuda_escape, escape_time
 from distributedmandelbrot_tpu_torch.ops import reference as ref_ops
+from distributedmandelbrot_tpu_torch.parallel.mesh import (Mesh, device_ring,
+                                                           make_mesh)
 
 logger = logging.getLogger("dmtpu.worker.backends")
 
@@ -192,21 +197,36 @@ class CudaBackend:
 
     ``device="cpu"`` runs the kernels' plain versions (the counterpart
     of the reference's interpret mode); a CUDA device without a GPU
-    raises.  The pipeline dispatches from its own threads: every launch
-    selects its device and runs on that device's current stream, and
-    device-to-host copies ride one copy stream per device.  The phase
-    split (dispatch vs materialize) lands in
+    raises.  The device ring (:meth:`devices`) is ``mesh``'s devices
+    when given, every local GPU for the default ``device="cuda"``, else
+    ``device`` alone; with more than one device a fused batch splits
+    over the ring, one K2 launch per device (the mesh route;
+    ``DMTPU_MESH=0`` opts out, and a batch the route declines takes the
+    one-device fused launch, counted as ``mesh_to_fused``).  The
+    pipeline dispatches from its own threads: every launch selects its
+    device and runs on that device's current stream, and device-to-host
+    copies ride one copy stream per device.  The phase split (dispatch
+    vs materialize) lands in
     :data:`~distributedmandelbrot_tpu_torch.obs.names.HIST_BACKEND_PHASE_SECONDS`.
     """
 
     def __init__(self, definition: int = CHUNK_WIDTH, clamp: bool = False,
-                 device="cuda", registry: Optional[Registry] = None) -> None:
+                 device="cuda", registry: Optional[Registry] = None,
+                 mesh: Optional[Mesh] = None) -> None:
         self.definition = definition
         self.clamp = clamp
         self.device = _resolve_device(device)
+        if mesh is None:
+            default = torch.device(device)
+            mesh = make_mesh(device_ring() if default == torch.device("cuda")
+                             else [self.device])
+        self.mesh = mesh
         # Escape hatch for the fused route (DMTPU_MEGA=0): dispatch_many
         # then degrades to a per-tile loop without touching callers.
         self._mega_enabled = os.environ.get("DMTPU_MEGA", "1") != "0"
+        # Escape hatch for the mesh route (DMTPU_MESH=0): fused batches
+        # then stay on one device per launch.
+        self._mesh_enabled = os.environ.get("DMTPU_MESH", "1") != "0"
         self.registry = registry if registry is not None else Registry()
         self.spans = None  # SpanRecorder once the worker binds one
         self._streams_lock = threading.Lock()
@@ -223,14 +243,18 @@ class CudaBackend:
         self.spans = recorder
 
     def devices(self) -> list:
-        """Dispatch targets: the one device of this slice."""
-        return [self.device]
+        """Dispatch targets, in the shared mesh placement order."""
+        return list(self.mesh.devices.flat)
 
     @property
     def mesh_width(self) -> int:
-        """Devices one fused launch spans: 1 (the mesh route is not
-        ported yet)."""
-        return 1
+        """Devices one fused launch spans on the mesh route (1 = the
+        route is off: a one-device ring, ``DMTPU_MESH=0``, or the fused
+        route itself disabled).  The pipelined executor reads this to
+        account dispatch permits per device, not per launch."""
+        if not (self._mega_enabled and self._mesh_enabled):
+            return 1
+        return max(1, self.mesh.devices.size)
 
     def _observe_phase(self, phase: str, seconds: float) -> None:
         self.registry.observe(obs_names.HIST_BACKEND_PHASE_SECONDS,
@@ -289,15 +313,23 @@ class CudaBackend:
                       device=None) -> list:
         """Fuse a same-shaped batch into ONE K2 launch on ``device``;
         returns per-tile :class:`MegaTileHandle` slices in workload
-        order.  A singleton batch, ``DMTPU_MEGA=0``, or a batch the
-        fused kernel declines goes through :meth:`dispatch_tile` per
-        tile (one declined tile demotes the whole batch, as in the
-        reference)."""
+        order.  With a ring of several devices and ``device=None`` (the
+        caller did not pin the launch), the batch splits over the ring
+        instead, one K2 launch per device (:meth:`mesh_width`).  A
+        singleton batch, ``DMTPU_MEGA=0``, or a batch the fused kernel
+        declines goes through :meth:`dispatch_tile` per tile (one
+        declined tile demotes the whole batch, as in the reference)."""
         if len(workloads) == 1 or not self._mega_enabled:
             return [self.dispatch_tile(w, device) for w in workloads]
-        dev = self.device if device is None else _resolve_device(device)
         specs = [_spec_for(w, self.definition) for w in workloads]
         t0 = time.monotonic()
+        if device is None and self.mesh_width > 1:
+            handles = self._dispatch_mesh(workloads, specs)
+            if handles is not None:
+                self._observe_phase(obs_names.PHASE_DISPATCH,
+                                    time.monotonic() - t0)
+                return handles
+        dev = self.device if device is None else _resolve_device(device)
         try:
             tiles, scout = cuda_escape.compute_tiles_mega_cuda(
                 specs, [w.max_iter for w in workloads], clamp=self.clamp,
@@ -313,6 +345,33 @@ class CudaBackend:
         self._observe_phase(obs_names.PHASE_DISPATCH, time.monotonic() - t0)
         return [MegaTileHandle(tiles[i], scout[i, 0], done, copy_stream)
                 for i in range(len(workloads))]
+
+    def _dispatch_mesh(self, workloads: Sequence[Workload],
+                       specs: list) -> Optional[list]:
+        """The mesh route: one K2 launch per ring device on its shard;
+        None (counted as ``mesh_to_fused``) when the route declines."""
+        from distributedmandelbrot_tpu_torch.parallel.sharding import (
+            compute_tiles_mega_sharded)
+        try:
+            tiles, scout = compute_tiles_mega_sharded(
+                specs, [w.max_iter for w in workloads], mesh=self.mesh,
+                clamp=self.clamp)
+        except cuda_escape.KernelUnsupported:
+            self._demoted(workloads[0], obs_names.ROUTE_MESH_TO_FUSED,
+                          len(workloads))
+            return None
+        launched: dict = {}
+        for t in tiles:  # every shard is enqueued: one event per device
+            if t.device not in launched:
+                launched[t.device] = self._launched(t.device)
+        n_dev = self.mesh.devices.size
+        self.registry.inc(obs_names.WORKER_KERNEL_FUSED_LAUNCHES)
+        self.registry.inc(obs_names.WORKER_KERNEL_FUSED_TILES,
+                          by=len(workloads))
+        self.registry.inc(obs_names.WORKER_MESH_LAUNCHES)
+        self.registry.inc(obs_names.WORKER_MESH_DEVICES, by=n_dev)
+        return [MegaTileHandle(t, c[0], *launched[t.device])
+                for t, c in zip(tiles, scout)]
 
     def materialize_tile(self, handle: TileHandle) -> np.ndarray:
         """Wait for one dispatched tile's device-to-host copy -> flat
@@ -357,6 +416,23 @@ class CudaBackend:
             self.spans.record(obs_names.SPAN_D2H, w.key, t0, t1)
             self.spans.record(obs_names.SPAN_COMPUTE, w.key, t_disp, t1)
         return out
+
+
+def recompute_unresolvable_f32(workloads: Sequence[Workload],
+                               out: list, definition: int, *,
+                               clamp: bool = False, device="cuda") -> list:
+    """Replace (by list-slot assignment, never in-place buffer writes)
+    the pixels of tiles whose pitch aliases in f32 with f64 recomputes
+    on ``device``.  The single copy of the recompute action shared by
+    the mesh backend and the multi-process worker; the threshold itself
+    is ``geometry.spec_f32_resolvable``."""
+    for i, w in enumerate(workloads):
+        spec = _spec_for(w, definition)
+        if not spec_f32_resolvable(spec):
+            out[i] = escape_time.compute_tile(spec, w.max_iter, clamp=clamp,
+                                              dtype=torch.float64,
+                                              device=device)
+    return out
 
 
 def auto_backend(definition: int = CHUNK_WIDTH, dtype=None):

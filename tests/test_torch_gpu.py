@@ -76,7 +76,9 @@ def test_launch_counts_count_card_launches_only(cuda):
     ce.compute_tiles_mega_cuda([spec, spec], [100, 300], device=cuda)
     ce.compute_tile_cuda_device(spec, 100, device="cpu")
     assert ce.launch_counts() == {ce.KERNEL_TILE: 1, ce.KERNEL_MEGA: 1,
-                                  ce.KERNEL_SMOOTH: 0, ce.KERNEL_PACK: 0}
+                                  ce.KERNEL_SMOOTH: 0, ce.KERNEL_PACK: 0,
+                                  ce.KERNEL_BATCH: 0, ce.KERNEL_STATE: 0,
+                                  ce.KERNEL_RESUME: 0}
 
 
 def test_a_refused_launch_raises(cuda):
@@ -209,3 +211,100 @@ def test_render_launches_its_kernel_once(cuda, tmp_path, flags, kernel):
     assert counts == {k: int(k == kernel) for k in counts}
     assert cli.kernel_declines() == {}
     assert out.read_bytes().startswith(b"\x89PNG")
+
+
+# --- the mesh routes' kernels ---------------------------------------------
+
+
+def _bits_equal(a, b):
+    return torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_k3_is_bitwise_its_plain_version_and_k1(cuda, mode):
+    kw = dict(MODES[mode])
+    jc = kw.pop("julia_c", None)
+    rows = np.asarray([ce._params_row(s, jc) for s in _views()], np.float32)
+    for mis in ([300, 5000, 2, 1100, 90], [700] * 5, [1] * 5):
+        got = ce.compute_tiles_batch_cuda(rows, mis, height=128, width=128,
+                                          device=cuda, **kw)
+        want = ce.compute_tiles_batch_cuda(rows, mis, height=128, width=128,
+                                           device="cpu", **kw)
+        assert torch.equal(got.cpu(), want), (mode, mis)
+        cyc = ce.escape_time.resolve_cycle_check(None, max(mis))
+        for t, (row, mi) in enumerate(zip(rows, mis)):
+            one = ce.compute_tile_row_cuda(row, mi, 128, 128,
+                                           cycle_check=cyc, device=cuda,
+                                           **kw)
+            assert torch.equal(got[t], one), (mode, mis, t)
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_k6_k7_and_the_pipeline_are_bitwise(cuda, mode):
+    """K6's six planes (floats as bits) and one K7 round against their
+    plain versions; the compacted pipeline, overflow included, equal to
+    K3."""
+    from distributedmandelbrot_tpu_torch.ops import compact_escape as cx
+    kw = dict(MODES[mode])
+    jc = kw.pop("julia_c", None)
+    rows = np.asarray([ce._params_row(s, jc) for s in _views()], np.float32)
+    mis = [700, 650, 200, 1000, 513]
+    planes = cx.escape_state_cuda(rows, mis, height=128, width=128,
+                                  device=cuda, **kw)
+    plain = cx.escape_state_plain(rows, mis, height=128, width=128,
+                                  device=cuda, **kw)
+    assert all(_bits_equal(a, b) for a, b in zip(planes, plain))
+    lanes = [t.reshape(-1).contiguous() for t in plain]
+    dyn = torch.from_numpy(np.repeat(np.asarray(mis, np.int32) - 1,
+                                     128 * 128)).to(cuda)
+    want = cx.escape_resume_plain(257, 256, dyn, *lanes, **kw)
+    cr, ci, zr, zi, n, act = (t.clone() for t in lanes)
+    got = cx.escape_resume_cuda(257, 256, dyn, cr, ci, zr, zi, n, act, **kw)
+    assert all(_bits_equal(a, b) for a, b in zip(got, want))
+    k3 = ce.compute_tiles_batch_cuda(rows, mis, height=128, width=128,
+                                     device=cuda, **kw)
+    for extra in ({}, {"cap_lanes": 4096, "phase_budget": 64,
+                       "seg_steps": 64}):
+        out = cx.compact_escape_batch(rows, mis, k=5, height=128, width=128,
+                                      max_iter=max(mis), device=cuda,
+                                      **kw, **extra)
+        assert torch.equal(out, k3), extra
+
+
+def test_a_ring_naming_one_card_twice_equals_one_device(cuda):
+    """Two shards on ``[cuda:0, cuda:0]`` (two streams): the kernels'
+    batch route, the fused route, ``MeshBackend`` and
+    ``CudaBackend.dispatch_many`` each equal their one-device result;
+    row shards equal the unsharded loop."""
+    from distributedmandelbrot_tpu_torch.parallel import MeshBackend
+    from distributedmandelbrot_tpu_torch.parallel import sharding as sh
+    from distributedmandelbrot_tpu_torch.parallel.backend import batch_params
+    from distributedmandelbrot_tpu_torch.parallel.mesh import (make_mesh,
+                                                               tile_row_mesh)
+    one, two = make_mesh([cuda]), make_mesh([cuda, cuda])
+    ws = [Workload(4, mi, i, j) for (i, j), mi in zip(
+        [(0, 0), (1, 1), (1, 2), (2, 1), (3, 3)], [300, 50, 5000, 1, 120])]
+    params, mrds = batch_params(ws, 512)
+    a = sh.batched_escape_pixels_cuda(two, params, mrds, definition=512)
+    assert np.array_equal(a, sh.batched_escape_pixels_cuda(
+        one, params, mrds, definition=512))
+    specs = [TileSpec.for_chunk(w.level, w.index_real, w.index_imag,
+                                definition=512) for w in ws]
+    mis = [max(2, w.max_iter) for w in ws]
+    tiles, scout = sh.compute_tiles_mega_sharded(specs, mis, mesh=two)
+    ftiles, fscout = ce.compute_tiles_mega_cuda(specs, mis, device=cuda)
+    assert torch.equal(torch.stack(tiles), ftiles)
+    assert torch.equal(torch.stack(scout), fscout)
+    got = MeshBackend(definition=512, mesh=two).compute_batch(ws)
+    assert all(np.array_equal(g, a[i].ravel()) for i, g in enumerate(got))
+    ring = bk.CudaBackend(definition=512, mesh=two)
+    assert ring.mesh_width == 2
+    got = [ring.materialize_tile(h) for h in ring.dispatch_many(ws)]
+    want = [ring.materialize_tile(h)
+            for h in ring.dispatch_many(ws, device=cuda)]
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    spec = TileSpec(-0.8, 0.1, 0.2, 0.2, width=512, height=512)
+    assert np.array_equal(
+        sh.compute_tile_row_sharded(tile_row_mesh(1, 2, [cuda, cuda]),
+                                    spec, 300),
+        sh.compute_tile_row_sharded(tile_row_mesh(1, 1, [cuda]), spec, 300))

@@ -57,7 +57,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["forbidden"] == []
     for mod in ("ops.cuda_escape", "ops.escape_time", "ops._build",
-                "ops.families", "serve.render", "viewer.render",
+                "ops.families", "ops.compact_escape", "parallel",
+                "parallel.mesh", "parallel.sharding", "parallel.backend",
+                "parallel.multihost", "serve.render", "viewer.render",
                 "worker.backends", "worker.pipeline", "cli", "__main__"):
         assert f"distributedmandelbrot_tpu_torch.{mod}" in report["modules"]
 
@@ -109,4 +111,6 @@ def test_names_only_add_the_demotion_counter():
             if line not in ref and line and not line.startswith("#")]
     assert code == ['WORKER_KERNEL_DEMOTIONS = "worker_kernel_demotions"',
                     'ROUTE_FUSED_TO_PER_TILE = "fused_to_per_tile"',
-                    'ROUTE_PER_TILE_TO_TORCH = "per_tile_to_torch"']
+                    'ROUTE_PER_TILE_TO_TORCH = "per_tile_to_torch"',
+                    'ROUTE_MESH_TO_FUSED = "mesh_to_fused"',
+                    'ROUTE_BATCH_TO_TORCH = "batch_to_torch"']

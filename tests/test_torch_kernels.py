@@ -252,4 +252,6 @@ def test_launch_counts_count_only_kernel_launches():
     ce.compute_tile_cuda_device(_spec("sky"), 10, device="cpu")
     ce.compute_tiles_mega_cuda([_spec("sky")] * 2, [10, 10], device="cpu")
     assert ce.launch_counts() == {ce.KERNEL_TILE: 0, ce.KERNEL_MEGA: 0,
-                                  ce.KERNEL_SMOOTH: 0, ce.KERNEL_PACK: 0}
+                                  ce.KERNEL_SMOOTH: 0, ce.KERNEL_PACK: 0,
+                                  ce.KERNEL_BATCH: 0, ce.KERNEL_STATE: 0,
+                                  ce.KERNEL_RESUME: 0}

@@ -378,4 +378,6 @@ def test_new_launch_counts_stay_zero_on_the_cpu():
     ce.compute_tiles_packed_cuda([sky, sky], [10, 10], device="cpu")
     ce.compute_tile_cuda_device(sky, 10, burning=True, device="cpu")
     assert ce.launch_counts() == {ce.KERNEL_TILE: 0, ce.KERNEL_MEGA: 0,
-                                  ce.KERNEL_SMOOTH: 0, ce.KERNEL_PACK: 0}
+                                  ce.KERNEL_SMOOTH: 0, ce.KERNEL_PACK: 0,
+                                  ce.KERNEL_BATCH: 0, ce.KERNEL_STATE: 0,
+                                  ce.KERNEL_RESUME: 0}
