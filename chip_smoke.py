@@ -18,7 +18,12 @@ JSON line; any failure raises and the script exits non-zero.
    against K1 per tile; K1's Julia, Multibrot-3 and Burning-Ship modes,
    K4 (``escape_smooth``) in every mode and K5 (``escape_pack``, n = 2
    and 4, mixed budgets, every mode, each plane also against K1) on the
-   128^2 views and one 4096^2 view per kernel.
+   128^2 views and one 4096^2 view per kernel; K8, the matrix form, in
+   K1 and in K2 (k = 2 and 4, mixed budgets 256/1024/2000, Mandelbrot
+   and Julia), K2 in its Julia, Multibrot-3 and Burning-Ship modes, each
+   against its plain version (the census as integers) and per tile
+   against K1, and, where the probe admits full mode, the matrix form
+   against the cached form (128^2 views, 4096^2 chunks).
 3. golden: the all-escaping sky chunk bitwise against the numpy golden
    at 4096^2; bulb and seahorse chunks at 512^2 through the backend's
    fused route (proven-interior pixels bitwise, <= 2% off-mask).
@@ -45,19 +50,30 @@ JSON line; any failure raises and the script exits non-zero.
    the ring ``[cuda:0, cuda:0]`` (two shards, two streams): MeshBackend,
    ``CudaBackend.dispatch_many`` and the row-sharded torch loop, each
    bitwise its one-device result.
-8. multihost: the script re-launches itself as two ``gloo`` ranks on
+8. mxu_path: the ``DMTPU_MXU`` gate on the fused route: the card's
+   probe verdict and its differing lanes; 16 chunks of the main path's
+   profile drained by the pipelined ``CudaBackend`` with ``DMTPU_MXU=0``,
+   then ``=1`` on one device and on the ring ``[cuda:0, cuda:0]`` (full
+   mode: matrix-form launches equal the fused launches, no demotion),
+   then with the census verdict forced (demotions counted, census pixels
+   > 0, no census failure); every drain's chunks bitwise those of
+   ``DMTPU_MXU=0``.  Then one 4096^2 batch per K2 mode through
+   ``compute_tiles_mega_sharded`` on the ring, each tile against K1.
+9. multihost: the script re-launches itself as two ``gloo`` ranks on
    ``cuda:0``; each runs ``batched_escape_pixels_multihost`` on its half
    of a 4-chunk level-10 batch at budget 5000 (K3 on two chunks), and
    the gathered result must equal K3 on the whole batch in this
    process, bitwise.  A rank that fails or outlives its timeout fails
    the phase.
-9. kernels: per kernel, its launches on the paths above and its median
+10. kernels: per kernel, its launches on the paths above and its median
    time by CUDA events at 4096^2 beside the plain version's and the
    bound (the larger of its f32 operations over the non-FMA f32 rate
    and the bytes it must move over the memory rate); K1 per mode, K5
    beside four K1 launches on the same windows, and the compacted
    pipeline's wall time beside K3's on one 4-chunk batch with the warp
-   lane-steps each issues over the steps the pixels need.
+   lane-steps each issues over the steps the pixels need; K8 in K2
+   beside K2 in the same run, with the static f32 instructions of each
+   K1/K2 instantiation (``cuobjdump -sass``), and K2 in each mode.
 
 The second-to-last line is ``nvidia-smi``'s name and power limit, the
 last ``{"ok": true, "device": {...}}``.
@@ -100,6 +116,11 @@ REPLACES = {
     "escape_batch": "distributedmandelbrot_tpu/ops/pallas_escape.py:493",
     "escape_state": "distributedmandelbrot_tpu/ops/compact_escape.py:95",
     "escape_resume": "distributedmandelbrot_tpu/ops/compact_escape.py:167",
+    "escape_mega_mxu": "distributedmandelbrot_tpu/ops/mxu_iteration.py:65",
+    "escape_mega_julia": "distributedmandelbrot_tpu/ops/pallas_escape.py:638",
+    "escape_mega_multibrot":
+        "distributedmandelbrot_tpu/ops/pallas_escape.py:638",
+    "escape_mega_ship": "distributedmandelbrot_tpu/ops/pallas_escape.py:638",
 }
 # K6 writes c, z (f32) and n, act (int32) per pixel; K7 reads c, z, n,
 # act and the budget and writes z, n, act per lane and round.
@@ -113,6 +134,15 @@ JULIA_C = complex(-0.8, 0.156)
 # K1's modes, as wrapper keywords.
 MODES = {"mandelbrot": {}, "julia": {"julia_c": JULIA_C},
          "multibrot3": {"power": 3}, "ship": {"burning": True}}
+# K2's modes beyond Mandelbrot (the suffixes of their launch counters).
+MEGA_MODES = {"julia": MODES["julia"], "multibrot": MODES["multibrot3"],
+              "ship": MODES["ship"]}
+# K8's f32 operations per step as written: 4 multiplies and 2 adds for
+# the 2x2 product, 2 adds of c, 2 squares and 1 add for |z|^2.  A note
+# only: the function needs OPS_PER_STEP (rn(zi*zr) + rn(zr*zi) equals
+# rn(rn(zr+zr)*zi) bit for bit wherever the probe admits the form, and
+# the next step's squares are |z|^2's), so the bound counts that.
+MXU_OPS_AS_WRITTEN = 11
 # The supersampled render's subpixel offsets (cli._SS_OFFSETS).
 SS4 = ((-0.25, -0.25), (0.25, -0.25), (-0.25, 0.25), (0.25, 0.25))
 
@@ -263,6 +293,47 @@ class GrantSource:
         return [True] * len(results)
 
 
+def kernel_name(mangled: str) -> str:
+    """``escape_mega_kernel<0,1>`` from its mangled name: a length
+    prefix, the name, then ``I<L[ib]n E...>E`` template arguments."""
+    m = re.search(r"\d((?:escape_[a-z]+|mxu_probe)_kernel)"
+                  r"(?:I((?:L[ib]\d+E)+)E)?", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def sass_f32_ops(build) -> dict | str:
+    """Static f32 arithmetic instructions (FMUL, FADD, FFMA) of each K1
+    and K2 instantiation in the built library's SASS (``cuobjdump
+    -sass``): whether nvcc kept the matrix form's recomputed squares or
+    merged them, and that no FMA was formed."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        out = subprocess.run([tool, "-sass", str(build.library_path())],
+                             capture_output=True, text=True, timeout=300,
+                             check=True).stdout
+    except (OSError, subprocess.SubprocessError) as exc:
+        return f"not measured ({type(exc).__name__})"
+    per: dict = {}
+    cur = None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = kernel_name(m.group(1))
+            cur = (per.setdefault(name, {"FMUL": 0, "FADD": 0, "FFMA": 0})
+                   if name.startswith(("escape_tile", "escape_mega"))
+                   else None)
+            continue
+        if cur is not None:
+            m = re.search(r"\b(FMUL|FADD|FFMA)(?:32I)?\b", line)
+            if m:
+                cur[m.group(1)] += 1
+    return per
+
+
 def phase_device(build):
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -274,12 +345,7 @@ def phase_device(build):
     for row in build.ptxas_report():
         # Mangled: a length prefix, the name, then I<Li..E...>E template
         # arguments.
-        m = re.search(r"\d(escape_[a-z]+_kernel)(?:I((?:Li\d+E)+)E)?",
-                      row["kernel"])
-        kname = row["kernel"]
-        if m:
-            args = re.findall(r"Li(\d+)E", m.group(2) or "")
-            kname = m.group(1) + (f"<{','.join(args)}>" if args else "")
+        kname = kernel_name(row["kernel"])
         regs.append({"kernel": kname,
                      "registers": row.get("registers"),
                      "spill_stores": row.get("spill_stores"),
@@ -303,7 +369,8 @@ def phase_kernel_vs_plain(ce, TileSpec):
                                                          (3, 3))]
     err = {"escape_tile": 0, "escape_mega": 0, "escape_smooth": 0.0,
            "escape_pack": 0, "escape_batch": 0, "escape_state": 0.0,
-           "escape_resume": 0.0}
+           "escape_resume": 0.0, "escape_tile_mxu": 0, "escape_mega_mxu": 0,
+           **{f"escape_mega_{m}": 0 for m in MEGA_MODES}}
     cases = 0
 
     def check(name, got, want, what):
@@ -383,6 +450,7 @@ def phase_kernel_vs_plain(ce, TileSpec):
                 check("escape_pack", got[t], one,
                       f"K1's plain version per state ({mode}, {mis})")
     check_mesh_kernels(ce, TileSpec, views, check)
+    check_mxu_and_mega_modes(ce, TileSpec, views, chunks, check)
     torch.cuda.synchronize()
     emit({"phase": "kernel_vs_plain", "ok": True, "cases": cases,
           "bitwise": True, "max_abs_err": err})
@@ -391,6 +459,81 @@ def phase_kernel_vs_plain(ce, TileSpec):
 
 def mode_args(kw: dict) -> dict:
     return dict(power=kw.get("power", 2), burning=kw.get("burning", False))
+
+
+def mega_kw(kw: dict, k: int) -> dict:
+    """K2 keywords of a K1 mode for k tiles (one Julia constant each)."""
+    kw = dict(kw)
+    jc = kw.pop("julia_c", None)
+    if jc is not None:
+        kw["julia_cs"] = [jc] * k
+    return kw
+
+
+def check_mxu_and_mega_modes(ce, TileSpec, views, chunks, check) -> None:
+    """K8 and K2's modes, bitwise: K1 in the matrix form (Mandelbrot and
+    Julia) against its plain version on the 128^2 views and the 4096^2
+    chunks at budgets 256, 1024 and 2000; K2 in the matrix form at k = 2
+    and 4 with mixed budgets 256/1024/2000 (census armed), Mandelbrot and
+    Julia, and K2 in its Julia, Multibrot-3 and Burning-Ship modes on the
+    128^2 views and one 4096^2 pair, each against its plain version
+    (census compared as integers) and per tile against K1 in the same
+    mode.  Where the probe admits full mode, the matrix form also equals
+    the cached form (128^2 views, and the 4096^2 chunks (10,3,5),
+    (10,3,4) at 1024)."""
+    from distributedmandelbrot_tpu_torch.ops import mxu_iteration as mxu
+    dev = torch.device("cuda", 0)
+    admitted = mxu.mxu_parity_proven(dev)
+    for mi in (256, 1024, 2000):
+        cyc = ce.escape_time.resolve_cycle_check(None, mi)
+        for spec in views + chunks:
+            for jc in ((None, JULIA_C) if spec.width == 128 else (None,)):
+                got = ce.compute_tile_cuda_device(spec, mi, use_mxu=True,
+                                                  julia_c=jc, device=dev)
+                want = ce.escape_tile_plain(
+                    ce._params_row(spec, jc), mi, spec.height, spec.width,
+                    cycle_check=cyc, use_mxu=True, device=dev)
+                check("escape_tile_mxu", got, want, f"plain at mi {mi}")
+                if admitted:
+                    check("escape_tile_mxu", got, ce.compute_tile_cuda_device(
+                        spec, mi, julia_c=jc, device=dev),
+                        f"the cached form at mi {mi}")
+    deep = [TileSpec.for_chunk(10, 3, 5), TileSpec.for_chunk(10, 3, 4)]
+    sets = [(views[:2], [2000, 256]), (views[:4], [256, 1024, 2000, 300]),
+            (chunks[:2], [1024, 2000]), (deep, [1024, 1024])]
+
+    def against_plain_and_k1(name, specs, mis, k1_kw, **kw):
+        tiles, census = ce.compute_tiles_mega_cuda(specs, mis, device=dev,
+                                                   **kw)
+        rows, mrds, pkw = ce.mega_dispatch_plan(specs, mis, **kw)
+        ptiles, pcensus = ce.escape_mega_plain(rows, mrds, device=dev, **pkw)
+        check(name, tiles, ptiles, f"plain ({mis})")
+        check(name, census, pcensus, f"the plain census ({mis})")
+        cyc = ce.escape_time.resolve_cycle_check(None, max(mis))
+        for t, (spec, mi) in enumerate(zip(specs, mis)):
+            one = ce.compute_tile_cuda_device(spec, mi, cycle_check=cyc,
+                                              device=dev, **k1_kw)
+            check(name, tiles[t], one, f"K1 per tile ({mis})")
+        return tiles
+
+    for specs, mis in sets:
+        for jc in ((None, JULIA_C) if specs[0].width == 128 else (None,)):
+            jkw = mega_kw({"julia_c": jc}, len(specs)) if jc else {}
+            tiles = against_plain_and_k1(
+                "escape_mega_mxu", specs, mis,
+                {"use_mxu": True, "julia_c": jc}, use_mxu=True, **jkw)
+            if admitted:
+                cached, _ = ce.compute_tiles_mega_cuda(
+                    specs, mis, use_mxu=False, device=dev, **jkw)
+                check("escape_mega_mxu", tiles, cached,
+                      f"the cached form ({mis})")
+    for mode, kw in MEGA_MODES.items():
+        for specs, mis in ((views[:4], [256, 1024, 2000, 300]),
+                           ([render_view(mode, TileSpec),
+                             neighbour(render_view(mode, TileSpec))],
+                            [1024, 2000])):
+            against_plain_and_k1(f"escape_mega_{mode}", specs, mis, kw,
+                                 **mega_kw(kw, len(specs)))
 
 
 def check_mesh_kernels(ce, TileSpec, views, check) -> int:
@@ -894,6 +1037,169 @@ def phase_mesh_path(wk, ce, parallel, TileSpec, Workload):
     return launches
 
 
+# The MXU path's drain: 16 chunks of the main path's profile, four of
+# level 4 at budget 256 and twelve of level 10 at 1024 along the seahorse
+# valley (the main path's heaviest chunks).
+MXU_DRAIN = ([(4, 256, i, 0) for i in range(4)]
+             + [(10, 1024, i, j) for i, j in LEVEL10[:12]])
+
+
+def drain_fused(wk, names, workloads, mesh=None):
+    """One drain of ``workloads`` by the pipelined Worker with
+    CudaBackend (depth 2, window 4, batches of 4), launch counts set to
+    0 just before -> (crc by key, {launches, counters}, wall)."""
+    from distributedmandelbrot_tpu_torch.ops import cuda_escape as ce
+    source = GrantSource(workloads, [])
+    backend = wk.CudaBackend(mesh=mesh)
+    worker = wk.Worker(source, backend, batch_size=4, window=4, depth=2)
+    torch.cuda.synchronize()
+    ce.reset_launch_counts()
+    t0 = time.monotonic()
+    worker.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    cv = worker.registry.counter_value
+    counters = {name: cv(getattr(names, name)) or 0 for name in (
+        "WORKER_KERNEL_FUSED_LAUNCHES", "WORKER_KERNEL_MXU_LAUNCHES",
+        "WORKER_KERNEL_MXU_DEMOTIONS", "WORKER_KERNEL_MXU_CENSUS",
+        "WORKER_MXU_CENSUS_FAILURES", "WORKER_MESH_LAUNCHES")}
+    counters["demotions"] = {r: backend.demotions(r) for r in (
+        names.ROUTE_FUSED_TO_PER_TILE, names.ROUTE_PER_TILE_TO_TORCH,
+        names.ROUTE_MESH_TO_FUSED)}
+    missing = [w.key for w in workloads if w.key not in source.crc]
+    if missing or source.bad_sizes:
+        raise AssertionError(f"fused drain: missing {missing[:5]}, bad "
+                             f"sizes {source.bad_sizes[:5]}")
+    return source.crc, {"launches": ce.launch_counts(),
+                        "counters": counters}, wall
+
+
+def phase_mxu_path(wk, ce, names, TileSpec, Workload):
+    """The DMTPU_MXU gate on the worker's fused route: the card's probe
+    verdict; 16 chunks drained with DMTPU_MXU=0, then with DMTPU_MXU=1 on
+    one device and on the ring [cuda:0, cuda:0] (full mode where the
+    probe admits it), then with the census verdict forced on both.
+    Every drain's chunks must equal the DMTPU_MXU=0 drain's, bitwise.
+    Last, one 4096^2 batch per K2 mode through the mesh entry
+    (``compute_tiles_mega_sharded`` on the ring) under DMTPU_MXU=1, each
+    tile against K1 by checksum."""
+    from distributedmandelbrot_tpu_torch.ops import mxu_iteration as mxu
+    from distributedmandelbrot_tpu_torch.parallel import sharding as sh
+    from distributedmandelbrot_tpu_torch.parallel.mesh import make_mesh
+    dev = torch.device("cuda", 0)
+    t_phase = time.monotonic()
+    mxu.reset_mxu_cache()
+    differing = mxu.probe_differences(dev)
+    admitted = mxu.mxu_parity_proven(dev)
+    planes = mxu.probe_planes(dev).cpu()
+    cpu_planes = mxu.probe_planes("cpu")
+    nan_both = planes.isnan() & cpu_planes.isnan()
+    vs_cpu = planes.view(torch.int32) != cpu_planes.view(torch.int32)
+    probe = {"verdict": "full" if admitted else "census",
+             "differing_lanes": differing,
+             "lanes": mxu.PROBE_N * mxu.PROBE_N, "steps": mxu.PROBE_STEPS,
+             "planes_vs_cpu_plain_differing_values": int(vs_cpu.sum()),
+             "of_which_nan_on_both": int((vs_cpu & nan_both).sum())}
+    workloads = [Workload(*g) for g in MXU_DRAIN]
+    ring = make_mesh([dev, dev])
+    base, base_stats, base_wall = drain_fused(wk, names, workloads)
+    drains = {"mxu0": dict(base_stats, seconds=base_wall)}
+    os.environ[mxu.MXU_ENV] = "1"
+    try:
+        runs = [("mxu1", None, None), ("mxu1_ring", ring, None),
+                ("census", None, False), ("census_ring", ring, False)]
+        for name, mesh, forced in runs:
+            if forced is not None:
+                mxu._parity_cache[("cuda", 0)] = forced
+            crc, stats, wall = drain_fused(wk, names, workloads, mesh)
+            c, n = stats["counters"], stats["launches"]
+            fused = c["WORKER_KERNEL_FUSED_LAUNCHES"]
+            full = forced is None and admitted
+            differ = [k for k in base if crc.get(k) != base[k]]
+            problems = []
+            if differ:
+                problems.append(f"{len(differ)} chunks differ from "
+                                f"DMTPU_MXU=0: {differ[:3]}")
+            if fused <= 0 or any(c["demotions"].values()):
+                problems.append("no fused launch, or a demotion")
+            if full and (c["WORKER_KERNEL_MXU_LAUNCHES"] != fused
+                         or c["WORKER_KERNEL_MXU_DEMOTIONS"]
+                         or n["escape_mega"] or n["escape_mega_mxu"] <= 0):
+                problems.append("full mode: matrix-form launches do not "
+                                "match the fused launches")
+            if not full and (c["WORKER_KERNEL_MXU_DEMOTIONS"] != fused
+                             or c["WORKER_KERNEL_MXU_LAUNCHES"]
+                             or c["WORKER_KERNEL_MXU_CENSUS"] <= 0
+                             or n["escape_mega_mxu"]
+                             or n["escape_mega"] <= 0):
+                problems.append("census mode: counters off")
+            if c["WORKER_MXU_CENSUS_FAILURES"]:
+                problems.append("census shadow failures")
+            if (mesh is not None) != bool(c["WORKER_MESH_LAUNCHES"]):
+                problems.append("the ring route was not taken")
+            if problems:
+                raise AssertionError(f"mxu_path {name}: {problems}; {stats}")
+            drains[name] = dict(stats, seconds=wall,
+                                mode="full" if full else "census",
+                                chunks_equal_mxu0=len(base))
+    finally:
+        os.environ.pop(mxu.MXU_ENV, None)
+        mxu.reset_mxu_cache()
+    # K2's modes through the mesh entry, the gate resolved per batch:
+    # each mode with the gate off, and Julia again under DMTPU_MXU=1 (the
+    # matrix form where the probe admits it).  The counts are read before
+    # the K1 launches that check the tiles.
+    torch.cuda.synchronize()
+    ce.reset_launch_counts()
+    batches = []
+    mis = [1024, 2000, 256, 1024]
+    for mode, gate in (("julia", "0"), ("multibrot", "0"), ("ship", "0"),
+                       ("julia", "1")):
+        specs = [render_view(mode, TileSpec),
+                 neighbour(render_view(mode, TileSpec))] * 2
+        os.environ[mxu.MXU_ENV] = gate
+        try:
+            tiles, _ = sh.compute_tiles_mega_sharded(
+                specs, mis, mesh=ring, **mega_kw(MEGA_MODES[mode],
+                                                 len(specs)))
+        finally:
+            os.environ.pop(mxu.MXU_ENV, None)
+        batches.append((mode, gate, specs, tiles))
+    torch.cuda.synchronize()
+    mode_launches = ce.launch_counts()
+    mxu.reset_mxu_cache()
+    modes = {}
+    cyc = ce.escape_time.resolve_cycle_check(None, max(mis))
+    for mode, gate, specs, tiles in batches:
+        for t, (spec, mi) in enumerate(zip(specs, mis)):
+            one = ce.compute_tile_cuda_device(spec, mi, device=dev,
+                                              cycle_check=cyc,
+                                              **MEGA_MODES[mode])
+            if not torch.equal(tiles[t], one):
+                raise AssertionError(f"mxu_path: K2 ({mode}, DMTPU_MXU="
+                                     f"{gate}) tile {t} differs from K1")
+        modes[f"{mode}_mxu{gate}"] = {"tiles": len(specs), "max_iters": mis,
+                                      "equal_k1": True}
+    want = ["escape_mega_julia", "escape_mega_multibrot", "escape_mega_ship"]
+    if admitted:
+        want.append("escape_mega_mxu")
+    if any(mode_launches[k] <= 0 for k in want):
+        raise AssertionError(f"mxu_path modes: launches {mode_launches}")
+    launches = {}
+    for name in ("mxu1", "mxu1_ring", "census", "census_ring"):
+        for k, v in drains[name]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    for k, v in mode_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    emit({"phase": "mxu_path", "ok": True, "probe": probe,
+          "chunks": len(workloads), "drains": drains,
+          "mode_batches": modes, "mode_launches": mode_launches,
+          "launches": launches, "seconds": time.monotonic() - t_phase,
+          "timing": "host clock around run_until_drained(), ended by "
+                    "torch.cuda.synchronize()"})
+    return launches
+
+
 def run_rank(rank: int, port: int, out: str) -> int:
     """One rank of the multihost phase (``chip_smoke.py --rank R --port P
     --out DIR``): half of the EDGE4 batch at budget 5000 on cuda:0."""
@@ -985,16 +1291,24 @@ def warp_steps(steps) -> int:
 
 
 def bound(f32_steps: int, scout_steps: int, out_bytes: int,
-          per_step: int = OPS_PER_STEP, extra_ops: int = 0):
+          per_step: int = OPS_PER_STEP, extra_ops: int = 0,
+          scout_per_step: int = OPS_PER_STEP):
     """(bound_ms, bound_by, ops): the kernel's operations (``per_step``
-    per f32 step, the bf16 scout's scalar ops counted at the same rate,
-    plus ``extra_ops``) over the f32 non-FMA rate, against its output
-    bytes over the memory rate."""
-    ops = f32_steps * per_step + scout_steps * OPS_PER_STEP + extra_ops
+    per f32 step, the bf16 scout's ``scout_per_step`` scalar ops counted
+    at the same rate, plus ``extra_ops``) over the f32 non-FMA rate,
+    against its output bytes over the memory rate."""
+    ops = f32_steps * per_step + scout_steps * scout_per_step + extra_ops
     t_ops = ops / F32_OPS_PER_S
     t_bytes = out_bytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", ops)
+
+
+def neighbour(spec):
+    """The window a quarter span to the right of ``spec``."""
+    return type(spec)(spec.start_real + spec.range_real / 4,
+                      spec.start_imag, spec.range_real, spec.range_imag,
+                      spec.width, spec.height)
 
 
 def render_view(mode: str, TileSpec):
@@ -1194,7 +1508,75 @@ def time_mesh_kernels(ce, TileSpec, dev) -> dict:
     return out
 
 
-def phase_kernels(ce, TileSpec, launches, err):
+def time_mxu_and_modes(ce, TileSpec, dev, specs, mis, k2_tiles) -> dict:
+    """K8 in K2 on the main path's heaviest pair (``specs`` at ``mis``),
+    against its plain version and, where the probe admits full mode, the
+    cached-form tiles ``k2_tiles``; K8 in K1 on the first chunk; K2 in
+    each mode on its render view and the neighbouring window at 1024."""
+    from distributedmandelbrot_tpu_torch.ops import mxu_iteration as mxu
+    out = {}
+    rows, mrds, kw = ce.mega_dispatch_plan(specs, mis, use_mxu=True)
+    tiles, census = ce.compute_tiles_mega_cuda(specs, mis, use_mxu=True,
+                                               device=dev)
+    ptiles, pcensus, psteps, pscout = ce.escape_mega_plain(
+        rows, mrds, device=dev, return_steps=True, **kw)
+    admitted = mxu.mxu_parity_proven(dev)
+    b_ms, b_by, ops = bound(int(psteps.sum()), sum(pscout),
+                            len(specs) * 4096 * 4096)
+    out["escape_mega_mxu"] = {
+        "ms": median_ms(lambda: ce.compute_tiles_mega_cuda(
+            specs, mis, use_mxu=True, device=dev), reps=50),
+        "plain_ms": median_ms(lambda: ce.escape_mega_plain(
+            rows, mrds, device=dev, **kw), reps=3, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "ops": ops,
+        "ops_per_step": OPS_PER_STEP,
+        "ops_per_step_as_written": MXU_OPS_AS_WRITTEN,
+        "bitwise_vs_plain": bool(torch.equal(tiles, ptiles)
+                                 and torch.equal(census, pcensus)),
+        "probe_admits_full": admitted,
+        "bitwise_vs_cached_k2": bool(torch.equal(tiles, k2_tiles)),
+        "k1_mxu_ms": median_ms(lambda: ce.compute_tile_cuda_device(
+            specs[0], mis[0], use_mxu=True, device=dev), reps=50),
+        "f32_steps": int(psteps.sum()), "f32_warp_steps": warp_steps(psteps),
+        "scout_steps": sum(pscout),
+        "input": "k=2: chunks (10, 3, 5) and (10, 3, 4) at 4096^2, "
+                 "max_iter 1024, census armed, use_mxu=True"}
+    if admitted and not out["escape_mega_mxu"]["bitwise_vs_cached_k2"]:
+        raise AssertionError("K8 differs from the cached form where the "
+                             "probe admits it")
+    for mode, mkw in MEGA_MODES.items():
+        view = render_view(mode, TileSpec)
+        mspecs, mmis = [view, neighbour(view)], [1024, 1024]
+        kwm = mega_kw(mkw, 2)
+        rows, mrds, pkw = ce.mega_dispatch_plan(mspecs, mmis, **kwm)
+        tiles, census = ce.compute_tiles_mega_cuda(mspecs, mmis, device=dev,
+                                                   **kwm)
+        ptiles, pcensus, psteps, pscout = ce.escape_mega_plain(
+            rows, mrds, device=dev, return_steps=True, **pkw)
+        per = ops_per_step(mkw)
+        b_ms, b_by, ops = bound(int(psteps.sum()), sum(pscout),
+                                2 * 4096 * 4096, per_step=per,
+                                scout_per_step=per)
+        out[f"escape_mega_{mode}"] = {
+            "ms": median_ms(lambda: ce.compute_tiles_mega_cuda(
+                mspecs, mmis, device=dev, **kwm), reps=20),
+            "plain_ms": median_ms(lambda: ce.escape_mega_plain(
+                rows, mrds, device=dev, **pkw), reps=2, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by, "ops": ops,
+            "ops_per_step": per,
+            "bitwise_vs_plain": bool(torch.equal(tiles, ptiles)
+                                     and torch.equal(census, pcensus)),
+            "f32_steps": int(psteps.sum()),
+            "f32_warp_steps": warp_steps(psteps),
+            "scout_steps": sum(pscout),
+            "input": f"k=2: the {mode} render view (span 3"
+                     f"{', d = 3' if mode == 'multibrot' else ''}) and the "
+                     "window a quarter span right, at 4096^2, max_iter "
+                     "1024, census armed"}
+    return out
+
+
+def phase_kernels(ce, TileSpec, launches, err, build):
     dev = torch.device("cuda", 0)
     # The main path's heaviest inputs: level-10 chunks at budget 1024 on
     # the seahorse valley's edge (chunk (3, 5) spans [-0.8,-0.4]x[0,0.4]).
@@ -1261,9 +1643,11 @@ def phase_kernels(ce, TileSpec, launches, err):
     modes = time_k1_modes(ce, TileSpec, dev)
     mesh = time_mesh_kernels(ce, TileSpec, dev)
     finding = mesh.pop("compaction_vs_k3")
+    mxu_modes = time_mxu_and_modes(ce, TileSpec, dev, specs, mis, tiles)
 
     if not (k1_bitwise and k2_bitwise and k4_bitwise and k5_bitwise
             and all(m["bitwise_vs_plain"] for m in mesh.values())
+            and all(m["bitwise_vs_plain"] for m in mxu_modes.values())
             and finding["compact_bitwise_vs_k3"]):
         raise AssertionError("timed kernels differ from their plain versions")
 
@@ -1329,6 +1713,17 @@ def phase_kernels(ce, TileSpec, launches, err):
             "max_abs_err": err[name], "library_ms": None,
             "library_reason": NO_LIBRARY, **m})
     kernels[-1]["compaction_vs_k3"] = finding
+    sass = sass_f32_ops(build)
+    for name, m in mxu_modes.items():
+        row = {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+               "replaces": REPLACES[name], **runs(name),
+               "max_abs_err": err[name], "library_ms": None,
+               "library_reason": NO_LIBRARY, **m}
+        if name == "escape_mega_mxu":
+            row["k1_mxu"] = runs("escape_tile_mxu")
+            row["k2_cached_ms_same_run"] = k2_ms
+            row["sass_f32_ops"] = sass
+        kernels.append(row)
     return kernels
 
 
@@ -1355,12 +1750,14 @@ def main() -> int:
     phase_main_path_profile(wk, workloads)
     render_launches = phase_render_path(ce, cli, srender, TileSpec)
     mesh_launches = phase_mesh_path(wk, ce, parallel, TileSpec, Workload)
+    mxu_launches = phase_mxu_path(wk, ce, names, TileSpec, Workload)
     multihost_launches = phase_multihost(ce, TileSpec)
     kernels = phase_kernels(ce, TileSpec, {"main_path": main_launches,
                                            "render_path": render_launches,
                                            "mesh_path": mesh_launches,
+                                           "mxu_path": mxu_launches,
                                            "multihost": multihost_launches},
-                            err)
+                            err, _build)
     emit({"phase": "kernels", "ok": True,
           "seconds_total": time.monotonic() - t_start,
           "card": smi, "kernels": kernels})

@@ -121,6 +121,10 @@ WORKER_MESH_DEVICES = "worker_mesh_devices"
 WORKER_KERNEL_MXU_LAUNCHES = "worker_kernel_mxu_launches"
 WORKER_KERNEL_MXU_DEMOTIONS = "worker_kernel_mxu_demotions"
 WORKER_KERNEL_MXU_CENSUS = "worker_kernel_mxu_census_pixels"
+# Census shadows that raised.  Port-only: the JAX backend logs them at
+# debug level alone.  The shadow stays advisory, so a failure never fails
+# the batch it shadows; it is counted so that a run can assert none.
+WORKER_MXU_CENSUS_FAILURES = "worker_mxu_census_failures"
 
 # -- distributed tracing (cross-process spans) ----------------------------
 

@@ -109,11 +109,13 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.dm_escape_tile.argtypes = [vp, i, i, vp, i, i, i, i, f, i, i,
-                                           i, vp]
+                                           i, i, vp]
             lib.dm_escape_tile.restype = i
             lib.dm_escape_mega.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i,
-                                           i, vp]
+                                           f, i, i, i, i, i, vp]
             lib.dm_escape_mega.restype = i
+            lib.dm_mxu_probe.argtypes = [vp, vp, vp, i, i, vp]
+            lib.dm_mxu_probe.restype = i
             lib.dm_escape_pack.argtypes = [vp, i, i, i, vp, vp, i, i, i, f,
                                            i, i, i, vp]
             lib.dm_escape_pack.restype = i

@@ -67,10 +67,24 @@ DM_D bool proven_interior(int mode, float cr, float ci, float disk_lim) {
 // in family_step's operation order.  Degree 2 takes the cached-squares
 // form; the Burning Ship's fold is |cross| there (squares and the
 // doubling are sign-blind, so it equals folding z first, bit for bit).
-template <int F>
+//
+// MXU (K8, mxu_iteration.mxu_step; degree 2 without the fold only) is
+// the 2x2 rotation-matrix form written out: sr = zr*zr + (-zi)*zi,
+// si = zi*zr + zr*zi, then + c, every product and sum rounded on its
+// own.  It differs from the cached-squares form only where zr + zr
+// overflows or zr*zi is subnormal; the parity probe (dm_mxu_probe)
+// decides whether a device runs it.
+template <int F, bool MXU = false>
 DM_D void update(float& zr, float& zi, float& zr2, float& zi2, float cr,
                  float ci, int power) {
-  if (F == kMultibrot) {
+  static_assert(!MXU || F == kQuadratic,
+                "the matrix form is the degree-2 recurrence without a fold");
+  if (MXU) {
+    const float sr = fadd(fmul(zr, zr), fmul(-zi, zi));
+    const float si = fadd(fmul(zi, zr), fmul(zr, zi));
+    zr = fadd(sr, cr);
+    zi = fadd(si, ci);
+  } else if (F == kMultibrot) {
     float wr = zr, wi = zi;
     for (int k = 1; k < power; ++k) {
       const float nr = fsub(fmul(wr, zr), fmul(wi, zi));
@@ -118,9 +132,9 @@ DM_D void start(Orbit& o, float zr0, float zi0, float cr, float ci) {
 // repeat of the snapshot (the Brent probe, checked every kCycleStride
 // steps) can never escape and retires with n = dyn, which is
 // output-identical to running out the budget.
-template <int F>
+template <int F, bool MXU = false>
 DM_D bool advance(Orbit& o, int s, int dyn, bool cycle_check, int power) {
-  update<F>(o.zr, o.zi, o.zr2, o.zi2, o.cr, o.ci, power);
+  update<F, MXU>(o.zr, o.zi, o.zr2, o.zi2, o.cr, o.ci, power);
   if (!(fadd(o.zr2, o.zi2) < 4.0f)) return false;
   if (cycle_check) {
     if ((s % kCycleStride) == 0 && o.zr == o.szr && o.zi == o.szi) {
@@ -140,13 +154,13 @@ DM_D bool advance(Orbit& o, int s, int dyn, bool cycle_check, int power) {
 // running at most dyn steps and exiting as soon as the pixel retires.
 // A pixel escaping at step e returns e - 1; one that never escapes
 // (budget spent, or a cycle found by the probe) returns dyn.
-template <int F>
+template <int F, bool MXU = false>
 DM_D int survived(float zr0, float zi0, float cr, float ci, int dyn,
                   bool cycle_check, int power) {
   Orbit o;
   start(o, zr0, zi0, cr, ci);
   for (int s = 1; s <= dyn; ++s)
-    if (!advance<F>(o, s, dyn, cycle_check, power)) break;
+    if (!advance<F, MXU>(o, s, dyn, cycle_check, power)) break;
   return o.n;
 }
 
@@ -163,36 +177,67 @@ DM_D uint8_t epilogue(int n, int mrd, bool clamp) {
   return static_cast<uint8_t>(v & 255);
 }
 
-// One pixel of one tile: interior shortcut, loop, epilogue.  z starts
-// at the grid point (gr, gi); c is the grid point or the Julia constant.
-template <int F>
-DM_D uint8_t escape_pixel(float gr, float gi, float cr, float ci, int mrd,
-                          bool clamp, int interior_mode, float disk_lim,
-                          bool cycle_check, int power) {
+// One pixel of one tile whose interior test is made: ``inside`` (proven
+// interior) skips the loop, then the epilogue.  z starts at the grid
+// point (gr, gi); c is the grid point or the Julia constant.
+template <int F, bool MXU = false>
+DM_D uint8_t pixel_byte(float gr, float gi, float cr, float ci, int mrd,
+                        bool clamp, bool inside, bool cycle_check,
+                        int power) {
   if (mrd <= 1) return 0;
   const int dyn = mrd - 1;
-  const int n = proven_interior(interior_mode, cr, ci, disk_lim)
-                    ? dyn
-                    : survived<F>(gr, gi, cr, ci, dyn, cycle_check, power);
+  const int n = inside ? dyn
+                       : survived<F, MXU>(gr, gi, cr, ci, dyn, cycle_check,
+                                          power);
   return epilogue(n, mrd, clamp);
 }
 
-// The bf16 scout: does a half-precision shadow of the orbit from z0 = c
-// leave the radius-2 disk within ``steps`` steps?  Every operation is a
-// correctly rounded bf16 intrinsic (__hmul/__hadd/__hsub, never __hfma),
-// |z|^2 included, rounded before the compare.  PyTorch's bf16 ops
-// compute in f32 and round once, which gives the same bits: f32 carries
-// more than twice bf16's precision, so the double rounding is innocuous.
-// Advisory only: it feeds a census, never a pixel.
-DM_D bool scout_escapes(float gr, float gi, int steps) {
-  const __nv_bfloat16 cr = __float2bfloat16_rn(gr);
-  const __nv_bfloat16 ci = __float2bfloat16_rn(gi);
-  __nv_bfloat16 zr = cr, zi = ci;
+// One pixel of one tile: interior shortcut, loop, epilogue.
+template <int F, bool MXU = false>
+DM_D uint8_t escape_pixel(float gr, float gi, float cr, float ci, int mrd,
+                          bool clamp, int interior_mode, float disk_lim,
+                          bool cycle_check, int power) {
+  return pixel_byte<F, MXU>(
+      gr, gi, cr, ci, mrd, clamp,
+      proven_interior(interior_mode, cr, ci, disk_lim), cycle_check, power);
+}
+
+// The bf16 scout: does a half-precision shadow of the orbit from z0 =
+// the grid point (gr, gi), with constant c = (cr, ci) (the grid point
+// again, or the Julia constant), leave the radius-2 disk within
+// ``steps`` steps?  The update is family F's in update()'s order (the
+// Burning Ship's |cross|, degree d's d - 1 complex products), never the
+// matrix form (the reference's scout keeps the cached-squares form).
+// Every operation is a correctly rounded bf16 intrinsic (__hmul, __hadd,
+// __hsub, __habs, never __hfma), |z|^2 included, rounded before the
+// compare.  PyTorch's bf16 ops compute in f32 and round once, which gives
+// the same bits: f32 carries more than twice bf16's precision, so the
+// double rounding is innocuous.  Advisory only: it feeds a census, never
+// a pixel.
+template <int F>
+DM_D bool scout_escapes(float gr, float gi, float cr, float ci, int steps,
+                        int power) {
+  const __nv_bfloat16 bcr = __float2bfloat16_rn(cr);
+  const __nv_bfloat16 bci = __float2bfloat16_rn(ci);
+  __nv_bfloat16 zr = __float2bfloat16_rn(gr), zi = __float2bfloat16_rn(gi);
   __nv_bfloat16 zr2 = __hmul(zr, zr), zi2 = __hmul(zi, zi);
   for (int s = 0; s < steps; ++s) {
-    const __nv_bfloat16 cross = __hmul(__hadd(zr, zr), zi);
-    zi = __hadd(cross, ci);
-    zr = __hadd(__hsub(zr2, zi2), cr);
+    if (F == kMultibrot) {
+      __nv_bfloat16 wr = zr, wi = zi;
+      for (int k = 1; k < power; ++k) {
+        const __nv_bfloat16 nr = __hsub(__hmul(wr, zr), __hmul(wi, zi));
+        const __nv_bfloat16 ni = __hadd(__hmul(wr, zi), __hmul(wi, zr));
+        wr = nr;
+        wi = ni;
+      }
+      zr = __hadd(wr, bcr);
+      zi = __hadd(wi, bci);
+    } else {
+      __nv_bfloat16 cross = __hmul(__hadd(zr, zr), zi);
+      if (F == kShip) cross = __habs(cross);
+      zi = __hadd(cross, bci);
+      zr = __hadd(__hsub(zr2, zi2), bcr);
+    }
     zr2 = __hmul(zr, zr);
     zi2 = __hmul(zi, zi);
     if (!(__bfloat162float(__hadd(zr2, zi2)) < 4.0f)) return true;

@@ -5,9 +5,13 @@
 // - escape_tile_kernel (K1, _escape_block_kernel): one tile's uint8
 //   escape-time plane, for every family — Mandelbrot, Julia (z0 = grid,
 //   c = the constant), Multibrot z^d + c, Burning Ship.
-// - escape_mega_kernel (K2, _escape_mega_kernel): k same-shaped
-//   Mandelbrot tiles in one launch, each with its own params row and
+// - escape_mega_kernel (K2, _escape_mega_kernel): k same-shaped tiles
+//   of one family in one launch, each with its own params row and
 //   budget, plus the per-tile bf16 scout census.
+// - K8 (ops/mxu_iteration.py's mxu_step, which runs inside the Pallas
+//   K1 and K2): the template flag MXU of K1 and K2 (degree 2 without a
+//   fold), z^2 + c as the 2x2 rotation-matrix product on the CUDA cores;
+//   dm_mxu_probe runs its parity probe with the same device functions.
 // - escape_pack_kernel (K5, _escape_pack_kernel): n <= 4 same-shaped
 //   tiles, one thread carrying the n orbits of its pixel (the
 //   supersampled render's samples), out as (n, H, W) uint8.
@@ -32,7 +36,9 @@
 // What bounds them on an H100: operations.  A pixel reads nothing and
 // writes one byte (four for nu); each step is 8 f32 operations at
 // degree 2 (3 multiplies, 5 adds or subtracts, |z|^2 included; the
-// Burning Ship adds an abs, degree d costs 6d - 1) plus a compare, so a
+// Burning Ship adds an abs, degree d costs 6d - 1, K8's matrix form 11
+// as written: 4 multiplies and 2 adds for the product, 2 adds of c,
+// 2 squares and an add for |z|^2) plus a compare, so a
 // tile costs that times the steps its pixels need, against its output
 // bytes.  The design answer is one thread per pixel with per-thread
 // early exit: a sky pixel leaves after a few steps, an interior-proven
@@ -69,9 +75,13 @@ constexpr int kPackMax = 4;
 // A params row: start_r, start_i, step_r, step_i, julia c_r, c_i.
 constexpr int kRow = 6;
 
+// About 3.6 KB: inside the 4 KB a __grid_constant__ parameter may take.
 struct MegaParams {
-  float row[kMaxMegaTiles][4];  // start_r, start_i, step_r, step_i
-  int mrd[kMaxMegaTiles];       // each tile's own budget
+  float row[kMaxMegaTiles][kRow];  // as TileParams::row, per tile
+  int mrd[kMaxMegaTiles];          // each tile's own budget
+  int julia;                       // c = (row[4], row[5]) per tile
+  int interior_mode;               // dm::Interior
+  float disk_lim;                  // the kDisk limit
 };
 
 struct TileParams {
@@ -98,33 +108,37 @@ struct SmoothParams {
   float log2_power;  // log2(power); 0 at degree 2 (no division)
 };
 
+// Tile t = blockIdx.z: each pixel is K1's (dm::pixel_byte, behind
+// dm::escape_pixel), so the fused launch equals k single-tile launches
+// by construction; the census counts the pixels not proven interior
+// whose bf16 shadow escapes.  JULIA is a template flag, not a runtime
+// select as in K1: outside Julia mode the compiler then knows z0 = c.
+// With the runtime select the Mandelbrot K2 ran slower on an H100
+// (PERF.md; tools/ab_trees.py times both forms).
+template <int F, bool MXU, bool JULIA>
 __global__ void escape_mega_kernel(uint8_t* __restrict__ out,
                                    int* __restrict__ census,
                                    const __grid_constant__ MegaParams p,
                                    int height, int width, int clamp,
-                                   int interior_check, int cycle_check,
-                                   int scout_steps) {
+                                   int cycle_check, int scout_steps,
+                                   int power) {
   const int t = blockIdx.z;
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = blockIdx.y * blockDim.y + threadIdx.y;
   unsigned hit = 0;
   if (row < height && col < width) {
-    const float cr = dm::grid(p.row[t][0], p.row[t][2], col);
-    const float ci = dm::grid(p.row[t][1], p.row[t][3], row);
-    const int mrd = p.mrd[t];
-    const bool inside = interior_check && dm::interior(cr, ci);
+    const float gr = dm::grid(p.row[t][0], p.row[t][2], col);
+    const float gi = dm::grid(p.row[t][1], p.row[t][3], row);
+    const float cr = JULIA ? p.row[t][4] : gr;
+    const float ci = JULIA ? p.row[t][5] : gi;
+    const bool inside =
+        dm::proven_interior(p.interior_mode, cr, ci, p.disk_lim);
     if (scout_steps > 0 && !inside)
-      hit = dm::scout_escapes(cr, ci, scout_steps) ? 1u : 0u;
-    uint8_t v = 0;
-    if (mrd > 1) {
-      const int dyn = mrd - 1;
-      v = dm::epilogue(
-          inside ? dyn
-                 : dm::survived<dm::kQuadratic>(cr, ci, cr, ci, dyn,
-                                                cycle_check, 2),
-          mrd, clamp);
-    }
-    out[(static_cast<size_t>(t) * height + row) * width + col] = v;
+      hit = dm::scout_escapes<F>(gr, gi, cr, ci, scout_steps, power) ? 1u
+                                                                     : 0u;
+    out[(static_cast<size_t>(t) * height + row) * width + col] =
+        dm::pixel_byte<F, MXU>(gr, gi, cr, ci, p.mrd[t], clamp, inside,
+                               cycle_check, power);
   }
   // Census: one warp-wide sum, one integer atomic per warp (exact and
   // order-free).  Every lane reaches this point: none returned early.
@@ -132,7 +146,7 @@ __global__ void escape_mega_kernel(uint8_t* __restrict__ out,
   if ((threadIdx.x & 31) == 0 && total) atomicAdd(&census[t], (int)total);
 }
 
-template <int F>
+template <int F, bool MXU = false>
 __global__ void escape_tile_kernel(uint8_t* __restrict__ out, int height,
                                    int width,
                                    const __grid_constant__ TileParams p,
@@ -145,9 +159,34 @@ __global__ void escape_tile_kernel(uint8_t* __restrict__ out, int height,
   const float gi = dm::grid(p.row[1], p.row[3], row);
   const float cr = p.julia ? p.row[4] : gr;
   const float ci = p.julia ? p.row[5] : gi;
-  out[static_cast<size_t>(row) * width + col] = dm::escape_pixel<F>(
+  out[static_cast<size_t>(row) * width + col] = dm::escape_pixel<F, MXU>(
       gr, gi, cr, ci, mrd, clamp, p.interior_mode, p.disk_lim, cycle_check,
       power);
+}
+
+// K8's parity probe: from z0 = c = (xs[col], ys[row]), ``steps`` steps
+// of update() in the cached-squares form and in the matrix form, with no
+// escape test; out is (4, n, n) f32: the two forms' zr, zi.
+__global__ void mxu_probe_kernel(float* __restrict__ out,
+                                 const float* __restrict__ xs,
+                                 const float* __restrict__ ys, int n,
+                                 int steps) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  const int row = blockIdx.y * blockDim.y + threadIdx.y;
+  if (row >= n || col >= n) return;
+  const float cr = xs[col], ci = ys[row];
+  float vr = cr, vi = ci, vr2 = dm::fmul(cr, cr), vi2 = dm::fmul(ci, ci);
+  float mr = cr, mi = ci, mr2 = vr2, mi2 = vi2;
+  for (int s = 0; s < steps; ++s) {
+    dm::update<dm::kQuadratic, false>(vr, vi, vr2, vi2, cr, ci, 2);
+    dm::update<dm::kQuadratic, true>(mr, mi, mr2, mi2, cr, ci, 2);
+  }
+  const size_t plane = static_cast<size_t>(n) * n;
+  const size_t i = static_cast<size_t>(row) * n + col;
+  out[i] = vr;
+  out[plane + i] = vi;
+  out[2 * plane + i] = mr;
+  out[3 * plane + i] = mi;
 }
 
 // N orbits per thread, stepped in lockstep (state arrays fully unrolled
@@ -405,6 +444,25 @@ int over_tiles(int k, L launch) {
   return 0;
 }
 
+// Julia mode exists at degree 2 without a fold only, so only kQuadratic
+// instantiates the JULIA kernels.
+template <int F, bool MXU>
+void launch_mega(uint8_t* out, int* census, const MegaParams& p, int k,
+                 int height, int width, int clamp, int cycle_check,
+                 int scout_steps, int power, cudaStream_t stream) {
+  const dim3 g = grid_for(height, width, k), b(kBlockX, kBlockY);
+  if constexpr (F == dm::kQuadratic) {
+    if (p.julia) {
+      escape_mega_kernel<F, MXU, true><<<g, b, 0, stream>>>(
+          out, census, p, height, width, clamp, cycle_check, scout_steps,
+          power);
+      return;
+    }
+  }
+  escape_mega_kernel<F, MXU, false><<<g, b, 0, stream>>>(
+      out, census, p, height, width, clamp, cycle_check, scout_steps, power);
+}
+
 template <int N>
 void launch_pack(int family, uint8_t* out, int height, int width,
                  const PackParams& p, int clamp, int cycle_check, int power,
@@ -433,12 +491,15 @@ const char* dm_error_string(int code) {
 
 // K1: one (height, width) uint8 tile into ``out`` on ``stream``.
 // ``row`` is a HOST pointer to 6 floats (start_r, start_i, step_r,
-// step_i, julia c_r, c_i).  Returns cudaGetLastError() after the launch
+// step_i, julia c_r, c_i).  ``mxu`` selects K8's matrix form (degree 2
+// without a fold only).  Returns cudaGetLastError() after the launch
 // (0 = launched).
 int dm_escape_tile(void* out, int height, int width, const float* row,
                    int julia, int mrd, int clamp, int interior_mode,
                    float disk_lim, int cycle_check, int family, int power,
-                   void* stream) {
+                   int mxu, void* stream) {
+  if (mxu && family != dm::kQuadratic)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (height <= 0 || width <= 0) return 0;
   const TileParams p = tile_params(row, julia, interior_mode, disk_lim);
   const dim3 g = grid_for(height, width, 1), b(kBlockX, kBlockY);
@@ -450,6 +511,9 @@ int dm_escape_tile(void* out, int height, int width, const float* row,
   else if (family == dm::kMultibrot)
     escape_tile_kernel<dm::kMultibrot><<<g, b, 0, s>>>(
         o, height, width, p, mrd, clamp, cycle_check, power);
+  else if (mxu)
+    escape_tile_kernel<dm::kQuadratic, true><<<g, b, 0, s>>>(
+        o, height, width, p, mrd, clamp, cycle_check, power);
   else
     escape_tile_kernel<dm::kQuadratic><<<g, b, 0, s>>>(
         o, height, width, p, mrd, clamp, cycle_check, power);
@@ -457,26 +521,56 @@ int dm_escape_tile(void* out, int height, int width, const float* row,
 }
 
 // K2: k tiles into ``out`` (k, height, width) uint8, census into
-// ``census`` (k int32, zeroed by the caller).  ``params`` (k x 4 f32)
-// and ``mrds`` (k int32) are HOST pointers, copied into the launch's
-// parameter block.
+// ``census`` (k int32, zeroed by the caller).  ``params`` (k x 6 f32, as
+// K1's row) and ``mrds`` (k int32) are HOST pointers, copied into the
+// launch's parameter block.  ``mxu`` selects K8's matrix form (degree 2
+// without a fold only).
 int dm_escape_mega(void* out, void* census, const void* params,
-                   const void* mrds, int k, int height, int width, int clamp,
-                   int interior_check, int cycle_check, int scout_steps,
-                   void* stream) {
+                   const void* mrds, int k, int height, int width, int julia,
+                   int clamp, int interior_mode, float disk_lim,
+                   int cycle_check, int scout_steps, int family, int power,
+                   int mxu, void* stream) {
   if (k < 1 || k > kMaxMegaTiles) return static_cast<int>(cudaErrorInvalidValue);
+  if (mxu && family != dm::kQuadratic)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (height <= 0 || width <= 0) return 0;
   MegaParams p = {};
   const float* rows = static_cast<const float*>(params);
   const int* budgets = static_cast<const int*>(mrds);
   for (int t = 0; t < k; ++t) {
-    for (int c = 0; c < 4; ++c) p.row[t][c] = rows[t * 4 + c];
+    for (int c = 0; c < kRow; ++c) p.row[t][c] = rows[t * kRow + c];
     p.mrd[t] = budgets[t];
   }
-  escape_mega_kernel<<<grid_for(height, width, k), dim3(kBlockX, kBlockY),
-                       0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint8_t*>(out), static_cast<int*>(census), p, height,
-      width, clamp, interior_check, cycle_check, scout_steps);
+  p.julia = julia;
+  p.interior_mode = interior_mode;
+  p.disk_lim = disk_lim;
+  uint8_t* o = static_cast<uint8_t*>(out);
+  int* c = static_cast<int*>(census);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (family == dm::kShip)
+    launch_mega<dm::kShip, false>(o, c, p, k, height, width, clamp,
+                                  cycle_check, scout_steps, power, s);
+  else if (family == dm::kMultibrot)
+    launch_mega<dm::kMultibrot, false>(o, c, p, k, height, width, clamp,
+                                       cycle_check, scout_steps, power, s);
+  else if (mxu)
+    launch_mega<dm::kQuadratic, true>(o, c, p, k, height, width, clamp,
+                                      cycle_check, scout_steps, power, s);
+  else
+    launch_mega<dm::kQuadratic, false>(o, c, p, k, height, width, clamp,
+                                       cycle_check, scout_steps, power, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K8's parity probe: ``out`` (4, n, n) f32 from the grid ``xs`` (n) x
+// ``ys`` (n); all DEVICE pointers.
+int dm_mxu_probe(void* out, const void* xs, const void* ys, int n,
+                 int steps, void* stream) {
+  if (n <= 0 || steps < 0) return static_cast<int>(cudaErrorInvalidValue);
+  mxu_probe_kernel<<<grid_for(n, n, 1), dim3(kBlockX, kBlockY), 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out), static_cast<const float*>(xs),
+      static_cast<const float*>(ys), n, steps);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,9 +11,14 @@ plain PyTorch version and a launch counter:
   :func:`compute_tile_julia_cuda` and :func:`compute_tile_family_cuda`
   return it as a flat numpy array.
 - K2, ``escape_mega`` (replaces ``_escape_mega_kernel``):
-  :func:`compute_tiles_mega_cuda`, k same-shaped Mandelbrot tiles in one
+  :func:`compute_tiles_mega_cuda`, k same-shaped tiles of one mode in one
   launch -> (k, height, width) uint8 plus the (k, 1) int32 bf16 scout
-  census.
+  census, every mode of K1, each plane equal to K1 on its tile.
+- K8 (replaces ``ops/mxu_iteration.py``'s ``mxu_step``, which rides
+  inside the Pallas K1 and K2): ``use_mxu`` of K1 and K2, the
+  rotation-matrix form of z^2 + c (degree 2 without the Burning Ship's
+  fold), admitted by the ``DMTPU_MXU`` gate of
+  :mod:`~distributedmandelbrot_tpu_torch.ops.mxu_iteration`.
 - K4, ``escape_smooth`` (replaces ``_smooth_block_kernel``):
   :func:`compute_tile_smooth_cuda`, one tile -> (height, width) f32
   smooth values, every mode of K1.
@@ -28,6 +33,11 @@ plain PyTorch version and a launch counter:
 
 K6 and K7, the compacted pipeline's kernels, have their host side in
 ``ops/compact_escape.py``; their launches are counted here too.
+K1 in the matrix form (K8), and K2 in the matrix form and in each mode
+other than Mandelbrot, are counted under names of their own
+(``escape_tile_mxu``, ``escape_mega_mxu``, ``escape_mega_julia``, ...),
+so ``escape_tile`` and ``escape_mega`` count the cached-squares form and,
+for K2, Mandelbrot only.
 
 A wrapper given CUDA tensors' device launches its kernel (or raises); it
 takes the plain version only for the CPU, the counterpart of the
@@ -70,11 +80,19 @@ KERNEL_PACK = "escape_pack"
 KERNEL_BATCH = "escape_batch"
 KERNEL_STATE = "escape_state"
 KERNEL_RESUME = "escape_resume"
+# K1 and K2 in K8's matrix form, and K2 in its modes beyond Mandelbrot.
+KERNEL_TILE_MXU = "escape_tile_mxu"
+KERNEL_MEGA_MXU = "escape_mega_mxu"
+KERNEL_MEGA_JULIA = "escape_mega_julia"
+KERNEL_MEGA_MULTIBROT = "escape_mega_multibrot"
+KERNEL_MEGA_SHIP = "escape_mega_ship"
 
 _counts_lock = threading.Lock()
 _launches = {KERNEL_TILE: 0, KERNEL_MEGA: 0, KERNEL_SMOOTH: 0,
              KERNEL_PACK: 0, KERNEL_BATCH: 0, KERNEL_STATE: 0,
-             KERNEL_RESUME: 0}
+             KERNEL_RESUME: 0, KERNEL_TILE_MXU: 0, KERNEL_MEGA_MXU: 0,
+             KERNEL_MEGA_JULIA: 0, KERNEL_MEGA_MULTIBROT: 0,
+             KERNEL_MEGA_SHIP: 0}
 
 # The batch-grid policy (pallas_escape.prefer_batch_grid): one K3 launch
 # per shard when the deepest budget reaches BATCH_GRID_MIN_ITER, or when
@@ -94,7 +112,7 @@ _NO_INTERIOR, _CARDIOID_BULB, _DISK = 0, 1, 2
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches so far in this process, by kernel."""
+    """Kernel launches so far in this process, by kernel and variant."""
     with _counts_lock:
         return dict(_launches)
 
@@ -146,10 +164,13 @@ def _guard_budget(max_iter: int) -> None:
             f"max_iter {max_iter} too deep for the kernel path")
 
 
-def _check_mxu(use_mxu: bool) -> None:
-    if use_mxu:
+def _guard_mxu(use_mxu: bool, power: int, burning: bool) -> None:
+    """The matrix form (K8) embeds z^2 only: Multibrot degrees and the
+    Burning Ship's fold decline it, as in the reference."""
+    if use_mxu and (power != 2 or burning):
         raise KernelUnsupported(
-            "the MXU iteration form is not ported yet (kernel K8)")
+            "mxu iteration form supports the degree-2 non-burning "
+            "recurrence only")
 
 
 def _params_row(spec: TileSpec, julia_c: complex | None = None) -> list:
@@ -211,20 +232,37 @@ def prefer_batch_grid(budget: int, height: int, width: int) -> bool:
 def mega_dispatch_plan(specs, max_iters, *, clamp: bool = False,
                        interior_check: bool = True,
                        cycle_check: bool | None = None,
-                       scout_segments: int | None = None,
-                       use_mxu: bool = False):
+                       scout_segments: int | None = None, power: int = 2,
+                       burning: bool = False, julia_cs=None,
+                       use_mxu: bool | None = None, device="cuda"):
     """Validate a fused batch and resolve its launch decisions, the
     reference's policy: returns ``(rows, mrd_rows, kwargs)`` with
-    ``rows`` (k, 4) f32 and ``mrd_rows`` (k, 1) int32 numpy arrays and
-    the launch keywords (shape, clamp, interior and cycle flags — the
-    probe resolved from the deepest REQUESTED budget — and the census
-    window in steps)."""
-    _check_mxu(use_mxu)
+    ``rows`` (k, 4) f32, or (k, 6) with the Julia constants of
+    ``julia_cs`` (one per tile), ``mrd_rows`` (k, 1) int32, and the
+    launch keywords (shape, clamp, the interior check — off in Julia
+    mode — the probe resolved from the deepest REQUESTED budget, the
+    census window in steps, the family, and the matrix form).
+
+    ``use_mxu=None`` resolves the ``DMTPU_MXU`` gate for ``device`` (a
+    device, or the devices of a mesh): the matrix form only in full
+    mode.  ``use_mxu`` with a Multibrot degree or the Burning Ship
+    raises :class:`KernelUnsupported`."""
     k = len(specs)
+    julia = julia_cs is not None
+    _check_dispatch_mode(power, burning, julia)
+    if use_mxu is None:
+        from distributedmandelbrot_tpu_torch.ops.mxu_iteration import (
+            mxu_mode_for)
+        devices = (device if isinstance(device, (list, tuple))
+                   else [device])
+        use_mxu = mxu_mode_for(devices) == "full"
+    _guard_mxu(use_mxu, power, burning)
     if k < 1:
         raise ValueError("empty tile batch")
     if len(max_iters) != k:
         raise ValueError("specs and max_iters length mismatch")
+    if julia and (len(julia_cs) != k or any(c is None for c in julia_cs)):
+        raise ValueError("julia_cs must give a constant per tile")
     h, w = specs[0].height, specs[0].width
     for spec in specs:
         if (spec.height, spec.width) != (h, w):
@@ -234,8 +272,8 @@ def mega_dispatch_plan(specs, max_iters, *, clamp: bool = False,
             f"{k} tiles exceed one fused launch ({MEGA_MAX_TILES})")
     cap_req = max(int(m) for m in max_iters)
     _guard_budget(cap_req)
-    rows = np.asarray([_params_row(spec) for spec in specs],
-                      dtype=np.float32)
+    rows = np.asarray([_params_row(spec, julia_cs[t] if julia else None)
+                       for t, spec in enumerate(specs)], dtype=np.float32)
     mrd_rows = np.asarray([[int(m)] for m in max_iters], dtype=np.int32)
     if scout_segments is None:
         scout_segments = (SCOUT_SEGMENTS_DEFAULT
@@ -243,10 +281,12 @@ def mega_dispatch_plan(specs, max_iters, *, clamp: bool = False,
     cap = bucket_cap(cap_req)
     unroll_eff = max(1, min(DEFAULT_UNROLL, max(1, cap - 1)))
     kwargs = dict(
-        height=h, width=w, clamp=clamp, interior_check=interior_check,
+        height=h, width=w, clamp=clamp,
+        interior_check=interior_check and not julia,
         cycle_check=escape_time.resolve_cycle_check(cycle_check, cap_req),
         # A batch whose cap leaves no iteration is all zeros, census 0.
-        scout_steps=int(scout_segments) * unroll_eff if cap > 1 else 0)
+        scout_steps=int(scout_segments) * unroll_eff if cap > 1 else 0,
+        power=power, burning=burning, use_mxu=bool(use_mxu))
     return rows, mrd_rows, kwargs
 
 
@@ -284,11 +324,12 @@ def _kernel_orbit_inputs(row, height: int, width: int, device):
 def escape_tile_plain(row, mrd: int, height: int, width: int, *,
                       clamp: bool = False, interior_check: bool = True,
                       cycle_check: bool = False, power: int = 2,
-                      burning: bool = False, device="cpu",
-                      return_steps: bool = False):
+                      burning: bool = False, use_mxu: bool = False,
+                      device="cpu", return_steps: bool = False):
     """K1's plain version: one tile from its f32 params row (4 wide, or
     6 with a Julia constant) and budget -> (height, width) uint8 on
-    ``device`` (and, with ``return_steps``, the steps each pixel ran)."""
+    ``device`` (and, with ``return_steps``, the steps each pixel ran).
+    ``use_mxu`` steps with K8's plain version, the matrix form."""
     zr0, zi0, c_real, c_imag, julia = _kernel_orbit_inputs(row, height,
                                                            width, device)
     dyn = int(mrd) - 1
@@ -302,7 +343,7 @@ def escape_tile_plain(row, mrd: int, height: int, width: int, *,
     n, steps = escape_time.escape_loop(
         zr0, zi0, c_real, c_imag, total_steps=dyn, interior=interior,
         cycle_check=cycle_check, power=power, burning=burning,
-        return_steps=True)
+        use_mxu=use_mxu, return_steps=True)
     counts = escape_time.counts_from_survival(n, dyn)
     out = escape_time.scale_counts_to_uint8(counts, max_iter=int(mrd),
                                             clamp=clamp)
@@ -311,26 +352,36 @@ def escape_tile_plain(row, mrd: int, height: int, width: int, *,
 
 def scout_census_plain(g_real: torch.Tensor, g_imag: torch.Tensor,
                        live0: torch.Tensor, steps: int, *,
-                       return_steps: bool = False):
+                       c_real: torch.Tensor | None = None,
+                       c_imag: torch.Tensor | None = None, power: int = 2,
+                       burning: bool = False, return_steps: bool = False):
     """The bf16 scout census: of the initially-live pixels ``live0``,
-    how many a bf16 shadow of the orbit (every op rounded to bf16,
-    |z|^2 included) sees leave the radius-2 disk within ``steps``.
+    how many a bf16 shadow of the orbit from z0 = the grid (every op
+    rounded to bf16, |z|^2 included) sees leave the radius-2 disk within
+    ``steps``.  c is the grid, or the Julia constant ``c_real, c_imag``;
+    the update is the family's (the Burning Ship's ``|cross|``, degree
+    ``power`` through :func:`~.escape_time.family_step`).
     ``return_steps`` also returns the shadow steps the kernel runs for
     them (each live pixel until it leaves or the window ends)."""
-    bf = torch.bfloat16
-    cr = g_real.to(bf)
-    ci = g_imag.to(bf)
-    zr, zi = cr, ci
+    from distributedmandelbrot_tpu_torch.ops.mixed_precision import (
+        scout_cast, scout_const)
+    zr, zi = scout_cast(g_real), scout_cast(g_imag)
+    cr = zr if c_real is None else scout_cast(c_real)
+    ci = zi if c_imag is None else scout_cast(c_imag)
     zr2 = zr * zr
     zi2 = zi * zi
-    four = torch.tensor(4.0, dtype=bf, device=g_real.device)
+    four = scout_const(4.0, g_real.device)
     act = live0.clone()
     ran = torch.zeros((), dtype=torch.int64, device=g_real.device)
     for _ in range(steps):
         ran += act.sum()
-        cross = (zr + zr) * zi
-        zi = cross + ci
-        zr = (zr2 - zi2) + cr
+        if power == 2:
+            cross = (zr + zr) * zi
+            zi = (cross.abs() if burning else cross) + ci
+            zr = (zr2 - zi2) + cr
+        else:
+            zr, zi = escape_time.family_step(zr, zi, cr, ci, power=power,
+                                             burning=False)
         zr2 = zr * zr
         zi2 = zi * zi
         act = act & (zr2 + zi2 < four)
@@ -341,31 +392,41 @@ def scout_census_plain(g_real: torch.Tensor, g_imag: torch.Tensor,
 def escape_mega_plain(rows, mrd_rows, *, height: int, width: int,
                       clamp: bool = False, interior_check: bool = True,
                       cycle_check: bool = False, scout_steps: int = 0,
-                      device="cpu", return_steps: bool = False):
+                      power: int = 2, burning: bool = False,
+                      use_mxu: bool = False, device="cpu",
+                      return_steps: bool = False):
     """K2's plain version: per tile, K1's plain version and the census
-    -> ((k, height, width) uint8, (k, 1) int32) on ``device``.
+    -> ((k, height, width) uint8, (k, 1) int32) on ``device``.  Rows are
+    (k, 4), or (k, 6) with Julia constants (no interior shortcut then).
     ``return_steps`` adds the f32 steps each pixel ran, (k, height,
     width), and the bf16 scout steps per tile, a list of k ints."""
     rows = np.asarray(rows, dtype=np.float32)
     mrds = np.asarray(mrd_rows, dtype=np.int32).reshape(-1)
+    julia = rows.shape[1] == 6
+    interior = interior_check and not julia
     tiles, census, steps, scout_ran = [], [], [], []
     for row, mrd in zip(rows, mrds):
         out, st = escape_tile_plain(row, int(mrd), height, width,
-                                    clamp=clamp,
-                                    interior_check=interior_check,
-                                    cycle_check=cycle_check, device=device,
-                                    return_steps=True)
+                                    clamp=clamp, interior_check=interior,
+                                    cycle_check=cycle_check, power=power,
+                                    burning=burning, use_mxu=use_mxu,
+                                    device=device, return_steps=True)
         tiles.append(out)
         steps.append(st)
         hits, ran = 0, 0
         if scout_steps > 0:
-            g_real, g_imag = kernel_grid(row, height, width, device)
-            live0 = (~escape_time.mandelbrot_interior(g_real, g_imag)
-                     if interior_check else
-                     torch.ones((height, width), dtype=torch.bool,
-                                device=device))
-            hits, ran = scout_census_plain(g_real, g_imag, live0,
-                                           scout_steps, return_steps=True)
+            g_real, g_imag, c_real, c_imag, _ = _kernel_orbit_inputs(
+                row, height, width, device)
+            inside = (escape_time.family_interior(c_real, c_imag, power,
+                                                  burning)
+                      if interior else None)
+            live0 = (torch.ones((height, width), dtype=torch.bool,
+                                device=device)
+                     if inside is None else ~inside)
+            hits, ran = scout_census_plain(
+                g_real, g_imag, live0, scout_steps, c_real=c_real,
+                c_imag=c_imag, power=power, burning=burning,
+                return_steps=True)
         census.append(hits)
         scout_ran.append(ran)
     out = (torch.stack(tiles),
@@ -480,21 +541,23 @@ def compute_tile_cuda_device(spec: TileSpec, max_iter: int, *,
     launch enqueued on the device's current stream (no sync).  Mandelbrot
     by default; the Julia set of ``julia_c`` (z from the grid, no
     interior shortcut), the degree-``power`` Multibrot, or the Burning
-    Ship (``burning``).  The probe policy follows the tile's requested
+    Ship (``burning``).  ``use_mxu`` runs K8's matrix form (degree 2
+    without the fold).  The probe policy follows the tile's requested
     budget."""
     _check_dispatch_mode(power, burning, julia_c is not None)
-    _check_mxu(use_mxu)
+    _guard_mxu(use_mxu, power, burning)
     _guard_budget(max_iter)
     return compute_tile_row_cuda(
         _params_row(spec, julia_c), max_iter, spec.height, spec.width,
         clamp=clamp, interior_check=interior_check,
-        cycle_check=cycle_check, power=power, burning=burning, device=device)
+        cycle_check=cycle_check, power=power, burning=burning,
+        use_mxu=use_mxu, device=device)
 
 
 def compute_tile_row_cuda(row, max_iter: int, height: int, width: int, *,
                           clamp: bool = False, interior_check: bool = True,
                           cycle_check: bool | None = None, power: int = 2,
-                          burning: bool = False,
+                          burning: bool = False, use_mxu: bool = False,
                           device="cuda") -> torch.Tensor:
     """K1 from a raw params row (4 wide, or 6 with a Julia constant; no
     resolvability guard, as the reference's mesh rows have none) ->
@@ -503,6 +566,7 @@ def compute_tile_row_cuda(row, max_iter: int, height: int, width: int, *,
     row = np.asarray(row, dtype=np.float32)
     julia = row.size == 6
     _check_dispatch_mode(power, burning, julia)
+    _guard_mxu(use_mxu, power, burning)
     _guard_budget(max_iter)
     cycle = escape_time.resolve_cycle_check(cycle_check, max_iter)
     dev = _cuda_device(device)
@@ -510,7 +574,8 @@ def compute_tile_row_cuda(row, max_iter: int, height: int, width: int, *,
         return escape_tile_plain(row, max_iter, height, width, clamp=clamp,
                                  interior_check=interior_check,
                                  cycle_check=cycle, power=power,
-                                 burning=burning, device=dev)
+                                 burning=burning, use_mxu=use_mxu,
+                                 device=dev)
     from distributedmandelbrot_tpu_torch.ops import _build
     lib = _build.load()
     family, interior_mode, disk_lim = _mode_args(power, burning, julia,
@@ -523,9 +588,9 @@ def compute_tile_row_cuda(row, max_iter: int, height: int, width: int, *,
             ctypes.c_void_p(out.data_ptr()), height, width,
             ctypes.c_void_p(row6.ctypes.data), int(julia), int(max_iter),
             int(clamp), interior_mode, disk_lim, int(cycle), family,
-            int(power), ctypes.c_void_p(stream))
+            int(power), int(use_mxu), ctypes.c_void_p(stream))
     _check_rc(lib, rc, KERNEL_TILE)
-    _count_launch(KERNEL_TILE)
+    _count_launch(KERNEL_TILE_MXU if use_mxu else KERNEL_TILE)
     return out
 
 
@@ -565,30 +630,45 @@ def compute_tiles_mega_cuda(specs, max_iters, *, clamp: bool = False,
                             interior_check: bool = True,
                             cycle_check: bool | None = None,
                             scout_segments: int | None = None,
-                            use_mxu: bool = False, rows=None, mrd_rows=None,
-                            device="cuda"):
-    """K2: fuse k same-shaped tiles into one launch -> ``(tiles,
-    census)`` on ``device``: (k, height, width) uint8 and (k, 1) int32.
+                            power: int = 2, burning: bool = False,
+                            julia_cs=None, use_mxu: bool | None = None,
+                            rows=None, mrd_rows=None, device="cuda"):
+    """K2: fuse k same-shaped tiles of one mode into one launch ->
+    ``(tiles, census)`` on ``device``: (k, height, width) uint8 and
+    (k, 1) int32.  Mandelbrot by default; the degree-``power``
+    Multibrot, the Burning Ship (``burning``), or Julia sets with one
+    constant per tile (``julia_cs``).  ``use_mxu=None`` resolves the
+    ``DMTPU_MXU`` gate for ``device`` (:func:`mega_dispatch_plan`).
     ``rows``/``mrd_rows`` override the plan's params and budget rows
-    (the same (k, 4) f32 and (k, 1) int32 arrays the reference's plan
+    (the same (k, 4|6) f32 and (k, 1) int32 arrays the reference's plan
     yields), so two implementations can be fed identical rows."""
     plan_rows, plan_mrds, kw = mega_dispatch_plan(
         specs, max_iters, clamp=clamp, interior_check=interior_check,
-        cycle_check=cycle_check, scout_segments=scout_segments,
-        use_mxu=use_mxu)
+        cycle_check=cycle_check, scout_segments=scout_segments, power=power,
+        burning=burning, julia_cs=julia_cs, use_mxu=use_mxu, device=device)
     k = len(specs)
     rows = np.ascontiguousarray(
         plan_rows if rows is None else rows, dtype=np.float32)
     mrds = np.ascontiguousarray(
         plan_mrds if mrd_rows is None else mrd_rows, dtype=np.int32)
-    if rows.shape != (k, 4) or mrds.shape != (k, 1):
-        raise ValueError(f"rows must be ({k}, 4) and mrd_rows ({k}, 1), "
-                         f"got {rows.shape} and {mrds.shape}")
+    if rows.shape != plan_rows.shape or mrds.shape != (k, 1):
+        raise ValueError(f"rows must be {plan_rows.shape} and mrd_rows "
+                         f"({k}, 1), got {rows.shape} and {mrds.shape}")
     return launch_mega(rows, mrds, kw, device)
 
 
+def _mega_counter(rows: np.ndarray, kw: dict) -> str:
+    if kw["use_mxu"]:
+        return KERNEL_MEGA_MXU
+    if rows.shape[1] == 6:
+        return KERNEL_MEGA_JULIA
+    if kw["burning"]:
+        return KERNEL_MEGA_SHIP
+    return KERNEL_MEGA_MULTIBROT if kw["power"] > 2 else KERNEL_MEGA
+
+
 def launch_mega(rows: np.ndarray, mrds: np.ndarray, kw: dict, device):
-    """K2 on a resolved plan: ``rows`` (k, 4) f32 and ``mrds`` (k, 1)
+    """K2 on a resolved plan: ``rows`` (k, 4|6) f32 and ``mrds`` (k, 1)
     int32 C-contiguous numpy arrays and the plan's launch keywords ->
     ``(tiles, census)`` on ``device``, enqueued on its current stream
     (the plain version on the CPU).  The mesh route launches each shard
@@ -603,6 +683,10 @@ def launch_mega(rows: np.ndarray, mrds: np.ndarray, kw: dict, device):
     from distributedmandelbrot_tpu_torch.ops import _build
     lib = _build.load()
     h, w = kw["height"], kw["width"]
+    julia = rows.shape[1] == 6
+    family, interior_mode, disk_lim = _mode_args(
+        kw["power"], kw["burning"], julia, kw["interior_check"])
+    rows6, _ = batch_rows(rows, mrds)
     with torch.cuda.device(dev):
         tiles = torch.empty((k, h, w), dtype=torch.uint8, device=dev)
         census = torch.zeros((k, 1), dtype=torch.int32, device=dev)
@@ -610,12 +694,13 @@ def launch_mega(rows: np.ndarray, mrds: np.ndarray, kw: dict, device):
         rc = lib.dm_escape_mega(
             ctypes.c_void_p(tiles.data_ptr()),
             ctypes.c_void_p(census.data_ptr()),
-            ctypes.c_void_p(rows.ctypes.data),
-            ctypes.c_void_p(mrds.ctypes.data), k, h, w, int(kw["clamp"]),
-            int(kw["interior_check"]), int(kw["cycle_check"]),
-            int(kw["scout_steps"]), ctypes.c_void_p(stream))
+            ctypes.c_void_p(rows6.ctypes.data),
+            ctypes.c_void_p(mrds.ctypes.data), k, h, w, int(julia),
+            int(kw["clamp"]), interior_mode, disk_lim,
+            int(kw["cycle_check"]), int(kw["scout_steps"]), family,
+            int(kw["power"]), int(kw["use_mxu"]), ctypes.c_void_p(stream))
     _check_rc(lib, rc, KERNEL_MEGA)
-    _count_launch(KERNEL_MEGA)
+    _count_launch(_mega_counter(rows, kw))
     return tiles, census
 
 

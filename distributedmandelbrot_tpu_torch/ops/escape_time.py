@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from distributedmandelbrot_tpu_torch.core.geometry import TileSpec
+from distributedmandelbrot_tpu_torch.ops.mxu_iteration import mxu_step
 
 # Highest escape count whose exact uint8 scaling stays within int32:
 # the scaled value is counts*256 + (mrd-1) with mrd <= counts+1, so the
@@ -173,7 +174,8 @@ def escape_loop(zr0: torch.Tensor, zi0: torch.Tensor, c_real: torch.Tensor,
                 c_imag: torch.Tensor, *, total_steps: int,
                 interior: torch.Tensor | None = None,
                 cycle_check: bool = False, power: int = 2,
-                burning: bool = False, return_steps: bool = False):
+                burning: bool = False, use_mxu: bool = False,
+                return_steps: bool = False):
     """Survived-update count ``n`` per pixel (int32, the input's shape):
     a pixel escaping at step ``e`` has ``n = e - 1``; a pixel that never
     escapes within ``total_steps`` (interior-proven, cycle-detected, or
@@ -186,11 +188,16 @@ def escape_loop(zr0: torch.Tensor, zi0: torch.Tensor, c_real: torch.Tensor,
     form ``cross = (zr+zr)*zi; zi = cross + ci; zr = (zr2 - zi2) + cr``
     (the Burning Ship takes ``|cross|``, the same bits as folding z
     first: squares and the doubling are sign-blind), above it
-    :func:`family_step` — then ``zr2 = zr*zr; zi2 = zi*zi``; retire when
+    :func:`family_step`, and with ``use_mxu`` (degree 2, no fold) the
+    matrix form :func:`~.mxu_iteration.mxu_step` (K8's plain version) —
+    then ``zr2 = zr*zr; zi2 = zi*zi``; retire when
     ``!(zr2 + zi2 < 4)``; the cycle probe (:func:`probe_step`,
     :func:`snapshot_step`); count the survivors.  ``return_steps`` also
     returns the steps each pixel ran (0 for interior pixels) — the work
     the inputs need, for roofline bounds."""
+    if use_mxu and (power != 2 or burning):
+        raise ValueError("the matrix form is the degree-2 recurrence "
+                         "without the Burning Ship's fold")
     shape = zr0.shape
     dev = zr0.device
     n_out = torch.zeros(shape, dtype=torch.int32, device=dev).reshape(-1)
@@ -225,7 +232,9 @@ def escape_loop(zr0: torch.Tensor, zi0: torch.Tensor, c_real: torch.Tensor,
     for step in range(1, total_steps + 1):
         if idx.numel() == 0:
             break
-        if power == 2:
+        if use_mxu:
+            zr, zi = mxu_step(zr, zi, cr, ci)
+        elif power == 2:
             # cross = (zr + zr) * zi; zi = cross + ci; zr = (zr2 - zi2) + cr
             torch.add(zr, zr, out=tmp).mul_(zi)
             if burning:

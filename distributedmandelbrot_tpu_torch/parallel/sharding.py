@@ -253,14 +253,19 @@ def compute_tiles_mega_sharded(specs, max_iters, *, mesh: Mesh | None = None,
                                interior_check: bool = True,
                                cycle_check: bool | None = None,
                                scout_segments: int | None = None,
-                               use_mxu: bool = False):
+                               power: int = 2, burning: bool = False,
+                               julia_cs=None, use_mxu: bool | None = None):
     """One fused K-tile batch split over ``mesh`` (default: every local
     GPU in :func:`~.mesh.device_ring` order), one K2 launch per device
     on its shard, each on that position's own stream.  Returns
     ``(tiles, scout)`` in batch order with the padding stripped, as
     per-tile lists: ``tiles[i]`` the (h, w) uint8 plane and ``scout[i]``
     the (1,) int32 census of tile i, each on the device that computed
-    it (so a tile is never copied between cards).
+    it (so a tile is never copied between cards).  Every mode of K2:
+    Mandelbrot, the degree-``power`` Multibrot, the Burning Ship, Julia
+    sets (``julia_cs``, one constant per tile); ``use_mxu=None`` resolves
+    the ``DMTPU_MXU`` gate over the mesh's devices (full only if every
+    device proves parity).
 
     Every launch decision comes from one
     :func:`~...ops.cuda_escape.mega_dispatch_plan` of the whole batch,
@@ -272,8 +277,9 @@ def compute_tiles_mega_sharded(specs, max_iters, *, mesh: Mesh | None = None,
         mesh = tile_mesh()
     rows, mrd_rows, kw = ce.mega_dispatch_plan(
         specs, max_iters, clamp=clamp, interior_check=interior_check,
-        cycle_check=cycle_check, scout_segments=scout_segments,
-        use_mxu=use_mxu)
+        cycle_check=cycle_check, scout_segments=scout_segments, power=power,
+        burning=burning, julia_cs=julia_cs, use_mxu=use_mxu,
+        device=list(mesh.devices.flat))
     k = len(rows)
     prow, pmrd = _pad_mega(rows.tolist(), mrd_rows.tolist(),
                            mesh.devices.size)

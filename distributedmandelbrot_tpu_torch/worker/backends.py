@@ -203,6 +203,10 @@ class CudaBackend:
     over the ring, one K2 launch per device (the mesh route;
     ``DMTPU_MESH=0`` opts out, and a batch the route declines takes the
     one-device fused launch, counted as ``mesh_to_fused``).  The
+    ``DMTPU_MXU`` gate (:mod:`~distributedmandelbrot_tpu_torch.ops.mxu_iteration`)
+    resolves once per fused batch: in full mode the fused launches run
+    the matrix form (K8); in census mode they keep the cached-squares
+    form and an advisory bf16 shadow runs beside them.  The
     pipeline dispatches from its own threads: every launch selects its
     device and runs on that device's current stream, and device-to-host
     copies ride one copy stream per device.  The phase split (dispatch
@@ -231,6 +235,7 @@ class CudaBackend:
         self.spans = None  # SpanRecorder once the worker binds one
         self._streams_lock = threading.Lock()
         self._copy_streams: dict = {}
+        self._census_streams: dict = {}
 
     def bind_registry(self, registry: Registry) -> None:
         """Adopt the worker's registry (called at worker construction,
@@ -271,12 +276,52 @@ class CudaBackend:
         return self.registry.counter_value(
             obs_names.WORKER_KERNEL_DEMOTIONS, {"route": route}) or 0
 
-    def _copy_stream(self, dev: torch.device):
+    def _side_stream(self, streams: dict, dev: torch.device):
         with self._streams_lock:
-            s = self._copy_streams.get(dev)
+            s = streams.get(dev)
             if s is None:
-                s = self._copy_streams[dev] = torch.cuda.Stream(dev)
+                s = streams[dev] = torch.cuda.Stream(dev)
             return s
+
+    def _copy_stream(self, dev: torch.device):
+        return self._side_stream(self._copy_streams, dev)
+
+    def _mxu_shadow(self, specs, max_iters, dev: torch.device) -> None:
+        """Census mode: the advisory bf16 matrix-form census of one fused
+        batch (a ``CENSUS_PANEL**2`` sub-grid per tile, at most 64
+        steps), on a side stream of ``dev`` so that it waits for no
+        kernel.  A failure never fails the batch it shadows; it is
+        counted in ``worker_mxu_census_failures``."""
+        from distributedmandelbrot_tpu_torch.ops.mxu_iteration import (
+            mxu_census_counts)
+        try:
+            rows = [cuda_escape._params_row(s) for s in specs]
+            kw = dict(height=specs[0].height, width=specs[0].width,
+                      device=dev)
+            if dev.type == "cuda":
+                with torch.cuda.device(dev), torch.cuda.stream(
+                        self._side_stream(self._census_streams, dev)):
+                    counts = mxu_census_counts(rows, max_iters, **kw)
+            else:
+                counts = mxu_census_counts(rows, max_iters, **kw)
+        except Exception:
+            logger.debug("mxu census shadow failed", exc_info=True)
+            self.registry.inc(obs_names.WORKER_MXU_CENSUS_FAILURES)
+            return
+        self.registry.inc(obs_names.WORKER_KERNEL_MXU_CENSUS,
+                          by=int(counts.sum()))
+
+    def _mxu_account(self, mode: str, workloads, specs, max_iters,
+                     dev: torch.device) -> None:
+        """Count a fused batch's MXU route: a matrix-form launch (full),
+        or a demotion to the census with its shadow (census)."""
+        if mode == "full":
+            self.registry.inc(obs_names.WORKER_KERNEL_MXU_LAUNCHES)
+        elif mode == "census":
+            self.registry.inc(obs_names.WORKER_KERNEL_MXU_DEMOTIONS)
+            flight.note(obs_events.WKR_DEMOTE, key=workloads[0].key,
+                        route="mxu_census", tiles=len(workloads))
+            self._mxu_shadow(specs, max_iters, dev)
 
     def _launched(self, dev: torch.device):
         """(done event, copy stream) for what was just enqueued on
@@ -318,21 +363,31 @@ class CudaBackend:
         instead, one K2 launch per device (:meth:`mesh_width`).  A
         singleton batch, ``DMTPU_MEGA=0``, or a batch the fused kernel
         declines goes through :meth:`dispatch_tile` per tile (one
-        declined tile demotes the whole batch, as in the reference)."""
+        declined tile demotes the whole batch, as in the reference).
+        The MXU gate resolves once per batch, for every device the
+        batch may run on (the ring's, or ``device``)."""
+        from distributedmandelbrot_tpu_torch.ops.mxu_iteration import (
+            mxu_mode_for)
         if len(workloads) == 1 or not self._mega_enabled:
             return [self.dispatch_tile(w, device) for w in workloads]
         specs = [_spec_for(w, self.definition) for w in workloads]
+        max_iters = [w.max_iter for w in workloads]
+        dev = self.device if device is None else _resolve_device(device)
+        on_mesh = device is None and self.mesh_width > 1
+        mode = mxu_mode_for(self.devices() if on_mesh else [dev])
         t0 = time.monotonic()
-        if device is None and self.mesh_width > 1:
-            handles = self._dispatch_mesh(workloads, specs)
+        if on_mesh:
+            handles = self._dispatch_mesh(workloads, specs,
+                                          use_mxu=mode == "full")
             if handles is not None:
+                self._mxu_account(mode, workloads, specs, max_iters,
+                                  handles[0].pixels.device)
                 self._observe_phase(obs_names.PHASE_DISPATCH,
                                     time.monotonic() - t0)
                 return handles
-        dev = self.device if device is None else _resolve_device(device)
         try:
             tiles, scout = cuda_escape.compute_tiles_mega_cuda(
-                specs, [w.max_iter for w in workloads], clamp=self.clamp,
+                specs, max_iters, clamp=self.clamp, use_mxu=mode == "full",
                 device=dev)
         except cuda_escape.KernelUnsupported:
             self._demoted(workloads[0], obs_names.ROUTE_FUSED_TO_PER_TILE,
@@ -342,12 +397,13 @@ class CudaBackend:
         self.registry.inc(obs_names.WORKER_KERNEL_FUSED_LAUNCHES)
         self.registry.inc(obs_names.WORKER_KERNEL_FUSED_TILES,
                           by=len(workloads))
+        self._mxu_account(mode, workloads, specs, max_iters, dev)
         self._observe_phase(obs_names.PHASE_DISPATCH, time.monotonic() - t0)
         return [MegaTileHandle(tiles[i], scout[i, 0], done, copy_stream)
                 for i in range(len(workloads))]
 
-    def _dispatch_mesh(self, workloads: Sequence[Workload],
-                       specs: list) -> Optional[list]:
+    def _dispatch_mesh(self, workloads: Sequence[Workload], specs: list, *,
+                       use_mxu: bool = False) -> Optional[list]:
         """The mesh route: one K2 launch per ring device on its shard;
         None (counted as ``mesh_to_fused``) when the route declines."""
         from distributedmandelbrot_tpu_torch.parallel.sharding import (
@@ -355,7 +411,7 @@ class CudaBackend:
         try:
             tiles, scout = compute_tiles_mega_sharded(
                 specs, [w.max_iter for w in workloads], mesh=self.mesh,
-                clamp=self.clamp)
+                clamp=self.clamp, use_mxu=use_mxu)
         except cuda_escape.KernelUnsupported:
             self._demoted(workloads[0], obs_names.ROUTE_MESH_TO_FUSED,
                           len(workloads))

@@ -78,7 +78,12 @@ def test_launch_counts_count_card_launches_only(cuda):
     assert ce.launch_counts() == {ce.KERNEL_TILE: 1, ce.KERNEL_MEGA: 1,
                                   ce.KERNEL_SMOOTH: 0, ce.KERNEL_PACK: 0,
                                   ce.KERNEL_BATCH: 0, ce.KERNEL_STATE: 0,
-                                  ce.KERNEL_RESUME: 0}
+                                  ce.KERNEL_RESUME: 0,
+                                  ce.KERNEL_TILE_MXU: 0,
+                                  ce.KERNEL_MEGA_MXU: 0,
+                                  ce.KERNEL_MEGA_JULIA: 0,
+                                  ce.KERNEL_MEGA_MULTIBROT: 0,
+                                  ce.KERNEL_MEGA_SHIP: 0}
 
 
 def test_a_refused_launch_raises(cuda):
@@ -86,12 +91,12 @@ def test_a_refused_launch_raises(cuda):
     lib = _build.load()
     out = torch.empty((1, 8, 8), dtype=torch.uint8, device=cuda)
     census = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
-    rows = np.zeros((1, 4), np.float32)
+    rows = np.zeros((1, 6), np.float32)
     mrds = np.ones((1, 1), np.int32)
     rc = lib.dm_escape_mega(
         ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(census.data_ptr()),
         ctypes.c_void_p(rows.ctypes.data), ctypes.c_void_p(mrds.ctypes.data),
-        ce.MEGA_MAX_TILES + 1, 8, 8, 0, 1, 0, 0,
+        ce.MEGA_MAX_TILES + 1, 8, 8, 0, 0, 1, 0.0, 0, 0, 0, 2, 0,
         ctypes.c_void_p(torch.cuda.current_stream(cuda).cuda_stream))
     assert rc != 0
     with pytest.raises(RuntimeError, match="launch failed"):
@@ -308,3 +313,122 @@ def test_a_ring_naming_one_card_twice_equals_one_device(cuda):
         sh.compute_tile_row_sharded(tile_row_mesh(1, 2, [cuda, cuda]),
                                     spec, 300),
         sh.compute_tile_row_sharded(tile_row_mesh(1, 1, [cuda]), spec, 300))
+
+
+# --- K8 (the matrix form) and K2's modes --------------------------------
+
+MEGA_MODES = {"julia": {"julia_c": JULIA_C}, "multibrot3": {"power": 3},
+              "multibrot5": {"power": 5}, "ship": {"burning": True}}
+
+
+def _mega_kw(kw, k):
+    kw = dict(kw)
+    jc = kw.pop("julia_c", None)
+    if jc is not None:
+        kw["julia_cs"] = [jc] * k
+    return kw
+
+
+def test_probe_runs_the_kernels_update(cuda):
+    """The card's probe planes (the kernels' own update, both forms)
+    equal the plain forms computed by torch on the same card, bit for
+    bit; the verdict is the differing-lane count being zero."""
+    from distributedmandelbrot_tpu_torch.ops import mxu_iteration as mxu
+    got = mxu.probe_planes(cuda)
+    xs, ys = mxu._probe_grid(cuda)
+    cr = xs[None, :].expand(mxu.PROBE_N, mxu.PROBE_N)
+    ci = ys[:, None].expand(mxu.PROBE_N, mxu.PROBE_N)
+    want = torch.stack([*mxu._probe_cached(cr, ci, cr, ci),
+                        *mxu._probe_matrix(cr, ci, cr, ci)])
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    mxu.reset_mxu_cache()
+    assert mxu.mxu_parity_proven(cuda) == (mxu.probe_differences(cuda) == 0)
+
+
+@pytest.mark.parametrize("julia", [False, True])
+@pytest.mark.parametrize("mis", [[256, 1024, 2000, 300], [2000] * 4])
+def test_k8_in_k1_and_k2_is_bitwise(cuda, julia, mis):
+    """K2 and K1 in the matrix form against their plain versions and K2
+    against K1 per tile; where the probe admits full mode, also against
+    the cached form."""
+    from distributedmandelbrot_tpu_torch.ops import mxu_iteration as mxu
+    specs = _views()[:4]
+    jc = JULIA_C if julia else None
+    kw = {"julia_cs": [jc] * 4} if julia else {}
+    tiles, census = ce.compute_tiles_mega_cuda(specs, mis, use_mxu=True,
+                                               device=cuda, **kw)
+    rows, mrds, pkw = ce.mega_dispatch_plan(specs, mis, use_mxu=True, **kw)
+    assert pkw["use_mxu"]
+    ptiles, pcensus = ce.escape_mega_plain(rows, mrds, device=cuda, **pkw)
+    assert torch.equal(tiles, ptiles) and torch.equal(census, pcensus)
+    cyc = ce.escape_time.resolve_cycle_check(None, max(mis))
+    for t, (spec, mi) in enumerate(zip(specs, mis)):
+        one = ce.compute_tile_cuda_device(spec, mi, use_mxu=True, julia_c=jc,
+                                          cycle_check=cyc, device=cuda)
+        assert torch.equal(tiles[t], one), t
+    if mxu.mxu_parity_proven(cuda):
+        cached, _ = ce.compute_tiles_mega_cuda(specs, mis, use_mxu=False,
+                                               device=cuda, **kw)
+        assert torch.equal(tiles, cached)
+
+
+@pytest.mark.parametrize("mis", [[300, 150, 80, 2000], [256, 256, 256, 256]])
+@pytest.mark.parametrize("mode", sorted(MEGA_MODES))
+def test_k2_modes_are_bitwise_their_plain_version_and_k1(cuda, mode, mis):
+    """K2 in each mode, pixels and census, against its plain version;
+    each plane against K1 in the same mode."""
+    specs = _views()[:4]
+    kw = _mega_kw(MEGA_MODES[mode], 4)
+    tiles, census = ce.compute_tiles_mega_cuda(specs, mis, device=cuda, **kw)
+    rows, mrds, pkw = ce.mega_dispatch_plan(specs, mis, **kw)
+    ptiles, pcensus = ce.escape_mega_plain(rows, mrds, device=cuda, **pkw)
+    assert torch.equal(tiles, ptiles)
+    assert torch.equal(census, pcensus)
+    cyc = ce.escape_time.resolve_cycle_check(None, max(mis))
+    for t, (spec, mi) in enumerate(zip(specs, mis)):
+        one = ce.compute_tile_cuda_device(spec, mi, cycle_check=cyc,
+                                          device=cuda, **MEGA_MODES[mode])
+        assert torch.equal(tiles[t], one), t
+
+
+def test_variant_launches_have_counters_of_their_own(cuda):
+    ce.reset_launch_counts()
+    spec = _views()[3]
+    ce.compute_tile_cuda_device(spec, 100, use_mxu=True, device=cuda)
+    ce.compute_tiles_mega_cuda([spec, spec], [100, 300], use_mxu=True,
+                               device=cuda)
+    for mode, kw in MEGA_MODES.items():
+        ce.compute_tiles_mega_cuda([spec, spec], [100, 300], device=cuda,
+                                   **_mega_kw(kw, 2))
+    counts = ce.launch_counts()
+    assert counts == {k: 0 for k in counts} | {
+        ce.KERNEL_TILE_MXU: 1, ce.KERNEL_MEGA_MXU: 1,
+        ce.KERNEL_MEGA_JULIA: 1, ce.KERNEL_MEGA_MULTIBROT: 2,
+        ce.KERNEL_MEGA_SHIP: 1}
+
+
+@pytest.mark.parametrize("verdict", [True, False])
+def test_backend_under_the_mxu_gate(cuda, monkeypatch, verdict):
+    """DMTPU_MXU=1 with each verdict forced on the card: the chunks of
+    DMTPU_MXU=0, bitwise, and the counters of the verdict's route."""
+    from distributedmandelbrot_tpu_torch.ops import mxu_iteration as mxu
+    ws = [Workload(4, 300, 3, 3), Workload(4, 1024, 1, 1),
+          Workload(4, 300, 1, 2)]
+    base = bk.CudaBackend(definition=256, device=cuda)
+    want = [base.materialize_tile(h) for h in base.dispatch_many(ws)]
+    monkeypatch.setenv(mxu.MXU_ENV, "1")
+    mxu._parity_cache[("cuda", cuda.index)] = verdict
+    try:
+        backend = bk.CudaBackend(definition=256, device=cuda)
+        got = [backend.materialize_tile(h) for h in backend.dispatch_many(ws)]
+    finally:
+        mxu.reset_mxu_cache()
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    cv = backend.registry.counter_value
+    if verdict:
+        assert cv(obs_names.WORKER_KERNEL_MXU_LAUNCHES) == 1
+        assert cv(obs_names.WORKER_KERNEL_MXU_DEMOTIONS) is None
+    else:
+        assert cv(obs_names.WORKER_KERNEL_MXU_DEMOTIONS) == 1
+        assert cv(obs_names.WORKER_KERNEL_MXU_CENSUS) > 0
+    assert cv(obs_names.WORKER_MXU_CENSUS_FAILURES) is None

@@ -57,7 +57,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["forbidden"] == []
     for mod in ("ops.cuda_escape", "ops.escape_time", "ops._build",
-                "ops.families", "ops.compact_escape", "parallel",
+                "ops.families", "ops.compact_escape", "ops.mxu_iteration",
+                "ops.mixed_precision", "parallel",
                 "parallel.mesh", "parallel.sharding", "parallel.backend",
                 "parallel.multihost", "serve.render", "viewer.render",
                 "worker.backends", "worker.pipeline", "cli", "__main__"):
@@ -102,8 +103,8 @@ def test_carried_module_matches_the_jax_package(rel):
 
 
 def test_names_only_add_the_demotion_counter():
-    """``obs/names.py`` is carried with one addition: the port counts its
-    demotions by route."""
+    """``obs/names.py`` is carried with two additions: the port counts its
+    demotions by route, and the MXU census shadows that failed."""
     ref = _renamed(REF / "obs/names.py").splitlines()
     port = (PORT / "obs/names.py").read_text().splitlines()
     assert set(ref) <= set(port)
@@ -113,4 +114,6 @@ def test_names_only_add_the_demotion_counter():
                     'ROUTE_FUSED_TO_PER_TILE = "fused_to_per_tile"',
                     'ROUTE_PER_TILE_TO_TORCH = "per_tile_to_torch"',
                     'ROUTE_MESH_TO_FUSED = "mesh_to_fused"',
-                    'ROUTE_BATCH_TO_TORCH = "batch_to_torch"']
+                    'ROUTE_BATCH_TO_TORCH = "batch_to_torch"',
+                    'WORKER_MXU_CENSUS_FAILURES = '
+                    '"worker_mxu_census_failures"']

@@ -152,9 +152,10 @@ def test_guards_decline_as_the_reference_does():
         ce.compute_tiles_mega_cuda([], [], device="cpu")
     with pytest.raises(ValueError, match="mismatch"):
         ce.mega_dispatch_plan([_spec("sky")], [100, 200])
-    with pytest.raises(ce.KernelUnsupported, match="K8"):
+    # The matrix form (K8) is the degree-2 recurrence without a fold.
+    with pytest.raises(ce.KernelUnsupported, match="[Mm][Xx][Uu]"):
         ce.compute_tile_cuda_device(_spec("sky"), 100, use_mxu=True,
-                                    device="cpu")
+                                    burning=True, device="cpu")
     with pytest.raises(ce.KernelUnsupported, match="fused launch"):
         ce.mega_dispatch_plan([_spec("sky")] * (ce.MEGA_MAX_TILES + 1),
                               [100] * (ce.MEGA_MAX_TILES + 1))
@@ -254,4 +255,9 @@ def test_launch_counts_count_only_kernel_launches():
     assert ce.launch_counts() == {ce.KERNEL_TILE: 0, ce.KERNEL_MEGA: 0,
                                   ce.KERNEL_SMOOTH: 0, ce.KERNEL_PACK: 0,
                                   ce.KERNEL_BATCH: 0, ce.KERNEL_STATE: 0,
-                                  ce.KERNEL_RESUME: 0}
+                                  ce.KERNEL_RESUME: 0,
+                                  ce.KERNEL_TILE_MXU: 0,
+                                  ce.KERNEL_MEGA_MXU: 0,
+                                  ce.KERNEL_MEGA_JULIA: 0,
+                                  ce.KERNEL_MEGA_MULTIBROT: 0,
+                                  ce.KERNEL_MEGA_SHIP: 0}

@@ -380,4 +380,9 @@ def test_new_launch_counts_stay_zero_on_the_cpu():
     assert ce.launch_counts() == {ce.KERNEL_TILE: 0, ce.KERNEL_MEGA: 0,
                                   ce.KERNEL_SMOOTH: 0, ce.KERNEL_PACK: 0,
                                   ce.KERNEL_BATCH: 0, ce.KERNEL_STATE: 0,
-                                  ce.KERNEL_RESUME: 0}
+                                  ce.KERNEL_RESUME: 0,
+                                  ce.KERNEL_TILE_MXU: 0,
+                                  ce.KERNEL_MEGA_MXU: 0,
+                                  ce.KERNEL_MEGA_JULIA: 0,
+                                  ce.KERNEL_MEGA_MULTIBROT: 0,
+                                  ce.KERNEL_MEGA_SHIP: 0}
