@@ -23,7 +23,11 @@ JSON line; any failure raises and the script exits non-zero.
    and Julia), K2 in its Julia, Multibrot-3 and Burning-Ship modes, each
    against its plain version (the census as integers) and per tile
    against K1, and, where the probe admits full mode, the matrix form
-   against the cached form (128^2 views, 4096^2 chunks).
+   against the cached form (128^2 views, 4096^2 chunks).  Then the
+   refill stress cases of K1's and K2's persistent loop: K2 at k = 128
+   tiles of 64^2 with budgets from 1-2000 (1-9 included, numpy seed) in
+   every mode and K8 form, per tile against K1; K1 and K2 on a 7x3 tile;
+   two K2 launches in flight at once on two streams of cuda:0.
 3. golden: the all-escaping sky chunk bitwise against the numpy golden
    at 4096^2; bulb and seahorse chunks at 512^2 through the backend's
    fused route (proven-interior pixels bitwise, <= 2% off-mask).
@@ -73,7 +77,11 @@ JSON line; any failure raises and the script exits non-zero.
    pipeline's wall time beside K3's on one 4-chunk batch with the warp
    lane-steps each issues over the steps the pixels need; K8 in K2
    beside K2 in the same run, with the static f32 instructions of each
-   K1/K2 instantiation (``cuobjdump -sass``), and K2 in each mode.
+   K1/K2 instantiation (``cuobjdump -sass``), and K2 in each mode.  For
+   K1, K2 and their modes also the lane steps the warps issue (measured
+   by the instrumented form, beside the modelled ``f32_warp_steps`` of a
+   one-pixel-a-thread loop), registers, occupancy and the SASS of the
+   inner step group.
 
 The second-to-last line is ``nvidia-smi``'s name and power limit, the
 last ``{"ok": true, "device": {...}}``.
@@ -304,34 +312,78 @@ def kernel_name(mangled: str) -> str:
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
-def sass_f32_ops(build) -> dict | str:
-    """Static f32 arithmetic instructions (FMUL, FADD, FFMA) of each K1
-    and K2 instantiation in the built library's SASS (``cuobjdump
-    -sass``): whether nvcc kept the matrix form's recomputed squares or
-    merged them, and that no FMA was formed."""
+def sass_listing(build) -> str | None:
+    """The built library's SASS (``cuobjdump -sass``), or None."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
-        out = subprocess.run([tool, "-sass", str(build.library_path())],
-                             capture_output=True, text=True, timeout=300,
-                             check=True).stdout
-    except (OSError, subprocess.SubprocessError) as exc:
-        return f"not measured ({type(exc).__name__})"
+        return subprocess.run([tool, "-sass", str(build.library_path())],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+
+
+_SASS_INST = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9_]*)")
+
+
+def sass_functions(listing: str) -> dict:
+    """K1's and K2's SASS by instantiation name: a list of basic blocks,
+    each a list of opcodes (a block ends at a label or after a branch,
+    exit or return)."""
     per: dict = {}
     cur = None
-    for line in out.splitlines():
+    for line in listing.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = kernel_name(m.group(1))
-            cur = (per.setdefault(name, {"FMUL": 0, "FADD": 0, "FFMA": 0})
+            cur = (per.setdefault(name, [[]])
                    if name.startswith(("escape_tile", "escape_mega"))
                    else None)
             continue
-        if cur is not None:
-            m = re.search(r"\b(FMUL|FADD|FFMA)(?:32I)?\b", line)
-            if m:
-                cur[m.group(1)] += 1
+        if cur is None:
+            continue
+        if re.match(r"\s*\.L_x_\d+:", line):
+            cur.append([])
+            continue
+        m = _SASS_INST.search(line)
+        if m and m.group(1) != "NOP":
+            cur[-1].append(m.group(1))
+            if m.group(1) in ("BRA", "EXIT", "RET", "JMP", "BRX"):
+                cur.append([])
     return per
+
+
+def sass_f32_ops(listing: str | None) -> dict | str:
+    """Static f32 arithmetic instructions (FMUL, FADD, FFMA) of each K1
+    and K2 instantiation: whether nvcc kept the matrix form's recomputed
+    squares or merged them, and that no FMA was formed."""
+    if listing is None:
+        return "not measured (no cuobjdump listing)"
+    return {name: {op: sum(b.count(op) for b in blocks)
+                   for op in ("FMUL", "FADD", "FFMA")}
+            for name, blocks in sass_functions(listing).items()}
+
+
+def sass_step_group(listing: str | None) -> dict | str:
+    """The inner step group of each K1 and K2 instantiation: the basic
+    block with the most f32 arithmetic (at degree 2 and in the ship,
+    steps 5-8 of dm::step_group, the group's tail after its early-exit
+    votes; at degree d > 2 the body of the complex power's loop), with
+    its instructions, f32 operations, and instructions per f32 operation
+    (the share of issue slots the arithmetic gets is its inverse)."""
+    if listing is None:
+        return "not measured (no cuobjdump listing)"
+    out = {}
+    for name, blocks in sass_functions(listing).items():
+        f32 = [sum(op in ("FMUL", "FADD", "FFMA") for op in b)
+               for b in blocks]
+        b = blocks[int(np.argmax(f32))]
+        out[name] = {"instructions": len(b), "f32": max(f32),
+                     "per_f32": len(b) / max(f32) if max(f32) else None,
+                     "opcodes": {op: b.count(op) for op in sorted(set(b))}}
+    return out
 
 
 def phase_device(build):
@@ -451,6 +503,7 @@ def phase_kernel_vs_plain(ce, TileSpec):
                       f"K1's plain version per state ({mode}, {mis})")
     check_mesh_kernels(ce, TileSpec, views, check)
     check_mxu_and_mega_modes(ce, TileSpec, views, chunks, check)
+    check_refill_stress(ce, TileSpec, check)
     torch.cuda.synchronize()
     emit({"phase": "kernel_vs_plain", "ok": True, "cases": cases,
           "bitwise": True, "max_abs_err": err})
@@ -534,6 +587,94 @@ def check_mxu_and_mega_modes(ce, TileSpec, views, chunks, check) -> None:
                             [1024, 2000])):
             against_plain_and_k1(f"escape_mega_{mode}", specs, mis, kw,
                                  **mega_kw(kw, len(specs)))
+
+
+# K1's and K2's forms for the refill stress cases: each K2 mode, K8 in
+# Mandelbrot and Julia mode (K1 keywords; the K2 counter each launches).
+STRESS_FORMS = {"mandelbrot": ({}, "escape_mega"),
+                "julia": (MODES["julia"], "escape_mega_julia"),
+                "multibrot": (MODES["multibrot3"], "escape_mega_multibrot"),
+                "ship": (MODES["ship"], "escape_mega_ship"),
+                "mxu": ({"use_mxu": True}, "escape_mega_mxu"),
+                "mxu_julia": ({"use_mxu": True, **MODES["julia"]},
+                              "escape_mega_mxu")}
+
+
+def stress_batch(TileSpec, seed: int = 5, k: int = 128, side: int = 64):
+    """k views of side^2 on boundary windows of every scale, with budgets
+    drawn from 1-2000 (1 through 9 among them), from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    anchors = np.array([(-0.745, 0.11), (-0.2, 0.7), (-1.25, 0.0),
+                        (0.28, 0.01), (-0.5, -0.5), (0.0, 0.0),
+                        (-1.75, -0.03), (0.35, 0.35)])
+    specs = []
+    for t in range(k):
+        cx, cy = anchors[t % len(anchors)] + rng.normal(0, 0.02, 2)
+        span = float(10 ** rng.uniform(-3, 0.5))
+        specs.append(TileSpec(cx - span / 2, cy - span / 2, span, span,
+                              width=side, height=side))
+    mis = [int(m) for m in rng.integers(1, 2001, k)]
+    mis[:9] = list(range(1, 10))
+    return specs, mis
+
+
+def check_refill_stress(ce, TileSpec, check) -> None:
+    """The persistent loop of K1 and K2 where refill and the end game
+    bite, bitwise: K2 at k = 128 tiles of 64^2 with budgets from 1-2000
+    (1-9 included) in every mode and K8 form, against its plain version
+    (census as integers) and per tile against K1; K1 and K2 on a 7x3
+    tile at budgets 1-9, 17 and 1500 in every form; two K2 launches in
+    flight at once on two streams of cuda:0, each against its plain
+    version."""
+    dev = torch.device("cuda", 0)
+
+    def mega(name, specs, mis, kw, per_tile=True):
+        mkw = mega_kw(kw, len(specs))
+        tiles, census = ce.compute_tiles_mega_cuda(specs, mis, device=dev,
+                                                   **mkw)
+        rows, mrds, pkw = ce.mega_dispatch_plan(specs, mis, **mkw)
+        ptiles, pcensus = ce.escape_mega_plain(rows, mrds, device=dev,
+                                               **pkw)
+        check(name, tiles, ptiles, f"plain (stress, {len(specs)} tiles)")
+        check(name, census, pcensus, "the plain census (stress)")
+        if per_tile:
+            cyc = ce.escape_time.resolve_cycle_check(None, max(mis))
+            for t, (spec, mi) in enumerate(zip(specs, mis)):
+                one = ce.compute_tile_cuda_device(spec, mi, cycle_check=cyc,
+                                                  device=dev, **kw)
+                check(name, tiles[t], one, f"K1 per tile (stress, mi {mi})")
+
+    specs, mis = stress_batch(TileSpec)
+    tiny = TileSpec(-0.8, 0.1, 0.2, 0.1, width=7, height=3)
+    tiny2 = TileSpec(-0.745, 0.11, 0.01, 0.01, width=7, height=3)
+    for form, (kw, name) in STRESS_FORMS.items():
+        mega(name, specs, mis, kw)
+        k1_name = "escape_tile_mxu" if kw.get("use_mxu") else "escape_tile"
+        for mi in (*range(1, 10), 17, 1500):
+            got = ce.compute_tile_cuda_device(tiny, mi, device=dev, **kw)
+            want = ce.escape_tile_plain(
+                ce._params_row(tiny, kw.get("julia_c")), mi, 3, 7,
+                cycle_check=ce.escape_time.resolve_cycle_check(None, mi),
+                device=dev, **{k: v for k, v in kw.items()
+                               if k != "julia_c"})
+            check(k1_name, got, want, f"plain (7x3, {form}, mi {mi})")
+            mega(name, [tiny, tiny2], [mi, 300], kw)
+    # Two launches in flight at once, each on its own stream and counter.
+    specs, mis = stress_batch(TileSpec, seed=11, k=64)
+    halves = [(specs[:32], mis[:32]), (specs[32:], mis[32:])]
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    torch.cuda.synchronize()
+    got = []
+    for (sp, mi), st in zip(halves, streams):
+        with torch.cuda.stream(st):
+            got.append(ce.compute_tiles_mega_cuda(sp, mi, device=dev))
+    torch.cuda.synchronize()
+    for (sp, mi), (tiles, census) in zip(halves, got):
+        rows, mrds, kw = ce.mega_dispatch_plan(sp, mi)
+        ptiles, pcensus = ce.escape_mega_plain(rows, mrds, device=dev, **kw)
+        check("escape_mega", tiles, ptiles, "plain (two streams at once)")
+        check("escape_mega", census, pcensus,
+              "the plain census (two streams at once)")
 
 
 def check_mesh_kernels(ce, TileSpec, views, check) -> int:
@@ -1290,6 +1431,49 @@ def warp_steps(steps) -> int:
     return int(s.max(dim=1).values.sum()) * 32
 
 
+def issued_lane_steps(launch) -> int:
+    """Lane steps K1's or K2's instrumented form issues: ``launch`` gets a
+    zeroed (1,) int64 counter on the card, to which each warp adds 8 x 32
+    per group it runs (the counting form is launched only here)."""
+    counter = torch.zeros((1,), dtype=torch.int64, device="cuda")
+    launch(counter)
+    torch.cuda.synchronize()
+    return int(counter.item())
+
+
+# K1's and K2's instantiations by form: escape_tile_kernel<F, MXU, COUNT>,
+# escape_mega_kernel<F, MXU, JULIA, COUNT> (the uncounted form).
+PERSISTENT_FORMS = {
+    "escape_tile": ("escape_tile_kernel<0,0,0>", {}),
+    "escape_tile_julia": ("escape_tile_kernel<0,0,0>", {"julia": True}),
+    "escape_tile_multibrot3": ("escape_tile_kernel<2,0,0>", {"power": 3}),
+    "escape_tile_ship": ("escape_tile_kernel<1,0,0>", {"burning": True}),
+    "escape_mega": ("escape_mega_kernel<0,0,0,0>", {}),
+    "escape_mega_julia": ("escape_mega_kernel<0,0,1,0>", {"julia": True}),
+    "escape_mega_multibrot": ("escape_mega_kernel<2,0,0,0>", {"power": 3}),
+    "escape_mega_ship": ("escape_mega_kernel<1,0,0,0>", {"burning": True}),
+    "escape_mega_mxu": ("escape_mega_kernel<0,1,0,0>", {"use_mxu": True}),
+}
+
+
+def persistent_fields(ce, ptxas: dict, groups, form: str, issued: int,
+                      needed: int) -> dict:
+    """The persistent loop's own numbers for a K1/K2 row: lane steps
+    issued (measured by the instrumented form) over the steps the pixels
+    need, registers and spills, occupancy, and the inner step group's
+    SASS."""
+    inst, kw = PERSISTENT_FORMS[form]
+    regs = ptxas.get(inst, {})
+    return {"lane_steps_issued": issued,
+            "lane_steps_over_needed": issued / needed if needed else None,
+            "instantiation": inst, "registers": regs.get("registers"),
+            "spill_stores": regs.get("spill_stores"),
+            "occupancy": ce.persistent_occupancy(
+                mega=form.startswith("escape_mega"), **kw),
+            "step_group_sass": (groups.get(inst, "not found")
+                                if isinstance(groups, dict) else groups)}
+
+
 def bound(f32_steps: int, scout_steps: int, out_bytes: int,
           per_step: int = OPS_PER_STEP, extra_ops: int = 0,
           scout_per_step: int = OPS_PER_STEP):
@@ -1319,7 +1503,7 @@ def render_view(mode: str, TileSpec):
     return TileSpec(cx - 1.5, cy - 1.5, 3.0, 3.0, width=4096, height=4096)
 
 
-def time_k1_modes(ce, TileSpec, dev) -> dict:
+def time_k1_modes(ce, TileSpec, dev, ptxas, groups) -> dict:
     """K1 per added mode on its render view at budget 1024."""
     out = {}
     mi = 1024
@@ -1341,10 +1525,16 @@ def time_k1_modes(ce, TileSpec, dev) -> dict:
                                  "version")
         b_ms, b_by, ops = bound(int(steps.sum()), 0, 4096 * 4096,
                                 per_step=ops_per_step(kw))
+        row = ce._params_row(spec, kw.get("julia_c"))
+        issued = issued_lane_steps(lambda c: ce.compute_tile_row_cuda(
+            row, mi, 4096, 4096, device=dev, lane_steps=c, **mode_args(kw)))
         out[mode] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "ops": ops,
                      "f32_steps": int(steps.sum()),
                      "f32_warp_steps": warp_steps(steps),
+                     **persistent_fields(ce, ptxas, groups,
+                                         f"escape_tile_{mode}", issued,
+                                         int(steps.sum())),
                      "input": f"{mode} render view (span 3) at 4096^2, "
                               f"max_iter {mi}"}
     return out
@@ -1508,7 +1698,8 @@ def time_mesh_kernels(ce, TileSpec, dev) -> dict:
     return out
 
 
-def time_mxu_and_modes(ce, TileSpec, dev, specs, mis, k2_tiles) -> dict:
+def time_mxu_and_modes(ce, TileSpec, dev, specs, mis, k2_tiles, ptxas,
+                       groups) -> dict:
     """K8 in K2 on the main path's heaviest pair (``specs`` at ``mis``),
     against its plain version and, where the probe admits full mode, the
     cached-form tiles ``k2_tiles``; K8 in K1 on the first chunk; K2 in
@@ -1539,6 +1730,11 @@ def time_mxu_and_modes(ce, TileSpec, dev, specs, mis, k2_tiles) -> dict:
             specs[0], mis[0], use_mxu=True, device=dev), reps=50),
         "f32_steps": int(psteps.sum()), "f32_warp_steps": warp_steps(psteps),
         "scout_steps": sum(pscout),
+        **persistent_fields(ce, ptxas, groups, "escape_mega_mxu",
+                            issued_lane_steps(
+                                lambda c: ce.compute_tiles_mega_cuda(
+                                    specs, mis, use_mxu=True, device=dev,
+                                    lane_steps=c)), int(psteps.sum())),
         "input": "k=2: chunks (10, 3, 5) and (10, 3, 4) at 4096^2, "
                  "max_iter 1024, census armed, use_mxu=True"}
     if admitted and not out["escape_mega_mxu"]["bitwise_vs_cached_k2"]:
@@ -1569,6 +1765,12 @@ def time_mxu_and_modes(ce, TileSpec, dev, specs, mis, k2_tiles) -> dict:
             "f32_steps": int(psteps.sum()),
             "f32_warp_steps": warp_steps(psteps),
             "scout_steps": sum(pscout),
+            **persistent_fields(ce, ptxas, groups, f"escape_mega_{mode}",
+                                issued_lane_steps(
+                                    lambda c: ce.compute_tiles_mega_cuda(
+                                        mspecs, mmis, device=dev,
+                                        lane_steps=c, **kwm)),
+                                int(psteps.sum())),
             "input": f"k=2: the {mode} render view (span 3"
                      f"{', d = 3' if mode == 'multibrot' else ''}) and the "
                      "window a quarter span right, at 4096^2, max_iter "
@@ -1597,6 +1799,11 @@ def phase_kernels(ce, TileSpec, launches, err, build):
                                              return_steps=True)
     k1_bitwise = bool(torch.equal(k1_got, k1_want))
     k1_bound, k1_by, k1_ops = bound(int(k1_steps.sum()), 0, 4096 * 4096)
+    listing = sass_listing(build)
+    groups = sass_step_group(listing)
+    ptxas = {kernel_name(r["kernel"]): r for r in build.ptxas_report()}
+    k1_issued = issued_lane_steps(lambda c: ce.compute_tile_row_cuda(
+        row_a, mi, 4096, 4096, device=dev, lane_steps=c))
 
     specs, mis = [a, b], [mi, mi]
     rows, mrds, kw = ce.mega_dispatch_plan(specs, mis)
@@ -1612,6 +1819,18 @@ def phase_kernels(ce, TileSpec, launches, err, build):
                       and torch.equal(census, pcensus))
     k2_bound, k2_by, k2_ops = bound(int(psteps.sum()), sum(pscout),
                                     2 * 4096 * 4096)
+    k2_issued = issued_lane_steps(lambda c: ce.compute_tiles_mega_cuda(
+        specs, mis, device=dev, lane_steps=c))
+    # Lighter pairs of the main path: a sky pair and a level-4 pair at
+    # 256 (the probe off), where little divergence was left to remove.
+    k2_light = {}
+    for name, (keys, lmi) in {"sky (10,0,0)+(10,0,1), max_iter 1024":
+                              (((10, 0, 0), (10, 0, 1)), 1024),
+                              "level 4 (4,1,1)+(4,1,2), max_iter 256":
+                              (((4, 1, 1), (4, 1, 2)), 256)}.items():
+        pair = [TileSpec.for_chunk(*k) for k in keys]
+        k2_light[name] = median_ms(lambda: ce.compute_tiles_mega_cuda(
+            pair, [lmi, lmi], device=dev), reps=30)
     # K4 on the same chunk: f32 nu, 4 bytes a pixel.
     k4_ms = median_ms(lambda: ce.compute_tile_smooth_cuda(a, mi, device=dev),
                       reps=50)
@@ -1640,10 +1859,11 @@ def phase_kernels(ce, TileSpec, launches, err, build):
                                    return_steps=True)
     k5_bitwise = bool(torch.equal(k5_got, k5_want))
     k5_bound, k5_by, k5_ops = bound(int(k5_steps.sum()), 0, 4 * 4096 * 4096)
-    modes = time_k1_modes(ce, TileSpec, dev)
+    modes = time_k1_modes(ce, TileSpec, dev, ptxas, groups)
     mesh = time_mesh_kernels(ce, TileSpec, dev)
     finding = mesh.pop("compaction_vs_k3")
-    mxu_modes = time_mxu_and_modes(ce, TileSpec, dev, specs, mis, tiles)
+    mxu_modes = time_mxu_and_modes(ce, TileSpec, dev, specs, mis, tiles,
+                                   ptxas, groups)
 
     if not (k1_bitwise and k2_bitwise and k4_bitwise and k5_bitwise
             and all(m["bitwise_vs_plain"] for m in mesh.values())
@@ -1667,6 +1887,8 @@ def phase_kernels(ce, TileSpec, launches, err, build):
          "input": "chunk (10, 3, 5) at 4096^2, max_iter 1024",
          "f32_steps": int(k1_steps.sum()),
          "f32_warp_steps": warp_steps(k1_steps), "ops": k1_ops,
+         **persistent_fields(ce, ptxas, groups, "escape_tile", k1_issued,
+                             int(k1_steps.sum())),
          "modes": modes},
         {"name": "escape_mega", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES["escape_mega"], **runs("escape_mega"),
@@ -1678,7 +1900,10 @@ def phase_kernels(ce, TileSpec, launches, err, build):
                   "max_iter 1024, census armed",
          "f32_steps": int(psteps.sum()),
          "f32_warp_steps": warp_steps(psteps), "scout_steps": sum(pscout),
-         "ops": k2_ops},
+         "ops": k2_ops,
+         **persistent_fields(ce, ptxas, groups, "escape_mega", k2_issued,
+                             int(psteps.sum())),
+         "light_pairs_ms": k2_light},
         {"name": "escape_smooth", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES["escape_smooth"], **runs("escape_smooth"),
          "max_abs_err": err["escape_smooth"], "ms": k4_ms,
@@ -1713,7 +1938,7 @@ def phase_kernels(ce, TileSpec, launches, err, build):
             "max_abs_err": err[name], "library_ms": None,
             "library_reason": NO_LIBRARY, **m})
     kernels[-1]["compaction_vs_k3"] = finding
-    sass = sass_f32_ops(build)
+    sass = sass_f32_ops(listing)
     for name, m in mxu_modes.items():
         row = {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
                "replaces": REPLACES[name], **runs(name),

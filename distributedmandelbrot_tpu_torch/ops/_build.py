@@ -109,10 +109,10 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.dm_escape_tile.argtypes = [vp, i, i, vp, i, i, i, i, f, i, i,
-                                           i, i, vp]
+                                           i, i, vp, vp, vp]
             lib.dm_escape_tile.restype = i
             lib.dm_escape_mega.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i,
-                                           f, i, i, i, i, i, vp]
+                                           f, i, i, i, i, i, vp, vp, vp]
             lib.dm_escape_mega.restype = i
             lib.dm_mxu_probe.argtypes = [vp, vp, vp, i, i, vp]
             lib.dm_mxu_probe.restype = i
@@ -131,6 +131,10 @@ def load() -> ctypes.CDLL:
             lib.dm_escape_resume.argtypes = [vp] * 7 + [ctypes.c_longlong,
                                                         i, i, i, i, vp]
             lib.dm_escape_resume.restype = i
+            lib.dm_persistent_blocks_per_sm.argtypes = [i, i, i, i]
+            lib.dm_persistent_blocks_per_sm.restype = i
+            lib.dm_persistent_block_threads.argtypes = []
+            lib.dm_persistent_block_threads.restype = i
             lib.dm_mega_max_tiles.argtypes = []
             lib.dm_mega_max_tiles.restype = i
             lib.dm_error_string.argtypes = [i]

@@ -150,6 +150,59 @@ DM_D bool advance(Orbit& o, int s, int dyn, bool cycle_check, int power) {
   return true;
 }
 
+// One group of kCycleStride steps, s + 1 .. s + kCycleStride, of an
+// orbit live after its own step s (a multiple of kCycleStride, so n ==
+// s): the form K1 and K2 run, equal to kCycleStride calls of advance()
+// on every output.  Inside the group each step is the update, the
+// radius-2 compare and a predicated count: a lane that escapes keeps
+// stepping (z may run on to inf or NaN) with n frozen at e - 1.  Once
+// per group, at the pixel's own step s + kCycleStride (a multiple of
+// kCycleStride, so the probe's step): the budget, the probe, and the
+// snapshot refresh at a power of two.  The refreshes at steps 2 and 4
+// fall inside the first group; only step 4's is ever compared (at 8),
+// so the first group keeps z at its fourth step.  A budget that ends
+// inside the group clamps n to dyn: a pixel live at step dyn has
+// survived at least dyn steps by then, and one that escaped earlier has
+// n < dyn; a cycle found at or past dyn would give n = dyn all the same.
+// After steps 2 and 4 the group ends early when no lane stepping with
+// this one is live (a sky of pixels escaping in a step or two then
+// costs a quarter of a group): the skipped steps would only have moved
+// retired orbits.  Returns whether the orbit is still live; on false,
+// n is final.
+template <int F, bool MXU = false>
+DM_D bool step_group(Orbit& o, int s, int dyn, bool cycle_check, int power) {
+  const bool first = s == 0;
+  bool live = true;
+#pragma unroll
+  for (int k = 1; k <= kCycleStride; ++k) {
+    update<F, MXU>(o.zr, o.zi, o.zr2, o.zi2, o.cr, o.ci, power);
+    live = live && fadd(o.zr2, o.zi2) < 4.0f;
+    o.n += live ? 1 : 0;
+    if (k == kCycleStride / 2 && first) {
+      o.szr = o.zr;
+      o.szi = o.zi;
+    }
+    if ((k == 2 || k == 4) && !__any_sync(__activemask(), live)) break;
+  }
+  const int end = s + kCycleStride;
+  if (end >= dyn) {
+    if (o.n > dyn) o.n = dyn;
+    return false;
+  }
+  if (!live) return false;
+  if (cycle_check) {
+    if (o.zr == o.szr && o.zi == o.szi) {
+      o.n = dyn;
+      return false;
+    }
+    if (snapshot_step(end)) {
+      o.szr = o.zr;
+      o.szi = o.zi;
+    }
+  }
+  return true;
+}
+
 // Updates survived (0..dyn) for an orbit from z0 with constant c,
 // running at most dyn steps and exiting as soon as the pixel retires.
 // A pixel escaping at step e returns e - 1; one that never escapes

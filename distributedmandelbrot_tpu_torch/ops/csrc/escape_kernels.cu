@@ -31,7 +31,10 @@
 // batched launch equals single-tile launches bitwise, and K6 then K7
 // rounds equal K3: a resumed lane recomputes its cached squares with
 // the same correctly rounded multiply and continues the same step
-// sequence (per-pixel exit makes every seam exact).
+// sequence (per-pixel exit makes every seam exact).  K1 and K2 step in
+// groups of 8 (dm::step_group), which equals 8 calls of dm::advance on
+// every output; tests/test_torch_step_groups.py builds that loop on the
+// host and holds it to the plain version.
 //
 // What bounds them on an H100: operations.  A pixel reads nothing and
 // writes one byte (four for nu); each step is 8 f32 operations at
@@ -40,16 +43,21 @@
 // as written: 4 multiplies and 2 adds for the product, 2 adds of c,
 // 2 squares and an add for |z|^2) plus a compare, so a
 // tile costs that times the steps its pixels need, against its output
-// bytes.  The design answer is one thread per pixel with per-thread
-// early exit: a sky pixel leaves after a few steps, an interior-proven
-// pixel never iterates, and only the orbits that need the budget spend
-// it — the Hopper form of the TPU kernels' block-granular exit.  K5
-// adds instruction-level parallelism: its n orbits are independent, so
+// bytes.  K3-K7 answer with one thread per pixel and per-thread early
+// exit: a sky pixel leaves after a few steps, an interior-proven pixel
+// never iterates, and only the orbits that need the budget spend it.
+// What that leaves on the table is warp divergence: a warp of 32
+// neighbouring pixels steps until its slowest lane retires (2.35x the
+// needed lane steps on the main path's chunks, PERF.md), and a block
+// holds its SM slot until its last warp ends.  K1 and K2, the main
+// path's kernels, answer with persistent warps that refill retired
+// lanes (below, "K1 and K2"): a warp's lanes stay on live orbits, and the
+// per-step overhead (probe, snapshot, budget, loop control, the refill
+// vote) runs once per group of 8 steps.  K5 adds instruction-level
+// parallelism: its n orbits are independent, so
 // their steps interleave in one thread (the Hopper reading of what
-// packing bought on the TPU), each orbit retiring on its own.  What is
-// left on the table (warp divergence between neighbouring pixels that
-// exit far apart, the uncontracted arithmetic that bit-parity asks for)
-// is later work.  None of the TPU workarounds is carried: no scratch
+// packing bought on the TPU), each orbit retiring on its own.  None of
+// the TPU workarounds is carried: no scratch
 // state, no 64x128 blocks (any H, W; the ragged edge is masked), no
 // prologue pipelining, no byte-lane packing.  K6 and K7 move state
 // through device memory (24 B written per pixel by K6; per lane and
@@ -108,60 +116,446 @@ struct SmoothParams {
   float log2_power;  // log2(power); 0 at degree 2 (no division)
 };
 
-// Tile t = blockIdx.z: each pixel is K1's (dm::pixel_byte, behind
-// dm::escape_pixel), so the fused launch equals k single-tile launches
-// by construction; the census counts the pixels not proven interior
-// whose bf16 shadow escapes.  JULIA is a template flag, not a runtime
-// select as in K1: outside Julia mode the compiler then knows z0 = c.
-// With the runtime select the Mandelbrot K2 ran slower on an H100
-// (PERF.md; tools/ab_trees.py times both forms).
-template <int F, bool MXU, bool JULIA>
-__global__ void escape_mega_kernel(uint8_t* __restrict__ out,
-                                   int* __restrict__ census,
-                                   const __grid_constant__ MegaParams p,
-                                   int height, int width, int clamp,
-                                   int cycle_check, int scout_steps,
-                                   int power) {
-  const int t = blockIdx.z;
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.y * blockDim.y + threadIdx.y;
-  unsigned hit = 0;
-  if (row < height && col < width) {
-    const float gr = dm::grid(p.row[t][0], p.row[t][2], col);
-    const float gi = dm::grid(p.row[t][1], p.row[t][3], row);
-    const float cr = JULIA ? p.row[t][4] : gr;
-    const float ci = JULIA ? p.row[t][5] : gi;
-    const bool inside =
-        dm::proven_interior(p.interior_mode, cr, ci, p.disk_lim);
-    if (scout_steps > 0 && !inside)
-      hit = dm::scout_escapes<F>(gr, gi, cr, ci, scout_steps, power) ? 1u
-                                                                     : 0u;
-    out[(static_cast<size_t>(t) * height + row) * width + col] =
-        dm::pixel_byte<F, MXU>(gr, gi, cr, ci, p.mrd[t], clamp, inside,
-                               cycle_check, power);
-  }
-  // Census: one warp-wide sum, one integer atomic per warp (exact and
-  // order-free).  Every lane reaches this point: none returned early.
-  const unsigned total = __reduce_add_sync(0xffffffffu, hit);
-  if ((threadIdx.x & 31) == 0 && total) atomicAdd(&census[t], (int)total);
+// --- K1 and K2: persistent warps over 8-step groups ---------------------
+//
+// K1 and K2 launch only as many blocks as fit on the card at once.
+// Each warp takes runs of 32 adjacent pixels of one row (see "Work
+// distribution" below) and hands the pixels that need iterating to its
+// lanes as lanes retire, eight or more at a time, so a warp keeps its
+// lanes on live orbits until no run is left.  A run's proven-interior
+// pixels (and all of a budget of 1 or less) are written straight away
+// and never hold a lane; K2's census scouts the run's other pixels as it
+// is taken.  Lanes step in groups of kCycleStride (dm::step_group), each
+// pixel from its own step 1, so a pixel joins and retires only at a
+// group boundary and the probe falls on its own steps.  When no run is
+// left the block compacts its live orbits into its lowest lanes every
+// kEndGroups groups, so the launch's tail runs on full warps and the
+// emptied warps wait at the barrier without issuing.
+
+constexpr int kThreads = 256;  // a block: 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+// Groups between the end game's compactions.
+constexpr int kEndGroups = 4;
+// Idle lanes a warp gathers before it refills them: one refill then
+// serves several retired lanes (refilling each at once ran slower on an
+// H100, most where few lanes retire at a time; PERF.md).
+constexpr int kRefillLanes = 8;
+// Work distribution: each warp keeps a range of runs in shared memory
+// and takes them one at a time; when its range is empty it takes a new
+// one from the launch's counter (one global atomic), guided: a share of
+// what is left (1 / kTakeShare of it over the launch's warps) between
+// kMinTake and kMaxTake runs; once the counter is spent it takes runs
+// left in its block's other ranges.  Atomics on one address serialise
+// (one a run made K1 far slower on an H100) and a warp left holding many
+// runs trails the rest (PERF.md).
+constexpr unsigned long long kMinTake = 8;
+constexpr unsigned long long kMaxTake = 32;
+constexpr unsigned long long kTakeShare = 1;
+// Devices whose persistent grid is cached.
+constexpr int kMaxDevices = 64;
+
+// n / d for the run layout's divisors, by one 64-bit high multiply: m =
+// floor((2^64 - 1) / d) + 1 lies in [2^64 / d, 2^64 / d + 1), so
+// floor(n * m / 2^64) = floor(n / d + n * (m - 2^64 / d) / 2^64) is
+// exact for n * d < 2^64.
+struct FastDiv {
+  unsigned long long m;
+  unsigned long long d;
+};
+
+__host__ __device__ FastDiv fast_div(unsigned long long d) {
+  return {d > 1 ? ~0ULL / d + 1 : 0ULL, d};
 }
 
-template <int F, bool MXU = false>
-__global__ void escape_tile_kernel(uint8_t* __restrict__ out, int height,
-                                   int width,
-                                   const __grid_constant__ TileParams p,
-                                   int mrd, int clamp, int cycle_check,
-                                   int power) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.y * blockDim.y + threadIdx.y;
-  if (row >= height || col >= width) return;
-  const float gr = dm::grid(p.row[0], p.row[2], col);
-  const float gi = dm::grid(p.row[1], p.row[3], row);
-  const float cr = p.julia ? p.row[4] : gr;
-  const float ci = p.julia ? p.row[5] : gi;
-  out[static_cast<size_t>(row) * width + col] = dm::escape_pixel<F, MXU>(
-      gr, gi, cr, ci, mrd, clamp, p.interior_mode, p.disk_lim, cycle_check,
-      power);
+DM_D unsigned long long quot(const FastDiv& f, unsigned long long n) {
+  return f.d > 1 ? __umul64hi(n, f.m) : n;
+}
+
+// The runs of a launch: k tiles of height x width, each row cut into
+// per_row.d runs of 32 columns (the last one ragged).
+struct Runs {
+  FastDiv per_row;
+  FastDiv rows;  // height
+  unsigned long long total;
+  int height, width;
+};
+
+Runs make_runs(int k, int height, int width) {
+  const unsigned long long per_row = (width + 31) / 32;
+  return {fast_div(per_row), fast_div(height),
+          static_cast<unsigned long long>(k) * height * per_row, height,
+          width};
+}
+
+// The tile of a K1 launch: one params row, the Julia select at run time.
+struct TileSource {
+  const TileParams& p;
+  int budget;
+  DM_D float row(int, int c) const { return p.row[c]; }
+  DM_D int mrd(int) const { return budget; }
+  DM_D bool julia() const { return p.julia != 0; }
+  DM_D int interior_mode() const { return p.interior_mode; }
+  DM_D float disk_lim() const { return p.disk_lim; }
+};
+
+// The tiles of a K2 launch.  JULIA is a template flag: outside Julia
+// mode the compiler then knows z0 = c.  With a runtime select the
+// Mandelbrot K2 ran slower on an H100 (PERF.md).
+template <bool JULIA>
+struct MegaSource {
+  const MegaParams& p;
+  DM_D float row(int t, int c) const { return p.row[t][c]; }
+  DM_D int mrd(int t) const { return p.mrd[t]; }
+  DM_D bool julia() const { return JULIA; }
+  DM_D int interior_mode() const { return p.interior_mode; }
+  DM_D float disk_lim() const { return p.disk_lim; }
+};
+
+// The warp's place in its runs: run r's tile, row and 32-column
+// segment, stepped one run at a time (a division only per take).
+struct RunCursor {
+  unsigned long long grow;  // t * height + row
+  int t, row, seg;
+};
+
+DM_D RunCursor cursor_at(const Runs& runs, unsigned long long r) {
+  RunCursor c;
+  c.grow = quot(runs.per_row, r);
+  c.seg = static_cast<int>(r - c.grow * runs.per_row.d);
+  c.t = static_cast<int>(quot(runs.rows, c.grow));
+  c.row = static_cast<int>(c.grow - static_cast<unsigned long long>(c.t) *
+                                        runs.height);
+  return c;
+}
+
+DM_D void next_segment(RunCursor& c, const Runs& runs) {
+  if (++c.seg < static_cast<int>(runs.per_row.d)) return;
+  c.seg = 0;
+  ++c.grow;
+  if (++c.row == runs.height) {
+    c.row = 0;
+    ++c.t;
+  }
+}
+
+// The uint8 epilogue (dm::epilogue) with the division by the budget as
+// a high multiply by its FastDiv multiplier ``m`` (exact: the dividend
+// is below 2^31).
+DM_D uint8_t epilogue_by(int n, int mrd, unsigned long long m, int clamp) {
+  if (mrd <= 1) return 0;
+  const int count = n >= mrd - 1 ? 0 : n + 1;
+  int v = static_cast<int>(__umul64hi(
+      static_cast<unsigned long long>(count * 256 + mrd - 1), m));
+  if (clamp && v > 255) v = 255;
+  return static_cast<uint8_t>(v & 255);
+}
+
+// A warp's range of runs in shared memory: (first << 8) | count, taken
+// from the front one run at a time by compare-and-swap.  A range is
+// replaced only once empty, by a higher first run, so a stale swap
+// always fails.
+DM_D bool take_from(unsigned long long* range, unsigned long long& r) {
+  unsigned long long old = *static_cast<volatile unsigned long long*>(range);
+  while (old & 0xffu) {
+    const unsigned long long got = atomicCAS(range, old, old + 255u);
+    if (got == old) {
+      r = old >> 8;
+      return true;
+    }
+    old = got;
+  }
+  return false;
+}
+
+// The warp's next run (lane 0 takes it): from its own range, else a new
+// range from ``counter``, else from a sibling's range.  False when no
+// run is left to this block.
+DM_D bool next_run(unsigned long long* counter, const Runs& runs,
+                   unsigned long long* ranges, int warp, int lane,
+                   bool& spent, unsigned long long& r) {
+  int got = 0;
+  if (lane == 0) {
+    got = take_from(&ranges[warp], r);
+    if (!got && !spent) {
+      const unsigned long long seen =
+          *static_cast<volatile unsigned long long*>(counter);
+      const unsigned long long left =
+          seen < runs.total ? runs.total - seen : 0;
+      unsigned long long n =
+          left / (static_cast<unsigned long long>(gridDim.x) * kWarps *
+                  kTakeShare);
+      n = n < kMinTake ? kMinTake : (n > kMaxTake ? kMaxTake : n);
+      r = atomicAdd(counter, n);
+      if (r < runs.total) {
+        n = min(n, runs.total - r);
+        if (n > 1) atomicExch(&ranges[warp], ((r + 1) << 8) | (n - 1));
+        got = 1;
+      } else {
+        spent = true;
+      }
+    }
+    for (int v = 1; !got && v < kWarps; ++v)
+      got = take_from(&ranges[(warp + v) % kWarps], r);
+  }
+  spent = __shfl_sync(kFull, spent, 0);
+  r = __shfl_sync(kFull, r, 0);
+  return __shfl_sync(kFull, got, 0) != 0;
+}
+
+// A lane's pixel: its orbit, the steps run, its tile's budget and
+// epilogue multiplier, its output offset.
+struct Lane {
+  dm::Orbit o;
+  int s, mrd;
+  unsigned long long div;
+  size_t off;
+  bool busy;
+};
+
+// One group of a lane's orbit, if it holds one; a pixel that retires
+// stores its byte and frees the lane.
+template <int F, bool MXU>
+DM_D void lane_group(uint8_t* __restrict__ out, Lane& l, int clamp,
+                     int cycle_check, int power) {
+  if (!l.busy) return;
+  if (dm::step_group<F, MXU>(l.o, l.s, l.mrd - 1, cycle_check != 0, power)) {
+    l.s += dm::kCycleStride;
+  } else {
+    out[l.off] = epilogue_by(l.o.n, l.mrd, l.div, clamp);
+    l.busy = false;
+  }
+}
+
+// The persistent loop of K1 and K2 (see above), over the ``k`` tiles of
+// ``src``.  COUNT adds the lane steps the warp issues (32 per step of
+// each group it runs) to *lane_steps with one atomic at exit: the
+// instrumented form that measures what the divergence and the tail
+// cost.
+template <int F, bool MXU, bool COUNT, typename Src>
+DM_D void persistent_escape(uint8_t* __restrict__ out,
+                            int* __restrict__ census, const Src& src, int k,
+                            const Runs& runs, int clamp, int cycle_check,
+                            int scout_steps, int power,
+                            unsigned long long* counter,
+                            unsigned long long* lane_steps) {
+  __shared__ Lane s_park[kThreads];  // the end game's orbits in transit
+  __shared__ int s_live[kWarps];
+  __shared__ unsigned long long s_div[kMaxMegaTiles];
+  __shared__ unsigned long long s_ranges[kWarps];
+  __shared__ int s_census[kMaxMegaTiles];
+  // The refill's hand-over: the candidate of rank i for the idle lane of
+  // rank i (its grid real part and its lane in the run).
+  __shared__ float s_gr[kWarps][32];
+  __shared__ int s_from[kWarps][32];
+  for (int i = threadIdx.x; i < k; i += blockDim.x) {
+    s_div[i] = fast_div(static_cast<unsigned long long>(
+                            src.mrd(i) > 1 ? src.mrd(i) : 2)).m;
+    s_census[i] = 0;
+  }
+  if (threadIdx.x < kWarps) s_ranges[threadIdx.x] = 0;
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  Lane l = {};
+  // The warp's current run: its candidates not yet handed to a lane
+  // (bit j: pixel base + j), each lane holding its own pixel's grid
+  // real part; the run's tile, row grid and budget are the warp's.
+  unsigned cand = 0;
+  float run_gr = 0.0f, run_gi = 0.0f;
+  int run_t = 0, run_mrd = 0;
+  size_t run_base = 0;
+  RunCursor cur = {};
+  unsigned long long last = ~0ULL;  // the run ``cur`` is at
+  bool spent = false, counter_spent = false;
+  unsigned long long groups = 0;
+
+  for (;;) {
+    unsigned idle = __ballot_sync(kFull, !l.busy);
+    if (__popc(idle) < kRefillLanes) idle = 0;
+    while (idle) {
+      if (!cand) {
+        unsigned long long r = 0;
+        if (!next_run(counter, runs, s_ranges, warp, lane, counter_spent,
+                      r)) {
+          spent = true;
+          break;
+        }
+        if (r != 0 && r == last + 1)
+          next_segment(cur, runs);
+        else
+          cur = cursor_at(runs, r);
+        last = r;
+        const int col = cur.seg * 32 + lane;
+        run_t = cur.t;
+        run_mrd = src.mrd(cur.t);
+        run_base = static_cast<size_t>(cur.grow) * runs.width + cur.seg * 32;
+        run_gi = dm::grid(src.row(cur.t, 1), src.row(cur.t, 3), cur.row);
+        run_gr = dm::grid(src.row(cur.t, 0), src.row(cur.t, 2), col);
+        const bool valid = col < runs.width;
+        const float cr = src.julia() ? src.row(cur.t, 4) : run_gr;
+        const float ci = src.julia() ? src.row(cur.t, 5) : run_gi;
+        const bool proven =
+            valid &&
+            dm::proven_interior(src.interior_mode(), cr, ci, src.disk_lim());
+        if (scout_steps > 0) {
+          // K2's census: the pixels not proven interior whose bf16
+          // shadow escapes within scout_steps, summed over the run, per
+          // tile in shared memory (integer counts: exact, order-free).
+          const unsigned hit =
+              valid && !proven &&
+              dm::scout_escapes<F>(run_gr, run_gi, cr, ci, scout_steps,
+                                   power);
+          const unsigned hits = __reduce_add_sync(kFull, hit);
+          if (lane == 0 && hits)
+            atomicAdd(&s_census[cur.t], static_cast<int>(hits));
+        }
+        const bool inside = run_mrd <= 1 || proven;
+        // A pixel that never iterates has n = dyn, so count 0: byte 0.
+        if (valid && inside) out[run_base + lane] = 0;
+        cand = __ballot_sync(kFull, valid && !inside);
+        continue;
+      }
+      const bool held = (cand >> lane) & 1u;
+      if (idle == kFull) {
+        // Every lane is free (a sky of short orbits): each takes the
+        // pixel it tested.
+        if (held) {
+          const float cr = src.julia() ? src.row(run_t, 4) : run_gr;
+          const float ci = src.julia() ? src.row(run_t, 5) : run_gi;
+          dm::start(l.o, run_gr, run_gi, cr, ci);
+          l.s = 0;
+          l.mrd = run_mrd;
+          l.div = s_div[run_t];
+          l.off = run_base + lane;
+          l.busy = true;
+        }
+        cand = 0;
+        idle = __ballot_sync(kFull, !l.busy);
+        continue;
+      }
+      // The first ``take`` candidates go to the first ``take`` idle
+      // lanes, rank for rank, through shared memory.
+      const int take = min(__popc(idle), __popc(cand));
+      const int held_rank = __popc(cand & below);
+      if (held && held_rank < take) {
+        s_gr[warp][held_rank] = run_gr;
+        s_from[warp][held_rank] = lane;
+      }
+      __syncwarp();
+      const int rank = __popc(idle & below);
+      if (!l.busy && rank < take) {
+        const float gr = s_gr[warp][rank];
+        const float cr = src.julia() ? src.row(run_t, 4) : gr;
+        const float ci = src.julia() ? src.row(run_t, 5) : run_gi;
+        dm::start(l.o, gr, run_gi, cr, ci);
+        l.s = 0;
+        l.mrd = run_mrd;
+        l.div = s_div[run_t];
+        l.off = run_base + s_from[warp][rank];
+        l.busy = true;
+      }
+      __syncwarp();
+      cand = __ballot_sync(kFull, held && held_rank >= take);
+      idle = __ballot_sync(kFull, !l.busy);
+    }
+    if (spent) break;
+    ++groups;
+    lane_group<F, MXU>(out, l, clamp, cycle_check, power);
+  }
+
+  // The end game: no run is left to the block and no run holds a
+  // candidate.  Each round parks the block's live orbits in shared
+  // memory and hands them back to its first lanes; a warp with none
+  // waits at the next barrier.  ``total`` is the block's, so every
+  // thread leaves together.
+  for (;;) {
+    const unsigned live = __ballot_sync(kFull, l.busy);
+    if (lane == 0) s_live[warp] = __popc(live);
+    __syncthreads();
+    int first = 0, total = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      first += w < warp ? s_live[w] : 0;
+      total += s_live[w];
+    }
+    if (total == 0) break;
+    if (l.busy) s_park[first + __popc(live & below)] = l;
+    __syncthreads();
+    if (static_cast<int>(threadIdx.x) < total)
+      l = s_park[threadIdx.x];
+    else
+      l.busy = false;
+    for (int g = 0; g < kEndGroups && __any_sync(kFull, l.busy); ++g) {
+      ++groups;
+      lane_group<F, MXU>(out, l, clamp, cycle_check, power);
+    }
+  }
+  // Every warp has left the last round's barrier: the census is whole.
+  if (scout_steps > 0)
+    for (int i = threadIdx.x; i < k; i += blockDim.x)
+      if (s_census[i]) atomicAdd(&census[i], s_census[i]);
+  if (COUNT && lane == 0)
+    atomicAdd(lane_steps, groups * dm::kCycleStride * 32ULL);
+}
+
+// K2: k tiles, each with its own params row and budget, and the census.
+// Each pixel equals K1's on its tile (the same loop and epilogue).
+template <int F, bool MXU, bool JULIA, bool COUNT>
+__global__ void __launch_bounds__(kThreads)
+    escape_mega_kernel(uint8_t* __restrict__ out, int* __restrict__ census,
+                       const __grid_constant__ MegaParams p, Runs runs, int k,
+                       int clamp, int cycle_check, int scout_steps, int power,
+                       unsigned long long* work,
+                       unsigned long long* lane_steps) {
+  const MegaSource<JULIA> src{p};
+  persistent_escape<F, MXU, COUNT>(out, census, src, k, runs, clamp,
+                                   cycle_check, scout_steps, power, work,
+                                   lane_steps);
+}
+
+// K1: one tile.
+template <int F, bool MXU, bool COUNT>
+__global__ void __launch_bounds__(kThreads)
+    escape_tile_kernel(uint8_t* __restrict__ out,
+                       const __grid_constant__ TileParams p, Runs runs,
+                       int mrd, int clamp, int cycle_check, int power,
+                       unsigned long long* work,
+                       unsigned long long* lane_steps) {
+  const TileSource src{p, mrd};
+  persistent_escape<F, MXU, COUNT>(out, nullptr, src, 1, runs, clamp,
+                                   cycle_check, 0, power, work, lane_steps);
+}
+
+// Blocks of ``Kernel`` resident on one SM at once (the occupancy API
+// with the kernel's real registers and shared memory).
+template <auto Kernel>
+int blocks_per_sm() {
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, Kernel, kThreads,
+                                                    0) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+// The persistent grid of ``Kernel`` on the current device: blocks per SM
+// times SMs, computed once per device, and no more blocks than the
+// launch has runs for its warps.
+template <auto Kernel>
+unsigned persistent_grid(unsigned long long runs) {
+  static int cache[kMaxDevices];
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  int g = dev >= 0 && dev < kMaxDevices ? cache[dev] : 0;
+  if (g == 0) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    g = blocks_per_sm<Kernel>() * sms;
+    if (g < 1) g = 1;  // a launch that cannot fit then fails loudly
+    if (dev >= 0 && dev < kMaxDevices) cache[dev] = g;
+  }
+  const unsigned long long need = (runs + kWarps - 1) / kWarps;
+  return static_cast<unsigned>(need < static_cast<unsigned long long>(g)
+                                   ? (need > 0 ? need : 1)
+                                   : g);
 }
 
 // K8's parity probe: from z0 = c = (xs[col], ys[row]), ``steps`` steps
@@ -444,23 +838,60 @@ int over_tiles(int k, L launch) {
   return 0;
 }
 
+// K1 with its template flags resolved: F, MXU, and COUNT (lane_steps
+// not null: the instrumented form).
+template <int F, bool MXU>
+void launch_tile(uint8_t* out, const TileParams& p, const Runs& runs,
+                 int mrd, int clamp, int cycle_check, int power,
+                 unsigned long long* work, unsigned long long* lane_steps,
+                 cudaStream_t stream) {
+  if (lane_steps) {
+    constexpr auto kernel = escape_tile_kernel<F, MXU, true>;
+    kernel<<<persistent_grid<kernel>(runs.total), kThreads, 0, stream>>>(
+        out, p, runs, mrd, clamp, cycle_check, power, work, lane_steps);
+  } else {
+    constexpr auto kernel = escape_tile_kernel<F, MXU, false>;
+    kernel<<<persistent_grid<kernel>(runs.total), kThreads, 0, stream>>>(
+        out, p, runs, mrd, clamp, cycle_check, power, work, lane_steps);
+  }
+}
+
+template <int F, bool MXU, bool JULIA>
+void launch_mega_form(uint8_t* out, int* census, const MegaParams& p,
+                      const Runs& runs, int k, int clamp, int cycle_check,
+                      int scout_steps, int power, unsigned long long* work,
+                      unsigned long long* lane_steps, cudaStream_t stream) {
+  if (lane_steps) {
+    constexpr auto kernel = escape_mega_kernel<F, MXU, JULIA, true>;
+    kernel<<<persistent_grid<kernel>(runs.total), kThreads, 0, stream>>>(
+        out, census, p, runs, k, clamp, cycle_check, scout_steps, power,
+        work, lane_steps);
+  } else {
+    constexpr auto kernel = escape_mega_kernel<F, MXU, JULIA, false>;
+    kernel<<<persistent_grid<kernel>(runs.total), kThreads, 0, stream>>>(
+        out, census, p, runs, k, clamp, cycle_check, scout_steps, power,
+        work, lane_steps);
+  }
+}
+
 // Julia mode exists at degree 2 without a fold only, so only kQuadratic
 // instantiates the JULIA kernels.
 template <int F, bool MXU>
-void launch_mega(uint8_t* out, int* census, const MegaParams& p, int k,
-                 int height, int width, int clamp, int cycle_check,
-                 int scout_steps, int power, cudaStream_t stream) {
-  const dim3 g = grid_for(height, width, k), b(kBlockX, kBlockY);
+void launch_mega(uint8_t* out, int* census, const MegaParams& p,
+                 const Runs& runs, int k, int clamp, int cycle_check,
+                 int scout_steps, int power, unsigned long long* work,
+                 unsigned long long* lane_steps, cudaStream_t stream) {
   if constexpr (F == dm::kQuadratic) {
     if (p.julia) {
-      escape_mega_kernel<F, MXU, true><<<g, b, 0, stream>>>(
-          out, census, p, height, width, clamp, cycle_check, scout_steps,
-          power);
+      launch_mega_form<F, MXU, true>(out, census, p, runs, k, clamp,
+                                     cycle_check, scout_steps, power, work,
+                                     lane_steps, stream);
       return;
     }
   }
-  escape_mega_kernel<F, MXU, false><<<g, b, 0, stream>>>(
-      out, census, p, height, width, clamp, cycle_check, scout_steps, power);
+  launch_mega_form<F, MXU, false>(out, census, p, runs, k, clamp,
+                                  cycle_check, scout_steps, power, work,
+                                  lane_steps, stream);
 }
 
 template <int N>
@@ -492,31 +923,36 @@ const char* dm_error_string(int code) {
 // K1: one (height, width) uint8 tile into ``out`` on ``stream``.
 // ``row`` is a HOST pointer to 6 floats (start_r, start_i, step_r,
 // step_i, julia c_r, c_i).  ``mxu`` selects K8's matrix form (degree 2
-// without a fold only).  Returns cudaGetLastError() after the launch
-// (0 = launched).
+// without a fold only).  ``work`` is the launch's run counter, one
+// uint64 zeroed on ``stream`` (a launch of its own: two launches in
+// flight never share one).  ``lane_steps`` (one uint64, or null) selects
+// the instrumented form, which adds the lane steps its warps issue.
+// Returns cudaGetLastError() after the launch (0 = launched).
 int dm_escape_tile(void* out, int height, int width, const float* row,
                    int julia, int mrd, int clamp, int interior_mode,
                    float disk_lim, int cycle_check, int family, int power,
-                   int mxu, void* stream) {
+                   int mxu, void* work, void* lane_steps, void* stream) {
   if (mxu && family != dm::kQuadratic)
     return static_cast<int>(cudaErrorInvalidValue);
   if (height <= 0 || width <= 0) return 0;
   const TileParams p = tile_params(row, julia, interior_mode, disk_lim);
-  const dim3 g = grid_for(height, width, 1), b(kBlockX, kBlockY);
+  const Runs runs = make_runs(1, height, width);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   uint8_t* o = static_cast<uint8_t*>(out);
+  auto* w = static_cast<unsigned long long*>(work);
+  auto* c = static_cast<unsigned long long*>(lane_steps);
   if (family == dm::kShip)
-    escape_tile_kernel<dm::kShip><<<g, b, 0, s>>>(o, height, width, p, mrd,
-                                                  clamp, cycle_check, power);
+    launch_tile<dm::kShip, false>(o, p, runs, mrd, clamp, cycle_check, power,
+                                  w, c, s);
   else if (family == dm::kMultibrot)
-    escape_tile_kernel<dm::kMultibrot><<<g, b, 0, s>>>(
-        o, height, width, p, mrd, clamp, cycle_check, power);
+    launch_tile<dm::kMultibrot, false>(o, p, runs, mrd, clamp, cycle_check,
+                                       power, w, c, s);
   else if (mxu)
-    escape_tile_kernel<dm::kQuadratic, true><<<g, b, 0, s>>>(
-        o, height, width, p, mrd, clamp, cycle_check, power);
+    launch_tile<dm::kQuadratic, true>(o, p, runs, mrd, clamp, cycle_check,
+                                      power, w, c, s);
   else
-    escape_tile_kernel<dm::kQuadratic><<<g, b, 0, s>>>(
-        o, height, width, p, mrd, clamp, cycle_check, power);
+    launch_tile<dm::kQuadratic, false>(o, p, runs, mrd, clamp, cycle_check,
+                                       power, w, c, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -524,12 +960,12 @@ int dm_escape_tile(void* out, int height, int width, const float* row,
 // ``census`` (k int32, zeroed by the caller).  ``params`` (k x 6 f32, as
 // K1's row) and ``mrds`` (k int32) are HOST pointers, copied into the
 // launch's parameter block.  ``mxu`` selects K8's matrix form (degree 2
-// without a fold only).
+// without a fold only).  ``work`` and ``lane_steps`` as for K1.
 int dm_escape_mega(void* out, void* census, const void* params,
                    const void* mrds, int k, int height, int width, int julia,
                    int clamp, int interior_mode, float disk_lim,
                    int cycle_check, int scout_steps, int family, int power,
-                   int mxu, void* stream) {
+                   int mxu, void* work, void* lane_steps, void* stream) {
   if (k < 1 || k > kMaxMegaTiles) return static_cast<int>(cudaErrorInvalidValue);
   if (mxu && family != dm::kQuadratic)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -544,23 +980,57 @@ int dm_escape_mega(void* out, void* census, const void* params,
   p.julia = julia;
   p.interior_mode = interior_mode;
   p.disk_lim = disk_lim;
+  const Runs runs = make_runs(k, height, width);
   uint8_t* o = static_cast<uint8_t*>(out);
   int* c = static_cast<int*>(census);
+  auto* w = static_cast<unsigned long long*>(work);
+  auto* ls = static_cast<unsigned long long*>(lane_steps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (family == dm::kShip)
-    launch_mega<dm::kShip, false>(o, c, p, k, height, width, clamp,
-                                  cycle_check, scout_steps, power, s);
+    launch_mega<dm::kShip, false>(o, c, p, runs, k, clamp, cycle_check,
+                                  scout_steps, power, w, ls, s);
   else if (family == dm::kMultibrot)
-    launch_mega<dm::kMultibrot, false>(o, c, p, k, height, width, clamp,
-                                       cycle_check, scout_steps, power, s);
+    launch_mega<dm::kMultibrot, false>(o, c, p, runs, k, clamp, cycle_check,
+                                       scout_steps, power, w, ls, s);
   else if (mxu)
-    launch_mega<dm::kQuadratic, true>(o, c, p, k, height, width, clamp,
-                                      cycle_check, scout_steps, power, s);
+    launch_mega<dm::kQuadratic, true>(o, c, p, runs, k, clamp, cycle_check,
+                                      scout_steps, power, w, ls, s);
   else
-    launch_mega<dm::kQuadratic, false>(o, c, p, k, height, width, clamp,
-                                       cycle_check, scout_steps, power, s);
+    launch_mega<dm::kQuadratic, false>(o, c, p, runs, k, clamp, cycle_check,
+                                       scout_steps, power, w, ls, s);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Blocks of K1 (``mega`` 0) or K2 (``mega`` 1, with ``julia``) per SM in
+// the form of ``family``/``mxu``, as the launches size their grids (the
+// occupancy API on the current device; 0 if it fails).
+int dm_persistent_blocks_per_sm(int mega, int family, int mxu, int julia) {
+  if (mega) {
+    if (family == dm::kShip)
+      return blocks_per_sm<escape_mega_kernel<dm::kShip, false, false, false>>();
+    if (family == dm::kMultibrot)
+      return blocks_per_sm<
+          escape_mega_kernel<dm::kMultibrot, false, false, false>>();
+    if (mxu)
+      return julia ? blocks_per_sm<
+                         escape_mega_kernel<dm::kQuadratic, true, true, false>>()
+                   : blocks_per_sm<escape_mega_kernel<dm::kQuadratic, true,
+                                                      false, false>>();
+    return julia ? blocks_per_sm<
+                       escape_mega_kernel<dm::kQuadratic, false, true, false>>()
+                 : blocks_per_sm<
+                       escape_mega_kernel<dm::kQuadratic, false, false, false>>();
+  }
+  if (family == dm::kShip)
+    return blocks_per_sm<escape_tile_kernel<dm::kShip, false, false>>();
+  if (family == dm::kMultibrot)
+    return blocks_per_sm<escape_tile_kernel<dm::kMultibrot, false, false>>();
+  return mxu ? blocks_per_sm<escape_tile_kernel<dm::kQuadratic, true, false>>()
+             : blocks_per_sm<escape_tile_kernel<dm::kQuadratic, false, false>>();
+}
+
+// The threads of a K1/K2 block (the occupancy API's block size).
+int dm_persistent_block_threads() { return kThreads; }
 
 // K8's parity probe: ``out`` (4, n, n) f32 from the grid ``xs`` (n) x
 // ``ys`` (n); all DEVICE pointers.

@@ -1,0 +1,133 @@
+// Host build of escape.cuh's per-lane loop, for the CPU tests
+// (tests/test_torch_step_groups.py): the same header nvcc compiles,
+// with __device__ dropped, each pixel a warp of one lane, and the _rn
+// intrinsics as plain f32 operations (build with -ffp-contract=off, so nothing is contracted
+// into an FMA, as --fmad=false keeps it on the card).  Each pixel runs
+// alone through dm::step_group, the 8-step groups K1 and K2 run, in the
+// kernels' order: grid, interior test, groups until the orbit retires,
+// epilogue.
+//
+//   g++ -O2 -ffp-contract=off -shared -fPIC -I host -I . \
+//       host/step_groups.cpp -o libdm_host.so
+#include <cmath>
+#include <cstdint>
+
+#define __device__
+#define __forceinline__ inline
+
+// One lane alone: its own vote.
+inline unsigned __activemask() { return 1u; }
+inline bool __any_sync(unsigned, bool p) { return p; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+
+#include "escape.cuh"
+
+namespace {
+
+// One pixel: n (updates survived), the steps it ran (the plain
+// version's count: 0 when proven interior, the escape step, the probe's
+// step, or dyn), its byte.
+template <int F, bool MXU>
+void pixel(const float* row, int julia, int mrd, int clamp,
+           int interior_mode, float disk_lim, int cycle_check, int power,
+           int r, int c, int* n_out, int* steps_out, uint8_t* byte_out) {
+  const float gr = dm::grid(row[0], row[2], c);
+  const float gi = dm::grid(row[1], row[3], r);
+  const float cr = julia ? row[4] : gr;
+  const float ci = julia ? row[5] : gi;
+  const int dyn = mrd - 1;
+  int n = 0, steps = 0;
+  if (dyn > 0 && dm::proven_interior(interior_mode, cr, ci, disk_lim)) {
+    n = dyn;
+  } else if (dyn > 0) {
+    dm::Orbit o;
+    dm::start(o, gr, gi, cr, ci);
+    int s = 0;
+    while (dm::step_group<F, MXU>(o, s, dyn, cycle_check, power))
+      s += dm::kCycleStride;
+    n = o.n;
+    if (n < dyn)
+      steps = n + 1;  // escaped at step n + 1
+    else if (s + dm::kCycleStride >= dyn)
+      steps = dyn;  // the budget, or a cycle at step dyn
+    else
+      steps = s + dm::kCycleStride;  // the probe's step
+  }
+  *n_out = n;
+  *steps_out = steps;
+  *byte_out = dm::epilogue(n, mrd, clamp);
+}
+
+template <int F, bool MXU>
+void tile(const float* row, int julia, int mrd, int clamp, int interior_mode,
+          float disk_lim, int cycle_check, int power, int height, int width,
+          int* n, int* steps, uint8_t* bytes) {
+  for (int r = 0; r < height; ++r)
+    for (int c = 0; c < width; ++c) {
+      const long i = static_cast<long>(r) * width + c;
+      pixel<F, MXU>(row, julia, mrd, clamp, interior_mode, disk_lim,
+                    cycle_check, power, r, c, n + i, steps + i, bytes + i);
+    }
+}
+
+}  // namespace
+
+extern "C" {
+
+// One (height, width) tile from a 6-float params row, as K1 computes it
+// (family and interior codes of dm::Family, dm::Interior; ``mxu``
+// selects K8's matrix form): n, steps and bytes, row-major.  Returns 0,
+// or -1 for the matrix form outside degree 2 without a fold.
+int dm_host_tile(const float* row, int julia, int mrd, int clamp,
+                 int interior_mode, float disk_lim, int cycle_check,
+                 int family, int power, int mxu, int height, int width,
+                 int* n, int* steps, uint8_t* bytes) {
+  if (mxu && family != dm::kQuadratic) return -1;
+  if (family == dm::kShip)
+    tile<dm::kShip, false>(row, julia, mrd, clamp, interior_mode, disk_lim,
+                           cycle_check, power, height, width, n, steps,
+                           bytes);
+  else if (family == dm::kMultibrot)
+    tile<dm::kMultibrot, false>(row, julia, mrd, clamp, interior_mode,
+                                disk_lim, cycle_check, power, height, width,
+                                n, steps, bytes);
+  else if (mxu)
+    tile<dm::kQuadratic, true>(row, julia, mrd, clamp, interior_mode,
+                               disk_lim, cycle_check, power, height, width,
+                               n, steps, bytes);
+  else
+    tile<dm::kQuadratic, false>(row, julia, mrd, clamp, interior_mode,
+                                disk_lim, cycle_check, power, height, width,
+                                n, steps, bytes);
+  return 0;
+}
+
+// K2's census for one tile: the pixels not proven interior whose bf16
+// shadow (dm::scout_escapes) leaves the radius-2 disk within ``steps``.
+long dm_host_census(const float* row, int julia, int interior_mode,
+                    float disk_lim, int family, int power, int steps,
+                    int height, int width) {
+  long hits = 0;
+  for (int r = 0; r < height; ++r)
+    for (int c = 0; c < width; ++c) {
+      const float gr = dm::grid(row[0], row[2], c);
+      const float gi = dm::grid(row[1], row[3], r);
+      const float cr = julia ? row[4] : gr;
+      const float ci = julia ? row[5] : gi;
+      if (dm::proven_interior(interior_mode, cr, ci, disk_lim)) continue;
+      const bool hit =
+          family == dm::kShip
+              ? dm::scout_escapes<dm::kShip>(gr, gi, cr, ci, steps, power)
+          : family == dm::kMultibrot
+              ? dm::scout_escapes<dm::kMultibrot>(gr, gi, cr, ci, steps,
+                                                  power)
+              : dm::scout_escapes<dm::kQuadratic>(gr, gi, cr, ci, steps,
+                                                  power);
+      hits += hit ? 1 : 0;
+    }
+  return hits;
+}
+
+}  // extern "C"

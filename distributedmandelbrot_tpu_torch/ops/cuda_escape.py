@@ -39,6 +39,10 @@ other than Mandelbrot, are counted under names of their own
 so ``escape_tile`` and ``escape_mega`` count the cached-squares form and,
 for K2, Mandelbrot only.
 
+K1 and K2 run persistent warps that refill retired lanes, stepping in
+groups of 8 (``escape_kernels.cu``): each launch takes its own run
+counter, zeroed on its stream, and its grid from the occupancy API.
+
 A wrapper given CUDA tensors' device launches its kernel (or raises); it
 takes the plain version only for the CPU, the counterpart of the
 reference's interpret mode.  The guards that decline a tile raise
@@ -523,6 +527,41 @@ def _cuda_device(device) -> torch.device:
     return dev
 
 
+def _work_counter(dev: torch.device) -> torch.Tensor:
+    """K1's or K2's own run counter, zeroed on the current stream: two
+    launches in flight, as the two shards of the ring ``[cuda:0,
+    cuda:0]`` are, never share one, and no host sync."""
+    return torch.zeros((1,), dtype=torch.int64, device=dev)
+
+
+def _lane_steps_ptr(lane_steps: torch.Tensor | None,
+                    dev: torch.device) -> ctypes.c_void_p:
+    if lane_steps is None:
+        return ctypes.c_void_p(None)
+    if (lane_steps.device != dev or lane_steps.dtype != torch.int64
+            or lane_steps.numel() != 1):
+        raise ValueError("lane_steps must be one int64 on the launch's "
+                         "device")
+    return ctypes.c_void_p(lane_steps.data_ptr())
+
+
+def persistent_occupancy(*, mega: bool, power: int = 2,
+                         burning: bool = False, use_mxu: bool = False,
+                         julia: bool = False, device="cuda") -> dict:
+    """K1's or K2's persistent grid on ``device``: blocks and warps per
+    SM (the occupancy API, as the launches size their grids) and the
+    threads per block."""
+    from distributedmandelbrot_tpu_torch.ops import _build
+    lib = _build.load()
+    family, _, _ = _mode_args(power, burning, julia, False)
+    with torch.cuda.device(_cuda_device(device)):
+        blocks = lib.dm_persistent_blocks_per_sm(int(mega), family,
+                                                 int(use_mxu), int(julia))
+    threads = lib.dm_persistent_block_threads()
+    return {"blocks_per_sm": blocks, "threads_per_block": threads,
+            "warps_per_sm": blocks * threads // 32}
+
+
 def _check_rc(lib, rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: "
@@ -558,11 +597,15 @@ def compute_tile_row_cuda(row, max_iter: int, height: int, width: int, *,
                           clamp: bool = False, interior_check: bool = True,
                           cycle_check: bool | None = None, power: int = 2,
                           burning: bool = False, use_mxu: bool = False,
-                          device="cuda") -> torch.Tensor:
+                          device="cuda",
+                          lane_steps: torch.Tensor | None = None
+                          ) -> torch.Tensor:
     """K1 from a raw params row (4 wide, or 6 with a Julia constant; no
     resolvability guard, as the reference's mesh rows have none) ->
     (height, width) uint8 on ``device``, enqueued on its current
-    stream."""
+    stream.  ``lane_steps``, a (1,) int64 tensor on the card, launches
+    the instrumented form instead, which adds to it the lane steps its
+    warps issue (a measurement; no path of the port passes it)."""
     row = np.asarray(row, dtype=np.float32)
     julia = row.size == 6
     _check_dispatch_mode(power, burning, julia)
@@ -583,12 +626,14 @@ def compute_tile_row_cuda(row, max_iter: int, height: int, width: int, *,
     row6 = _row6(row)
     with torch.cuda.device(dev):
         out = torch.empty((height, width), dtype=torch.uint8, device=dev)
+        work = _work_counter(dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.dm_escape_tile(
             ctypes.c_void_p(out.data_ptr()), height, width,
             ctypes.c_void_p(row6.ctypes.data), int(julia), int(max_iter),
             int(clamp), interior_mode, disk_lim, int(cycle), family,
-            int(power), int(use_mxu), ctypes.c_void_p(stream))
+            int(power), int(use_mxu), ctypes.c_void_p(work.data_ptr()),
+            _lane_steps_ptr(lane_steps, dev), ctypes.c_void_p(stream))
     _check_rc(lib, rc, KERNEL_TILE)
     _count_launch(KERNEL_TILE_MXU if use_mxu else KERNEL_TILE)
     return out
@@ -632,7 +677,8 @@ def compute_tiles_mega_cuda(specs, max_iters, *, clamp: bool = False,
                             scout_segments: int | None = None,
                             power: int = 2, burning: bool = False,
                             julia_cs=None, use_mxu: bool | None = None,
-                            rows=None, mrd_rows=None, device="cuda"):
+                            rows=None, mrd_rows=None, device="cuda",
+                            lane_steps: torch.Tensor | None = None):
     """K2: fuse k same-shaped tiles of one mode into one launch ->
     ``(tiles, census)`` on ``device``: (k, height, width) uint8 and
     (k, 1) int32.  Mandelbrot by default; the degree-``power``
@@ -641,7 +687,9 @@ def compute_tiles_mega_cuda(specs, max_iters, *, clamp: bool = False,
     ``DMTPU_MXU`` gate for ``device`` (:func:`mega_dispatch_plan`).
     ``rows``/``mrd_rows`` override the plan's params and budget rows
     (the same (k, 4|6) f32 and (k, 1) int32 arrays the reference's plan
-    yields), so two implementations can be fed identical rows."""
+    yields), so two implementations can be fed identical rows.
+    ``lane_steps`` launches the instrumented form
+    (:func:`compute_tile_row_cuda`)."""
     plan_rows, plan_mrds, kw = mega_dispatch_plan(
         specs, max_iters, clamp=clamp, interior_check=interior_check,
         cycle_check=cycle_check, scout_segments=scout_segments, power=power,
@@ -654,7 +702,7 @@ def compute_tiles_mega_cuda(specs, max_iters, *, clamp: bool = False,
     if rows.shape != plan_rows.shape or mrds.shape != (k, 1):
         raise ValueError(f"rows must be {plan_rows.shape} and mrd_rows "
                          f"({k}, 1), got {rows.shape} and {mrds.shape}")
-    return launch_mega(rows, mrds, kw, device)
+    return launch_mega(rows, mrds, kw, device, lane_steps=lane_steps)
 
 
 def _mega_counter(rows: np.ndarray, kw: dict) -> str:
@@ -667,7 +715,8 @@ def _mega_counter(rows: np.ndarray, kw: dict) -> str:
     return KERNEL_MEGA_MULTIBROT if kw["power"] > 2 else KERNEL_MEGA
 
 
-def launch_mega(rows: np.ndarray, mrds: np.ndarray, kw: dict, device):
+def launch_mega(rows: np.ndarray, mrds: np.ndarray, kw: dict, device, *,
+                lane_steps: torch.Tensor | None = None):
     """K2 on a resolved plan: ``rows`` (k, 4|6) f32 and ``mrds`` (k, 1)
     int32 C-contiguous numpy arrays and the plan's launch keywords ->
     ``(tiles, census)`` on ``device``, enqueued on its current stream
@@ -690,6 +739,7 @@ def launch_mega(rows: np.ndarray, mrds: np.ndarray, kw: dict, device):
     with torch.cuda.device(dev):
         tiles = torch.empty((k, h, w), dtype=torch.uint8, device=dev)
         census = torch.zeros((k, 1), dtype=torch.int32, device=dev)
+        work = _work_counter(dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.dm_escape_mega(
             ctypes.c_void_p(tiles.data_ptr()),
@@ -698,7 +748,9 @@ def launch_mega(rows: np.ndarray, mrds: np.ndarray, kw: dict, device):
             ctypes.c_void_p(mrds.ctypes.data), k, h, w, int(julia),
             int(kw["clamp"]), interior_mode, disk_lim,
             int(kw["cycle_check"]), int(kw["scout_steps"]), family,
-            int(kw["power"]), int(kw["use_mxu"]), ctypes.c_void_p(stream))
+            int(kw["power"]), int(kw["use_mxu"]),
+            ctypes.c_void_p(work.data_ptr()), _lane_steps_ptr(lane_steps, dev),
+            ctypes.c_void_p(stream))
     _check_rc(lib, rc, KERNEL_MEGA)
     _count_launch(_mega_counter(rows, kw))
     return tiles, census

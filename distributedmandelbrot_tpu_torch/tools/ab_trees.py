@@ -1,20 +1,15 @@
 """Parent against change on one card: the worker's main-path drain and
-the fused kernel (K2, Mandelbrot), each tree in processes of its own;
-and the change's K2 against the same kernel with its compile-time Julia
-flag made a runtime select.
+the main path's kernels, each tree in processes of its own.
 
     python3 distributedmandelbrot_tpu_torch/tools/ab_trees.py PARENT_DIR \\
         [--out FILE] [--drains N]
 
 ``PARENT_DIR`` holds another commit's files (``git archive`` unpacked);
-``change`` is the checkout that holds this script; ``runtime_julia`` is
-a copy of the change's package and chip_smoke.py (under the package's
-git-ignored ``_build/``) whose K2 selects the Julia constant at run
-time, as K1 does: two source lines substituted.  They run in the order
-parent, change, runtime_julia, runtime_julia, change, parent, twice
-over, each run a fresh process that builds its own kernels, so that a
-drift of the card or the host over the call weighs on every tree alike
-and shows as a spread between a tree's own runs.
+``change`` is the checkout that holds this script.  They run in the
+order parent, change, change, parent, three times over, each run a
+fresh process that builds its own kernels, so that a drift of the card
+or the host over the call weighs on both trees alike and shows as a
+spread between a tree's own runs.
 
 Each run, on ``cuda:0``, times:
 
@@ -26,20 +21,21 @@ Each run, on ``cuda:0``, times:
   ``torch.profiler`` (that tree's ``phase_main_path_profile``) for the
   card's busy share;
 - K2 on the chunks (10, 3, 5) and (10, 3, 4) at max_iter 1024, census
-  armed, and K1 on (10, 3, 5): the median of 50 launches by CUDA events.
+  armed; K1 on (10, 3, 5); K2 in Julia mode (c = -0.8 + 0.156i) on the
+  render view (span 3) and the window a quarter span right; K2 on two
+  lighter pairs of the profile (``LIGHT``): the median of 50 launches
+  each by CUDA events.
 
 It prints one JSON line per run, the card's name and power limit, and a
 last JSON line with each tree's medians over its runs and, for each
-pair of adjacent runs of two trees, the ratio of the later-listed tree
-in ``PAIRS`` to the other.  It needs a CUDA
-card and exits 1 without one.
+pair of adjacent runs of the two trees, the change's ratio to the
+parent.  It needs a CUDA card and exits 1 without one.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import shutil
 import statistics
 import subprocess
 import sys
@@ -47,40 +43,15 @@ import time
 from pathlib import Path
 
 CHANGE = Path(__file__).resolve().parents[2]
-ORDER = ("parent", "change", "runtime_julia", "runtime_julia", "change",
-         "parent") * 2
-# (reference, subject): adjacent runs of these trees form a pair.
-PAIRS = (("parent", "change"), ("change", "runtime_julia"))
-# K2's compile-time Julia select and the runtime select that replaces it
-# in the runtime_julia tree.
-JULIA_FLAG_LINES = {
-    "const float cr = JULIA ? p.row[t][4] : gr;":
-        "const float cr = p.julia ? p.row[t][4] : gr;",
-    "const float ci = JULIA ? p.row[t][5] : gi;":
-        "const float ci = p.julia ? p.row[t][5] : gi;",
-}
-KERNELS_CU = Path("distributedmandelbrot_tpu_torch/ops/csrc/"
-                  "escape_kernels.cu")
-
-
-def runtime_julia_tree(change: Path) -> Path:
-    """A copy of ``change``'s package and chip_smoke.py whose K2 selects
-    the Julia constant at run time."""
-    dst = (change / "distributedmandelbrot_tpu_torch" / "_build"
-           / "ab_runtime_julia")
-    shutil.rmtree(dst, ignore_errors=True)
-    shutil.copytree(change / "distributedmandelbrot_tpu_torch",
-                    dst / "distributedmandelbrot_tpu_torch",
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    shutil.copy2(change / "chip_smoke.py", dst / "chip_smoke.py")
-    cu = dst / KERNELS_CU
-    src = cu.read_text()
-    for old, new in JULIA_FLAG_LINES.items():
-        if src.count(old) != 1:
-            raise SystemExit(f"ab_trees: expected one {old!r} in {cu}")
-        src = src.replace(old, new)
-    cu.write_text(src)
-    return dst
+ORDER = ("parent", "change", "change", "parent") * 3
+JULIA_C = complex(-0.8, 0.156)
+# Lighter K2 pairs of the main path's profile: a sky pair (every pixel
+# escapes at once) and a level-4 pair at 256 (the probe off; bulbs that
+# spend the budget beside the proven cardioid).
+LIGHT = {"k2_sky_ms": ((10, 0, 0), (10, 0, 1), 1024),
+         "k2_level4_ms": ((4, 1, 1), (4, 1, 2), 256)}
+TIMED = ("drain_chunks_per_s_median", "k2_ms", "k1_ms", "k2_julia_ms",
+         *LIGHT)
 
 
 def cuda_ms(torch, fn, reps: int = 50, warmup: int = 3) -> float:
@@ -107,17 +78,14 @@ def median_or_not(values: list):
     return statistics.median(values)
 
 
-def pair_ratios(runs: list[dict]) -> dict:
-    """For each (reference, subject) of ``PAIRS``, the subject's ratio to
-    the reference in every pair of adjacent runs of those two trees."""
-    out = {f"{subj}_over_{ref}": [] for ref, subj in PAIRS}
+def pair_ratios(runs: list[dict]) -> list[dict]:
+    """The change's ratio to the parent in every pair of adjacent runs of
+    the two trees."""
+    out = []
     for a, b in zip(runs, runs[1:]):
-        for ref, subj in PAIRS:
-            if {a["tree"], b["tree"]} == {ref, subj}:
-                r, s = (a, b) if a["tree"] == ref else (b, a)
-                out[f"{subj}_over_{ref}"].append(
-                    {key: s[key] / r[key] for key in (
-                        "drain_chunks_per_s_median", "k2_ms", "k1_ms")})
+        if {a["tree"], b["tree"]} == {"parent", "change"}:
+            p, c = (a, b) if a["tree"] == "parent" else (b, a)
+            out.append({key: c[key] / p[key] for key in TIMED})
     return out
 
 
@@ -175,6 +143,16 @@ def child(tree: Path, drains: int) -> dict:
         specs, [1024, 1024], device=dev))
     k1_ms = cuda_ms(torch, lambda: ce.compute_tile_cuda_device(
         specs[0], 1024, device=dev))
+    view = TileSpec(-1.5, -1.5, 3.0, 3.0, width=4096, height=4096)
+    right = TileSpec(-0.75, -1.5, 3.0, 3.0, width=4096, height=4096)
+    k2_julia_ms = cuda_ms(torch, lambda: ce.compute_tiles_mega_cuda(
+        [view, right], [1024, 1024], julia_cs=[JULIA_C, JULIA_C],
+        device=dev))
+    light = {}
+    for key, (a, b, mi) in LIGHT.items():
+        pair = [TileSpec.for_chunk(*a), TileSpec.for_chunk(*b)]
+        light[key] = cuda_ms(torch, lambda: ce.compute_tiles_mega_cuda(
+            pair, [mi, mi], device=dev))
     n = len(workloads)
     return {"build_s": build_s, "drain_walls_s": walls,
             "drain_chunks_per_s": [n / w for w in walls],
@@ -184,7 +162,8 @@ def child(tree: Path, drains: int) -> dict:
             "profile_wall_s": profile["wall_s"],
             "device_busy_share": profile["device_busy_share"],
             "device_ms_by_kind": profile["device_ms_by_kind"],
-            "k2_ms": k2_ms, "k1_ms": k1_ms}
+            "k2_ms": k2_ms, "k1_ms": k1_ms, "k2_julia_ms": k2_julia_ms,
+            **light}
 
 
 def main(argv: list[str]) -> int:
@@ -203,8 +182,7 @@ def main(argv: list[str]) -> int:
         print(f"ab_trees: {parent} holds no port package", file=sys.stderr)
         return 2
     drains = args.get("--drains", "5")
-    trees = {"parent": parent, "change": CHANGE,
-             "runtime_julia": runtime_julia_tree(CHANGE)}
+    trees = {"parent": parent, "change": CHANGE}
     runs = []
     for label in ORDER:
         env = dict(os.environ, PYTHONPATH=str(trees[label]))
@@ -227,9 +205,7 @@ def main(argv: list[str]) -> int:
     for label in trees:
         mine = [r for r in runs if r["tree"] == label]
         summary[label] = {key: median_or_not([r[key] for r in mine])
-                          for key in ("drain_chunks_per_s_median",
-                                      "device_busy_share", "k2_ms",
-                                      "k1_ms")}
+                          for key in TIMED + ("device_busy_share",)}
     out = {"order": ORDER, "card": card.strip(), "medians": summary,
            "pairs": pair_ratios(runs)}
     if "--out" in args:

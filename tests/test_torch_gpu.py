@@ -97,6 +97,7 @@ def test_a_refused_launch_raises(cuda):
         ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(census.data_ptr()),
         ctypes.c_void_p(rows.ctypes.data), ctypes.c_void_p(mrds.ctypes.data),
         ce.MEGA_MAX_TILES + 1, 8, 8, 0, 0, 1, 0.0, 0, 0, 0, 2, 0,
+        ctypes.c_void_p(None), ctypes.c_void_p(None),
         ctypes.c_void_p(torch.cuda.current_stream(cuda).cuda_stream))
     assert rc != 0
     with pytest.raises(RuntimeError, match="launch failed"):
@@ -432,3 +433,137 @@ def test_backend_under_the_mxu_gate(cuda, monkeypatch, verdict):
         assert cv(obs_names.WORKER_KERNEL_MXU_DEMOTIONS) == 1
         assert cv(obs_names.WORKER_KERNEL_MXU_CENSUS) > 0
     assert cv(obs_names.WORKER_MXU_CENSUS_FAILURES) is None
+
+
+# --- the persistent loop of K1 and K2: refill stress ---------------------
+
+STRESS_MODES = {"mandelbrot": {}, "julia": {"julia_c": JULIA_C},
+                "multibrot3": {"power": 3}, "ship": {"burning": True},
+                "mxu": {"use_mxu": True},
+                "mxu_julia": {"use_mxu": True, "julia_c": JULIA_C}}
+
+
+def stress_batch(seed=5, k=128, side=64):
+    """k views of side^2 on boundary windows of every scale, and their
+    budgets from 1-2000, 1 through 9 among them (numpy, seeded)."""
+    rng = np.random.default_rng(seed)
+    anchors = np.array([(-0.745, 0.11), (-0.2, 0.7), (-1.25, 0.0),
+                        (0.28, 0.01), (-0.5, -0.5), (0.0, 0.0),
+                        (-1.75, -0.03), (0.35, 0.35)])
+    specs = []
+    for t in range(k):
+        cx, cy = anchors[t % len(anchors)] + rng.normal(0, 0.02, 2)
+        span = float(10 ** rng.uniform(-3, 0.5))
+        specs.append(TileSpec(cx - span / 2, cy - span / 2, span, span,
+                              width=side, height=side))
+    mis = [int(m) for m in rng.integers(1, 2001, k)]
+    mis[:9] = list(range(1, 10))
+    return specs, mis
+
+
+def _k1(spec, mi, kw, cyc, dev):
+    return ce.compute_tile_cuda_device(spec, mi, cycle_check=cyc, device=dev,
+                                       **kw)
+
+
+def _mega_vs_plain_and_k1(specs, mis, kw, dev):
+    mkw = _mega_kw(kw, len(specs))
+    tiles, census = ce.compute_tiles_mega_cuda(specs, mis, device=dev,
+                                               **mkw)
+    rows, mrds, pkw = ce.mega_dispatch_plan(specs, mis, **mkw)
+    ptiles, pcensus = ce.escape_mega_plain(rows, mrds, device=dev, **pkw)
+    assert torch.equal(tiles, ptiles)
+    assert torch.equal(census, pcensus)
+    cyc = ce.escape_time.resolve_cycle_check(None, max(mis))
+    for t, (spec, mi) in enumerate(zip(specs, mis)):
+        assert torch.equal(tiles[t], _k1(spec, mi, kw, cyc, dev)), (t, mi)
+
+
+@pytest.mark.parametrize("mode", sorted(STRESS_MODES))
+def test_k2_refill_stress_128_tiles(cuda, mode):
+    """K2 at k = 128 tiles of 64^2 with budgets from 1-2000 (1-9
+    included), pixels and census against the plain version and each
+    tile against K1."""
+    specs, mis = stress_batch()
+    _mega_vs_plain_and_k1(specs, mis, STRESS_MODES[mode], cuda)
+
+
+@pytest.mark.parametrize("mi", [1, 2, 3, 8, 9, 17, 1500])
+@pytest.mark.parametrize("mode", sorted(STRESS_MODES))
+def test_k1_and_k2_on_a_7x3_tile(cuda, mode, mi):
+    """A tile smaller than one warp's run: K1 against its plain version,
+    K2 (two such tiles) against its plain version and K1."""
+    kw = STRESS_MODES[mode]
+    spec = TileSpec(-0.8, 0.1, 0.2, 0.1, width=7, height=3)
+    fam = {k: v for k, v in kw.items() if k != "julia_c"}
+    got = ce.compute_tile_cuda_device(spec, mi, device=cuda, **kw)
+    want = ce.escape_tile_plain(
+        ce._params_row(spec, kw.get("julia_c")), mi, 3, 7,
+        cycle_check=ce.escape_time.resolve_cycle_check(None, mi),
+        device=cuda, **fam)
+    assert torch.equal(got, want)
+    other = TileSpec(-0.745, 0.11, 0.01, 0.01, width=7, height=3)
+    _mega_vs_plain_and_k1([spec, other], [mi, 300], kw, cuda)
+
+
+def test_two_k2_launches_at_once_on_two_streams(cuda):
+    """Two K2 launches in flight on two streams of one card, each with
+    its own run counters: each equals its plain version."""
+    specs, mis = stress_batch(seed=11, k=64)
+    halves = [(specs[:32], mis[:32]), (specs[32:], mis[32:])]
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    torch.cuda.synchronize()
+    got = []
+    for (sp, mi), st in zip(halves, streams):
+        with torch.cuda.stream(st):
+            got.append(ce.compute_tiles_mega_cuda(sp, mi, device=cuda))
+    torch.cuda.synchronize()
+    for (sp, mi), (tiles, census) in zip(halves, got):
+        rows, mrds, kw = ce.mega_dispatch_plan(sp, mi)
+        ptiles, pcensus = ce.escape_mega_plain(rows, mrds, device=cuda, **kw)
+        assert torch.equal(tiles, ptiles)
+        assert torch.equal(census, pcensus)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (3, 7), (2, 33)])
+def test_a_persistent_launch_writes_every_byte(cuda, shape):
+    """K1 on tiles smaller than (or ragged against) one warp's run of 32
+    pixels, into buffers filled with two different sentinels: every byte
+    is written, and equals the plain version."""
+    from distributedmandelbrot_tpu_torch.ops import _build
+    lib = _build.load()
+    h, w = shape
+    spec = TileSpec(-0.9, 0.05, 0.3, 0.2, width=w, height=h)
+    row = ce._row6(ce._params_row(spec))
+    want = _plain_tile(spec, 300, cuda)
+    for fill in (0xAB, 0x55):
+        out = torch.full((h, w), fill, dtype=torch.uint8, device=cuda)
+        work = torch.zeros((1,), dtype=torch.int64, device=cuda)
+        rc = lib.dm_escape_tile(
+            ctypes.c_void_p(out.data_ptr()), h, w,
+            ctypes.c_void_p(row.ctypes.data), 0, 300, 0, 1, 0.0, 0, 0, 2, 0,
+            ctypes.c_void_p(work.data_ptr()), ctypes.c_void_p(None),
+            ctypes.c_void_p(torch.cuda.current_stream(cuda).cuda_stream))
+        assert rc == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), fill
+
+
+def test_the_instrumented_form_counts_lane_steps(cuda):
+    """K1's and K2's instrumented forms: the same bytes, and at least the
+    lane steps the pixels need, in whole groups of 8 steps x 32 lanes."""
+    spec = TileSpec.for_chunk(4, 1, 2, definition=256)
+    steps = torch.zeros((1,), dtype=torch.int64, device=cuda)
+    got = ce.compute_tile_row_cuda(ce._params_row(spec), 1024, 256, 256,
+                                   device=cuda, lane_steps=steps)
+    want, need = ce.escape_tile_plain(
+        ce._params_row(spec), 1024, 256, 256, cycle_check=True, device=cuda,
+        return_steps=True)
+    assert torch.equal(got, want)
+    issued = int(steps.item())
+    assert issued >= int(need.sum()) and issued % 256 == 0
+    mega = torch.zeros((1,), dtype=torch.int64, device=cuda)
+    tiles, _ = ce.compute_tiles_mega_cuda([spec, spec], [1024, 1024],
+                                          device=cuda, lane_steps=mega)
+    assert torch.equal(tiles[0], want) and torch.equal(tiles[1], want)
+    assert int(mega.item()) >= 2 * int(need.sum())

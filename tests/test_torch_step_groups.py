@@ -1,0 +1,163 @@
+"""The per-lane loop of K1 and K2 (``dm::step_group`` in
+``ops/csrc/escape.cuh``: eight steps a group, the cycle probe and the
+budget once per group) on the CPU, bitwise against the plain versions.
+
+The header is compiled by the host C++ compiler through
+``ops/csrc/host/step_groups.cpp`` (``__device__`` dropped, the ``_rn``
+intrinsics as plain f32 operations, ``-ffp-contract=off``); nvcc builds
+the same header unchanged for the card.  Each pixel runs alone; n, the
+steps it ran and its byte must equal the plain version's, in every mode
+and the matrix form (K8), at budgets around the group length and deep
+ones with the probe armed.  Skips where no C++ compiler is found."""
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from distributedmandelbrot_tpu_torch.core.geometry import TileSpec
+from distributedmandelbrot_tpu_torch.ops import cuda_escape as ce
+from distributedmandelbrot_tpu_torch.ops import escape_time
+
+CSRC = Path(ce.__file__).resolve().parent / "csrc"
+SIDE = 64
+BUDGETS = [2, 3, 8, 9, 17, 300, 1500]
+JULIA_C = complex(-0.8, 0.156)
+# (view center, span) per mode: boundary windows where orbits escape at
+# every step count, fall into cycles, and spend the budget.
+MODES = {
+    "mandelbrot": ({}, [(-0.745, 0.11, 0.05), (-0.2, 0.7, 0.4),
+                        (-1.25, 0.0, 0.5)]),
+    "julia": ({"julia_c": JULIA_C}, [(0.0, 0.0, 3.0), (0.3, 0.05, 0.2)]),
+    "multibrot3": ({"power": 3}, [(0.0, 0.0, 3.0), (-0.6, 0.3, 0.3)]),
+    "multibrot5": ({"power": 5}, [(0.0, 0.0, 2.8)]),
+    "ship": ({"burning": True}, [(-0.5, -0.5, 3.0), (-1.75, -0.03, 0.1)]),
+    "mxu": ({"use_mxu": True}, [(-0.745, 0.11, 0.05), (-1.25, 0.0, 0.5)]),
+    "mxu_julia": ({"use_mxu": True, "julia_c": JULIA_C},
+                  [(0.0, 0.0, 3.0)]),
+}
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++") or shutil.which(
+        "clang++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build escape.cuh's loop with")
+    out = tmp_path_factory.mktemp("dm_host") / "libdm_host.so"
+    subprocess.run([cxx, "-O2", "-ffp-contract=off", "-std=c++17",
+                    "-shared", "-fPIC", "-I", str(CSRC / "host"), "-I",
+                    str(CSRC), str(CSRC / "host" / "step_groups.cpp"), "-o",
+                    str(out)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.dm_host_tile.argtypes = [vp, i, i, i, i, f, i, i, i, i, i, i, vp,
+                                 vp, vp]
+    lib.dm_host_tile.restype = i
+    lib.dm_host_census.argtypes = [vp, i, i, f, i, i, i, i, i]
+    lib.dm_host_census.restype = ctypes.c_long
+    return lib
+
+
+def _spec(cx, cy, span):
+    return TileSpec(cx - span / 2, cy - span / 2, span, span, width=SIDE,
+                    height=SIDE)
+
+
+def _host_tile(lib, row, mrd, kw, cycle):
+    julia = len(row) == 6
+    family, interior_mode, disk_lim = ce._mode_args(
+        kw.get("power", 2), kw.get("burning", False), julia, True)
+    row6 = ce._row6(row)
+    n = np.zeros((SIDE, SIDE), np.int32)
+    steps = np.zeros((SIDE, SIDE), np.int32)
+    out = np.zeros((SIDE, SIDE), np.uint8)
+    rc = lib.dm_host_tile(row6.ctypes.data, int(julia), mrd, 0,
+                          interior_mode, disk_lim, int(cycle), family,
+                          kw.get("power", 2), int(kw.get("use_mxu", False)),
+                          SIDE, SIDE, n.ctypes.data, steps.ctypes.data,
+                          out.ctypes.data)
+    assert rc == 0
+    return n, steps, out
+
+
+def _plain_n(row, mrd, kw, cycle):
+    """escape_tile_plain's n (updates survived), from the same loop."""
+    zr0, zi0, cr, ci, julia = ce._kernel_orbit_inputs(row, SIDE, SIDE,
+                                                      "cpu")
+    power, burning = kw.get("power", 2), kw.get("burning", False)
+    interior = (None if julia else
+                escape_time.family_interior(cr, ci, power, burning))
+    return escape_time.escape_loop(
+        zr0, zi0, cr, ci, total_steps=mrd - 1, interior=interior,
+        cycle_check=cycle, power=power, burning=burning,
+        use_mxu=kw.get("use_mxu", False)).numpy()
+
+
+@pytest.mark.parametrize("mrd", BUDGETS)
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_step_groups_equal_the_plain_loop(host_lib, mode, mrd):
+    kw, views = MODES[mode]
+    fam = {k: v for k, v in kw.items() if k != "julia_c"}
+    for view in views:
+        row = np.asarray(ce._params_row(_spec(*view), kw.get("julia_c")),
+                         np.float32)
+        n, steps, out = _host_tile(host_lib, row, mrd, kw, cycle=True)
+        want, want_steps = ce.escape_tile_plain(
+            row, mrd, SIDE, SIDE, cycle_check=True, device="cpu",
+            return_steps=True, **fam)
+        assert np.array_equal(n, _plain_n(row, mrd, kw, True)), view
+        assert np.array_equal(steps, want_steps.numpy()), view
+        assert np.array_equal(out, want.numpy()), view
+
+
+@pytest.mark.parametrize("mrd", [9, 300])
+def test_step_groups_without_the_probe(host_lib, mrd):
+    row = np.asarray(ce._params_row(_spec(-0.745, 0.11, 0.05)), np.float32)
+    n, _, out = _host_tile(host_lib, row, mrd, {}, cycle=False)
+    assert np.array_equal(n, _plain_n(row, mrd, {}, False))
+    want = ce.escape_tile_plain(row, mrd, SIDE, SIDE, cycle_check=False,
+                                device="cpu")
+    assert np.array_equal(out, want.numpy())
+
+
+def test_the_loop_exercises_every_exit(host_lib):
+    """The windows above reach all three exits: escape inside a group,
+    the probe, and the budget."""
+    row = np.asarray(ce._params_row(_spec(-0.2, 0.7, 0.4)), np.float32)
+    n, steps, _ = _host_tile(host_lib, row, 1500, {}, cycle=True)
+    escaped = n < 1499
+    assert (steps[escaped] % 8 != 0).any()
+    assert ((n == 1499) & (steps < 1499) & (steps > 0)).any()  # the probe
+    assert ((n == 1499) & (steps == 1499)).any()  # the budget
+
+
+@pytest.mark.parametrize("mode", ["mandelbrot", "julia", "multibrot3",
+                                  "ship"])
+def test_the_scout_census_equals_the_plain_census(host_lib, mode):
+    """K2's bf16 scout (dm::scout_escapes) per tile against
+    scout_census_plain, through the host stand-in of cuda_bf16.h."""
+    kw, views = MODES[mode]
+    power, burning = kw.get("power", 2), kw.get("burning", False)
+    for view in views:
+        row = np.asarray(ce._params_row(_spec(*view), kw.get("julia_c")),
+                         np.float32)
+        julia = len(row) == 6
+        family, interior_mode, disk_lim = ce._mode_args(power, burning,
+                                                        julia, True)
+        got = host_lib.dm_host_census(ce._row6(row).ctypes.data,
+                                      int(julia), interior_mode, disk_lim,
+                                      family, power, 64, SIDE, SIDE)
+        gr, gi, cr, ci, _ = ce._kernel_orbit_inputs(row, SIDE, SIDE, "cpu")
+        inside = (None if julia
+                  else escape_time.family_interior(cr, ci, power, burning))
+        live0 = (torch.ones((SIDE, SIDE), dtype=torch.bool)
+                 if inside is None else ~inside)
+        want = ce.scout_census_plain(gr, gi, live0, 64, c_real=cr,
+                                     c_imag=ci, power=power,
+                                     burning=burning)
+        assert got == want, view
