@@ -27,7 +27,17 @@ JSON line; any failure raises and the script exits non-zero.
    refill stress cases of K1's and K2's persistent loop: K2 at k = 128
    tiles of 64^2 with budgets from 1-2000 (1-9 included, numpy seed) in
    every mode and K8 form, per tile against K1; K1 and K2 on a 7x3 tile;
-   two K2 launches in flight at once on two streams of cuda:0.
+   two K2 launches in flight at once on two streams of cuda:0.  K3 and
+   K5 on the same loop: K3 at k = 300 tiles of 64^2 with budgets 1-5000
+   in every mode (per tile against K1), the batch's halves as two K3
+   launches at once on two streams, and K3 at k = 65,537 tiles of 4x32;
+   K5 at n = 1-4 in every mode on 7x3 and 64^2 windows at budgets 1-9,
+   17 and 1500 (per plane against K1).  Fused batches past one K2
+   launch's 128 tiles: 129 level-12 chunks at 64^2 through
+   ``CudaBackend.dispatch_many`` on cuda:0 and on the ring ``[cuda:0,
+   cuda:0]`` (two K2 launches, no demotion, per tile against K1), and
+   300 tiles through ``compute_tiles_mega_sharded`` on the ring (shards
+   of 150, four launches).
 3. golden: the all-escaping sky chunk bitwise against the numpy golden
    at 4096^2; bulb and seahorse chunks at 512^2 through the backend's
    fused route (proven-interior pixels bitwise, <= 2% off-mask).
@@ -77,11 +87,12 @@ JSON line; any failure raises and the script exits non-zero.
    pipeline's wall time beside K3's on one 4-chunk batch with the warp
    lane-steps each issues over the steps the pixels need; K8 in K2
    beside K2 in the same run, with the static f32 instructions of each
-   K1/K2 instantiation (``cuobjdump -sass``), and K2 in each mode.  For
-   K1, K2 and their modes also the lane steps the warps issue (measured
-   by the instrumented form, beside the modelled ``f32_warp_steps`` of a
-   one-pixel-a-thread loop), registers, occupancy and the SASS of the
-   inner step group.
+   persistent kernel's instantiation (``cuobjdump -sass``), and K2 in
+   each mode.  For K1, K2 and their modes, K3 (also on a light batch of
+   four level-4 chunks at 256) and K5 also the lane steps the warps issue
+   (measured by the instrumented form, beside the modelled
+   ``f32_warp_steps`` of a one-pixel-a-thread loop), registers, occupancy
+   and the SASS of the inner step group.
 
 The second-to-last line is ``nvidia-smi``'s name and power limit, the
 last ``{"ok": true, "device": {...}}``.
@@ -329,9 +340,9 @@ _SASS_INST = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
 
 
 def sass_functions(listing: str) -> dict:
-    """K1's and K2's SASS by instantiation name: a list of basic blocks,
-    each a list of opcodes (a block ends at a label or after a branch,
-    exit or return)."""
+    """The persistent kernels' SASS by instantiation name: a list of
+    basic blocks, each a list of opcodes (a block ends at a label or
+    after a branch, exit or return)."""
     per: dict = {}
     cur = None
     for line in listing.splitlines():
@@ -339,7 +350,8 @@ def sass_functions(listing: str) -> dict:
         if m:
             name = kernel_name(m.group(1))
             cur = (per.setdefault(name, [[]])
-                   if name.startswith(("escape_tile", "escape_mega"))
+                   if name.startswith(("escape_tile", "escape_mega",
+                                       "escape_batch", "escape_pack"))
                    else None)
             continue
         if cur is None:
@@ -356,9 +368,10 @@ def sass_functions(listing: str) -> dict:
 
 
 def sass_f32_ops(listing: str | None) -> dict | str:
-    """Static f32 arithmetic instructions (FMUL, FADD, FFMA) of each K1
-    and K2 instantiation: whether nvcc kept the matrix form's recomputed
-    squares or merged them, and that no FMA was formed."""
+    """Static f32 arithmetic instructions (FMUL, FADD, FFMA) of each
+    persistent kernel's instantiation: whether nvcc kept the matrix
+    form's recomputed squares or merged them, and that no FMA was
+    formed."""
     if listing is None:
         return "not measured (no cuobjdump listing)"
     return {name: {op: sum(b.count(op) for b in blocks)
@@ -367,12 +380,13 @@ def sass_f32_ops(listing: str | None) -> dict | str:
 
 
 def sass_step_group(listing: str | None) -> dict | str:
-    """The inner step group of each K1 and K2 instantiation: the basic
-    block with the most f32 arithmetic (at degree 2 and in the ship,
-    steps 5-8 of dm::step_group, the group's tail after its early-exit
-    votes; at degree d > 2 the body of the complex power's loop), with
-    its instructions, f32 operations, and instructions per f32 operation
-    (the share of issue slots the arithmetic gets is its inverse)."""
+    """The inner step group of each persistent kernel's instantiation:
+    the basic block with the most f32 arithmetic (at degree 2 and in the
+    ship, steps 5-8 of dm::step_group, the group's tail after its
+    early-exit votes; at degree d > 2 the body of the complex power's
+    loop), with its instructions, f32 operations, and instructions per
+    f32 operation (the share of issue slots the arithmetic gets is its
+    inverse)."""
     if listing is None:
         return "not measured (no cuobjdump listing)"
     out = {}
@@ -410,7 +424,7 @@ def phase_device(build):
 
 
 def phase_kernel_vs_plain(ce, TileSpec):
-    """Every K1/K2 launch here is held bitwise against the plain version
+    """Every kernel launch here is held bitwise against its plain version
     on the same device."""
     dev = torch.device("cuda", 0)
     views = [TileSpec(x, y, s, s, width=128, height=128)
@@ -600,9 +614,10 @@ STRESS_FORMS = {"mandelbrot": ({}, "escape_mega"),
                               "escape_mega_mxu")}
 
 
-def stress_batch(TileSpec, seed: int = 5, k: int = 128, side: int = 64):
+def stress_batch(TileSpec, seed: int = 5, k: int = 128, side: int = 64,
+                 top: int = 2000):
     """k views of side^2 on boundary windows of every scale, with budgets
-    drawn from 1-2000 (1 through 9 among them), from a numpy seed."""
+    drawn from 1-``top`` (1 through 9 among them), from a numpy seed."""
     rng = np.random.default_rng(seed)
     anchors = np.array([(-0.745, 0.11), (-0.2, 0.7), (-1.25, 0.0),
                         (0.28, 0.01), (-0.5, -0.5), (0.0, 0.0),
@@ -613,19 +628,19 @@ def stress_batch(TileSpec, seed: int = 5, k: int = 128, side: int = 64):
         span = float(10 ** rng.uniform(-3, 0.5))
         specs.append(TileSpec(cx - span / 2, cy - span / 2, span, span,
                               width=side, height=side))
-    mis = [int(m) for m in rng.integers(1, 2001, k)]
+    mis = [int(m) for m in rng.integers(1, top + 1, k)]
     mis[:9] = list(range(1, 10))
     return specs, mis
 
 
 def check_refill_stress(ce, TileSpec, check) -> None:
-    """The persistent loop of K1 and K2 where refill and the end game
-    bite, bitwise: K2 at k = 128 tiles of 64^2 with budgets from 1-2000
-    (1-9 included) in every mode and K8 form, against its plain version
-    (census as integers) and per tile against K1; K1 and K2 on a 7x3
-    tile at budgets 1-9, 17 and 1500 in every form; two K2 launches in
-    flight at once on two streams of cuda:0, each against its plain
-    version."""
+    """The persistent loop where refill and the end game bite, bitwise:
+    K2 at k = 128 tiles of 64^2 with budgets from 1-2000 (1-9 included)
+    in every mode and K8 form, against its plain version (census as
+    integers) and per tile against K1; K1 and K2 on a 7x3 tile at
+    budgets 1-9, 17 and 1500 in every form; two K2 launches in flight at
+    once on two streams of cuda:0, each against its plain version.  Then
+    K3 and K5 (check_k3_k5_stress)."""
     dev = torch.device("cuda", 0)
 
     def mega(name, specs, mis, kw, per_tile=True):
@@ -675,6 +690,82 @@ def check_refill_stress(ce, TileSpec, check) -> None:
         check("escape_mega", tiles, ptiles, "plain (two streams at once)")
         check("escape_mega", census, pcensus,
               "the plain census (two streams at once)")
+    check_k3_k5_stress(ce, TileSpec, check)
+
+
+# K5's stress budgets, each in every position of a pack.
+PACK_BUDGETS = (*range(1, 10), 17, 1500)
+
+
+def check_k3_k5_stress(ce, TileSpec, check) -> None:
+    """K3 and K5 on the persistent loop, bitwise: K3 at k = 300 tiles of
+    64^2 (past one K2 launch) with budgets 1-5000 (1-9 included) in every
+    mode, against its plain version and per tile against K1, the same
+    batch's halves in flight at once on two streams; K3 at k = 65,537
+    tiles of 4x32 (past the 65,535 of a grid's z extent) repeating 7
+    distinct tiles; K5 at n = 1-4 in every mode on 7x3 and 64^2 windows,
+    the budgets 1-9, 17 and 1500 in every position, against its plain
+    version and per plane against K1."""
+    dev = torch.device("cuda", 0)
+    specs, mis = stress_batch(TileSpec, k=300, top=5000)
+    cyc = ce.escape_time.resolve_cycle_check(None, max(mis))
+    for mode, kw in MODES.items():
+        rows = np.asarray([ce._params_row(sp, kw.get("julia_c"))
+                           for sp in specs], np.float32)
+        got = ce.compute_tiles_batch_cuda(rows, mis, height=64, width=64,
+                                          device=dev, **mode_args(kw))
+        want = ce.escape_batch_plain(rows, mis, height=64, width=64,
+                                     cycle_check=cyc, device=dev,
+                                     **mode_args(kw))
+        check("escape_batch", got, want, f"plain (stress, 300 tiles, {mode})")
+        for t, (row, mi) in enumerate(zip(rows, mis)):
+            one = ce.compute_tile_row_cuda(row, mi, 64, 64, cycle_check=cyc,
+                                           device=dev, **mode_args(kw))
+            check("escape_batch", got[t], one,
+                  f"K1 per tile (stress, {mode}, mi {mi})")
+        if mode != "mandelbrot":
+            continue
+        halves = [(rows[:150], mis[:150]), (rows[150:], mis[150:])]
+        streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+        torch.cuda.synchronize()
+        outs = []
+        for (r, m), st in zip(halves, streams):
+            with torch.cuda.stream(st):
+                outs.append(ce.compute_tiles_batch_cuda(
+                    r, m, height=64, width=64, cycle_check=cyc, device=dev))
+        torch.cuda.synchronize()
+        check("escape_batch", torch.cat(outs), want,
+              "plain (two K3 launches at once on two streams)")
+    base = [TileSpec(-0.75 + 0.01 * i, 0.1 - 0.003 * i, 0.02 * (i + 1),
+                     0.01, width=32, height=4) for i in range(7)]
+    base_mis = [1, 2, 9, 17, 300, 1500, 5000]
+    rows = np.asarray([ce._params_row(sp) for sp in base], np.float32)
+    idx = np.arange(65_537) % 7
+    got = ce.compute_tiles_batch_cuda(rows[idx], [base_mis[i] for i in idx],
+                                      height=4, width=32, device=dev)
+    want = ce.escape_batch_plain(
+        rows, base_mis, height=4, width=32, device=dev,
+        cycle_check=ce.escape_time.resolve_cycle_check(None, 5000))
+    check("escape_batch", got, want[torch.from_numpy(idx).to(dev)],
+          "plain (65,537 tiles of 4x32)")
+    for mode, kw in MODES.items():
+        for w, h in ((7, 3), (64, 64)):
+            base = TileSpec(-0.8, 0.1, 0.2, 0.1, width=w, height=h)
+            for n in range(1, 5):
+                wins = [shifted(base, dx, dy) for dx, dy in SS4[:n]]
+                for i in range(len(PACK_BUDGETS)):
+                    pm = [PACK_BUDGETS[(i + j) % len(PACK_BUDGETS)]
+                          for j in range(n)]
+                    got = pack_call(ce, wins, pm, kw, dev)
+                    check("escape_pack", got, plain_pack(ce, wins, pm, kw,
+                                                         dev),
+                          f"plain ({mode}, {w}x{h}, mis {pm})")
+                    cyc = ce.escape_time.resolve_cycle_check(None, max(pm))
+                    for t, (sp, mi) in enumerate(zip(wins, pm)):
+                        one = ce.compute_tile_cuda_device(
+                            sp, mi, cycle_check=cyc, device=dev, **kw)
+                        check("escape_pack", got[t], one,
+                              f"K1 per plane ({mode}, {w}x{h}, mis {pm})")
 
 
 def check_mesh_kernels(ce, TileSpec, views, check) -> int:
@@ -752,6 +843,65 @@ def check_mesh_kernels(ce, TileSpec, views, check) -> int:
                                       **extra)
         check("escape_resume", out, k3, f"the 4096^2 pipeline vs K3 "
              f"({extra or 'no overflow'})")
+    check_fused_over_one_launch(ce, TileSpec, check)
+
+
+def check_fused_over_one_launch(ce, TileSpec, check) -> None:
+    """Fused batches past one K2 launch's 128 tiles: 129 chunks of level
+    12 at 64^2 (budgets 1-300, numpy seed) through CudaBackend's
+    dispatch_many on cuda:0 (launches of 128 and 1) and on the ring
+    [cuda:0, cuda:0] (a launch per shard of 65), with no demotion, each
+    tile against K1; 300 tiles through compute_tiles_mega_sharded on the
+    ring (shards of 150, each split in two), pixels and census against
+    the one-device route and its plain version."""
+    from distributedmandelbrot_tpu_torch import worker as wk
+    from distributedmandelbrot_tpu_torch.core.workload import Workload
+    from distributedmandelbrot_tpu_torch.obs import names
+    from distributedmandelbrot_tpu_torch.parallel import sharding as sh
+    from distributedmandelbrot_tpu_torch.parallel.mesh import make_mesh
+    dev = torch.device("cuda", 0)
+    ring = make_mesh([dev, dev])
+    rng = np.random.default_rng(29)
+    ws = [Workload(12, int(m), i % 12, i // 12)
+          for i, m in enumerate(rng.integers(1, 301, 129))]
+    cyc = ce.escape_time.resolve_cycle_check(None,
+                                             max(w.max_iter for w in ws))
+    for mesh in (None, ring):
+        backend = wk.CudaBackend(definition=64, device=dev, mesh=mesh)
+        torch.cuda.synchronize()
+        ce.reset_launch_counts()
+        handles = backend.dispatch_many(ws)
+        torch.cuda.synchronize()
+        launches = ce.launch_counts()["escape_mega"]
+        demoted = [backend.demotions(r) for r in (
+            names.ROUTE_MESH_TO_FUSED, names.ROUTE_FUSED_TO_PER_TILE)]
+        if launches != 2 or any(demoted) or not all(
+                isinstance(h, wk.MegaTileHandle) for h in handles):
+            where = "the ring" if mesh else "cuda:0"
+            raise AssertionError(f"129-tile batch on {where}: {launches} "
+                                 f"launches, demotions {demoted}")
+        for w, h in zip(ws, handles):
+            spec = TileSpec.for_chunk(w.level, w.index_real, w.index_imag,
+                                      definition=64)
+            one = ce.compute_tile_cuda_device(spec, w.max_iter,
+                                              cycle_check=cyc, device=dev)
+            check("escape_mega", h.pixels, one, "K1 per tile (129 tiles)")
+    specs, mis = stress_batch(TileSpec, seed=13, k=300, side=16, top=300)
+    torch.cuda.synchronize()
+    ce.reset_launch_counts()
+    tiles, scout = sh.compute_tiles_mega_sharded(specs, mis, mesh=ring)
+    torch.cuda.synchronize()
+    if ce.launch_counts()["escape_mega"] != 4:
+        raise AssertionError(f"300 tiles on the ring: "
+                             f"{ce.launch_counts()['escape_mega']} launches")
+    ftiles, fscout = ce.compute_tiles_mega_cuda(specs, mis, device=dev)
+    rows, mrds, kw = ce.mega_dispatch_plan(specs, mis)
+    ptiles, pcensus = ce.escape_mega_plain(rows, mrds, device=dev, **kw)
+    check("escape_mega", torch.stack(tiles), ftiles, "one device (300 tiles)")
+    check("escape_mega", torch.stack(scout), fscout,
+          "the one-device census (300 tiles)")
+    check("escape_mega", ftiles, ptiles, "plain (300 tiles)")
+    check("escape_mega", fscout, pcensus, "the plain census (300 tiles)")
 
 
 def phase_golden(wk, TileSpec, escape_time, Workload):
@@ -1432,17 +1582,20 @@ def warp_steps(steps) -> int:
 
 
 def issued_lane_steps(launch) -> int:
-    """Lane steps K1's or K2's instrumented form issues: ``launch`` gets a
-    zeroed (1,) int64 counter on the card, to which each warp adds 8 x 32
-    per group it runs (the counting form is launched only here)."""
+    """Lane steps a persistent kernel's instrumented form issues:
+    ``launch`` gets a zeroed (1,) int64 counter on the card, to which each
+    warp adds 8 x 32 per group it runs (the counting form is launched
+    only here)."""
     counter = torch.zeros((1,), dtype=torch.int64, device="cuda")
     launch(counter)
     torch.cuda.synchronize()
     return int(counter.item())
 
 
-# K1's and K2's instantiations by form: escape_tile_kernel<F, MXU, COUNT>,
-# escape_mega_kernel<F, MXU, JULIA, COUNT> (the uncounted form).
+# The persistent kernels' instantiations by form: escape_tile_kernel<F,
+# MXU, COUNT>, escape_mega_kernel<F, MXU, JULIA, COUNT>,
+# escape_batch_kernel<F, JULIA, COUNT>, escape_pack_kernel<F, JULIA,
+# COUNT> (the uncounted form).
 PERSISTENT_FORMS = {
     "escape_tile": ("escape_tile_kernel<0,0,0>", {}),
     "escape_tile_julia": ("escape_tile_kernel<0,0,0>", {"julia": True}),
@@ -1453,15 +1606,17 @@ PERSISTENT_FORMS = {
     "escape_mega_multibrot": ("escape_mega_kernel<2,0,0,0>", {"power": 3}),
     "escape_mega_ship": ("escape_mega_kernel<1,0,0,0>", {"burning": True}),
     "escape_mega_mxu": ("escape_mega_kernel<0,1,0,0>", {"use_mxu": True}),
+    "escape_batch": ("escape_batch_kernel<0,0,0>", {}),
+    "escape_pack": ("escape_pack_kernel<0,0,0>", {}),
 }
 
 
 def persistent_fields(ce, ptxas: dict, groups, form: str, issued: int,
                       needed: int) -> dict:
-    """The persistent loop's own numbers for a K1/K2 row: lane steps
-    issued (measured by the instrumented form) over the steps the pixels
-    need, registers and spills, occupancy, and the inner step group's
-    SASS."""
+    """The persistent loop's own numbers for a K1, K2, K3 or K5 row: lane
+    steps issued (measured by the instrumented form) over the steps the
+    pixels need, registers and spills, occupancy, and the inner step
+    group's SASS."""
     inst, kw = PERSISTENT_FORMS[form]
     regs = ptxas.get(inst, {})
     return {"lane_steps_issued": issued,
@@ -1469,7 +1624,7 @@ def persistent_fields(ce, ptxas: dict, groups, form: str, issued: int,
             "instantiation": inst, "registers": regs.get("registers"),
             "spill_stores": regs.get("spill_stores"),
             "occupancy": ce.persistent_occupancy(
-                mega=form.startswith("escape_mega"), **kw),
+                "_".join(form.split("_")[:2]), **kw),
             "step_group_sass": (groups.get(inst, "not found")
                                 if isinstance(groups, dict) else groups)}
 
@@ -1567,12 +1722,19 @@ def compact_warp_steps(steps, phase: int, seg: int, cap: int):
     return k6, k7
 
 
-def time_mesh_kernels(ce, TileSpec, dev) -> dict:
+# K3's light batch: four level-4 chunks at budget 256 (the probe off),
+# where the persistent loop has little divergence to remove.
+K3_LIGHT = [(4, 1, 1), (4, 1, 2), (4, 2, 1), (4, 2, 2)]
+
+
+def time_mesh_kernels(ce, TileSpec, dev, ptxas, groups) -> dict:
     """K3, K6 and K7 on the 4-chunk batch at the seahorse valley's edge
-    (EDGE4): K3 at budget 5000 (its route's class, the probe armed), and
+    (EDGE4): K3 at budget 5000 (its route's class, the probe armed) with
+    its persistent loop's numbers (lane steps by the instrumented form,
+    registers, occupancy), K3 on the light batch K3_LIGHT at 256, and K3
     at 1000 beside the compacted pipeline (wall time, host clock around
-    the call and a synchronize, which includes its host reads), K6 on
-    the batch and K7's first round on its packed lanes."""
+    the call and a synchronize, which includes its host reads), K6 on the
+    batch and K7's first round on its packed lanes."""
     from distributedmandelbrot_tpu_torch.ops import compact_escape as cx
     specs = [TileSpec.for_chunk(10, i, j) for i, j in EDGE4]
     rows = np.asarray([ce._params_row(sp) for sp in specs], np.float32)
@@ -1591,14 +1753,43 @@ def time_mesh_kernels(ce, TileSpec, dev) -> dict:
     got = k3(5000)
     want, steps = k3_plain(5000, return_steps=True)
     b_ms, b_by, ops = bound(int(steps.sum()), 0, n_pix)
+    issued = issued_lane_steps(lambda c: ce.compute_tiles_batch_cuda(
+        rows, [5000] * k, height=4096, width=4096, device=dev, lane_steps=c))
+    light = [TileSpec.for_chunk(*key) for key in K3_LIGHT]
+    lrows = np.asarray([ce._params_row(sp) for sp in light], np.float32)
+
+    def k3_light():
+        return ce.compute_tiles_batch_cuda(lrows, [256] * len(light),
+                                           height=4096, width=4096,
+                                           device=dev)
+
+    lwant, lsteps = ce.escape_batch_plain(
+        lrows, [256] * len(light), height=4096, width=4096, device=dev,
+        cycle_check=ce.escape_time.resolve_cycle_check(None, 256),
+        return_steps=True)
+    lb_ms, lb_by, _ = bound(int(lsteps.sum()), 0, len(light) * 4096 * 4096)
+    l_issued = issued_lane_steps(lambda c: ce.compute_tiles_batch_cuda(
+        lrows, [256] * len(light), height=4096, width=4096, device=dev,
+        lane_steps=c))
     out["escape_batch"] = {
         "ms": median_ms(lambda: k3(5000), reps=20),
         "plain_ms": median_ms(lambda: k3_plain(5000), reps=1, warmup=0),
         "bound_ms": b_ms, "bound_by": b_by, "ops": ops,
-        "bitwise_vs_plain": bool(torch.equal(got, want)),
+        "bitwise_vs_plain": bool(torch.equal(got, want)
+                                 and torch.equal(k3_light(), lwant)),
         "f32_steps": int(steps.sum()), "f32_warp_steps": warp_steps(steps),
+        **persistent_fields(ce, ptxas, groups, "escape_batch", issued,
+                            int(steps.sum())),
         "input": "k=4: level-10 chunks (3,5), (3,4), (2,4), (2,5) at "
-                 "4096^2, max_iter 5000, probe armed"}
+                 "4096^2, max_iter 5000, probe armed",
+        "light_batch": {
+            "input": "k=4: level-4 chunks (4,1,1), (4,1,2), (4,2,1), "
+                     "(4,2,2) at 4096^2, max_iter 256, probe off",
+            "ms": median_ms(k3_light, reps=30), "bound_ms": lb_ms,
+            "bound_by": lb_by, "f32_steps": int(lsteps.sum()),
+            "f32_warp_steps": warp_steps(lsteps),
+            "lane_steps_issued": l_issued,
+            "lane_steps_over_needed": l_issued / int(lsteps.sum())}}
 
     mi = 1000
     got = k3(mi)
@@ -1623,7 +1814,11 @@ def time_mesh_kernels(ce, TileSpec, dev) -> dict:
     cap = cx.compact_capacity(n_pix)
     k6_lanes, k7_lanes = compact_warp_steps(steps, cx.PHASE1_BUDGET,
                                             cx.RESUME_SEG, cap)
+    # K3's warp lane-steps under a one-pixel-a-thread loop (a model),
+    # beside what K3 issues (its instrumented form).
     k3_lanes = warp_steps(steps)
+    k3_issued = issued_lane_steps(lambda c: ce.compute_tiles_batch_cuda(
+        rows, [mi] * k, height=4096, width=4096, device=dev, lane_steps=c))
     finding = {
         "input": "k=4: level-10 chunks (3,5), (3,4), (2,4), (2,5) at "
                  "4096^2, max_iter 1000",
@@ -1636,6 +1831,8 @@ def time_mesh_kernels(ce, TileSpec, dev) -> dict:
         "compact_warp_lane_steps": {"escape_state": k6_lanes,
                                     "escape_resume": k7_lanes},
         "k3_lane_steps_over_needed": k3_lanes / needed,
+        "k3_lane_steps_issued": k3_issued,
+        "k3_issued_over_needed": k3_issued / needed,
         "compact_lane_steps_over_needed": (k6_lanes + k7_lanes) / needed,
         "capacity": cap,
         "live_after_phase1": int((steps > cx.PHASE1_BUDGET).sum())}
@@ -1859,8 +2056,10 @@ def phase_kernels(ce, TileSpec, launches, err, build):
                                    return_steps=True)
     k5_bitwise = bool(torch.equal(k5_got, k5_want))
     k5_bound, k5_by, k5_ops = bound(int(k5_steps.sum()), 0, 4 * 4096 * 4096)
+    k5_issued = issued_lane_steps(lambda c: ce.compute_tiles_packed_cuda(
+        win, [mi] * 4, device=dev, lane_steps=c))
     modes = time_k1_modes(ce, TileSpec, dev, ptxas, groups)
-    mesh = time_mesh_kernels(ce, TileSpec, dev)
+    mesh = time_mesh_kernels(ce, TileSpec, dev, ptxas, groups)
     finding = mesh.pop("compaction_vs_k3")
     mxu_modes = time_mxu_and_modes(ce, TileSpec, dev, specs, mis, tiles,
                                    ptxas, groups)
@@ -1923,13 +2122,9 @@ def phase_kernels(ce, TileSpec, launches, err, build):
                   "4096^2, max_iter 1024",
          "k1_x4_ms": k1x4_ms, "n2_ms": k5_n2_ms,
          "f32_steps": int(k5_steps.sum()), "ops": k5_ops,
-         # Warp lane-steps under two models of the pack's loop: each
-         # state's code skipped once no lane of the warp needs it (what
-         # four K1 launches issue), or issued for every state until the
-         # warp's last orbit retires.
-         "warp_steps_states_skipped": sum(warp_steps(st) for st in k5_steps),
-         "warp_steps_states_issued": len(win) * warp_steps(
-             k5_steps.max(dim=0).values)},
+         "f32_warp_steps": sum(warp_steps(st) for st in k5_steps),
+         **persistent_fields(ce, ptxas, groups, "escape_pack", k5_issued,
+                             int(k5_steps.sum()))},
     ]
     for name, m in mesh.items():
         kernels.append({

@@ -117,13 +117,13 @@ def load() -> ctypes.CDLL:
             lib.dm_mxu_probe.argtypes = [vp, vp, vp, i, i, vp]
             lib.dm_mxu_probe.restype = i
             lib.dm_escape_pack.argtypes = [vp, i, i, i, vp, vp, i, i, i, f,
-                                           i, i, i, vp]
+                                           i, i, i, vp, vp, vp]
             lib.dm_escape_pack.restype = i
             lib.dm_escape_smooth.argtypes = [vp, i, i, vp, i, i, i, f, f, f,
                                              i, f, i, i, i, vp]
             lib.dm_escape_smooth.restype = i
-            lib.dm_escape_batch.argtypes = [vp, vp, vp, i, i, i, i, i, i, f,
-                                            i, i, i, vp]
+            lib.dm_escape_batch.argtypes = [vp, vp, vp, vp, i, i, i, i, i,
+                                            i, f, i, i, i, vp, vp, vp]
             lib.dm_escape_batch.restype = i
             lib.dm_escape_state.argtypes = [vp] * 8 + [i, i, i, i, i, f, i,
                                                        i, i, vp]

@@ -13,15 +13,16 @@
 //   fold), z^2 + c as the 2x2 rotation-matrix product on the CUDA cores;
 //   dm_mxu_probe runs its parity probe with the same device functions.
 // - escape_pack_kernel (K5, _escape_pack_kernel): n <= 4 same-shaped
-//   tiles, one thread carrying the n orbits of its pixel (the
-//   supersampled render's samples), out as (n, H, W) uint8.
+//   tiles (the supersampled render's samples), out as (n, H, W) uint8,
+//   each plane equal to K1 on its tile.
 // - escape_smooth_kernel (K4, _smooth_block_kernel): one tile's f32
 //   smooth value nu, for every family.
 // - escape_batch_kernel (K3, _escape_batch_kernel): k same-shaped tiles
-//   in one launch, every family, with the params rows and budgets in
-//   device memory (k is a mesh shard's size, unbounded).
+//   in one launch, every family, with the params rows, budgets and
+//   epilogue multipliers in device memory (k is a mesh shard's size,
+//   unbounded).
 // - escape_state_kernel (K6, compact_escape.py's _state_batch_kernel):
-//   K3's loop capped at a phase budget, writing the raw per-pixel state
+//   K3's pixel capped at a phase budget, writing the raw per-pixel state
 //   (c, z, n, act) instead of bytes.
 // - escape_resume_kernel (K7, compact_escape.py's _resume_block_kernel):
 //   one resume round over a flat buffer of lanes, each carrying its own
@@ -31,43 +32,41 @@
 // batched launch equals single-tile launches bitwise, and K6 then K7
 // rounds equal K3: a resumed lane recomputes its cached squares with
 // the same correctly rounded multiply and continues the same step
-// sequence (per-pixel exit makes every seam exact).  K1 and K2 step in
-// groups of 8 (dm::step_group), which equals 8 calls of dm::advance on
-// every output; tests/test_torch_step_groups.py builds that loop on the
-// host and holds it to the plain version.
+// sequence (per-pixel exit makes every seam exact).  K1, K2, K3 and K5
+// step in groups of 8 (dm::step_group), which equals 8 calls of
+// dm::advance on every output; tests/test_torch_step_groups.py builds
+// that loop on the host and holds it to the plain version.
 //
-// What bounds them on an H100: operations.  A pixel reads nothing and
-// writes one byte (four for nu); each step is 8 f32 operations at
-// degree 2 (3 multiplies, 5 adds or subtracts, |z|^2 included; the
-// Burning Ship adds an abs, degree d costs 6d - 1, K8's matrix form 11
-// as written: 4 multiplies and 2 adds for the product, 2 adds of c,
-// 2 squares and an add for |z|^2) plus a compare, so a
-// tile costs that times the steps its pixels need, against its output
-// bytes.  K3-K7 answer with one thread per pixel and per-thread early
-// exit: a sky pixel leaves after a few steps, an interior-proven pixel
-// never iterates, and only the orbits that need the budget spend it.
-// What that leaves on the table is warp divergence: a warp of 32
-// neighbouring pixels steps until its slowest lane retires (2.35x the
-// needed lane steps on the main path's chunks, PERF.md), and a block
-// holds its SM slot until its last warp ends.  K1 and K2, the main
-// path's kernels, answer with persistent warps that refill retired
-// lanes (below, "K1 and K2"): a warp's lanes stay on live orbits, and the
-// per-step overhead (probe, snapshot, budget, loop control, the refill
-// vote) runs once per group of 8 steps.  K5 adds instruction-level
-// parallelism: its n orbits are independent, so
-// their steps interleave in one thread (the Hopper reading of what
-// packing bought on the TPU), each orbit retiring on its own.  None of
-// the TPU workarounds is carried: no scratch
-// state, no 64x128 blocks (any H, W; the ragged edge is masked), no
-// prologue pipelining, no byte-lane packing.  K6 and K7 move state
-// through device memory (24 B written per pixel by K6; per lane and
-// round, K7 reads 28 B and writes 16 B), which is what the compacted
-// pipeline pays so that K7's warps hold only live lanes.
+// What bounds them on an H100: operations.  A pixel reads nothing and writes
+// one byte (four for nu); each step is 8 f32 operations at degree 2 (3
+// multiplies, 5 adds or subtracts, |z|^2 included; the Burning Ship adds an
+// abs, degree d costs 6d - 1, K8's matrix form 11 as written: 4 multiplies and
+// 2 adds for the product, 2 adds of c, 2 squares and an add for |z|^2) plus a
+// compare, so a tile costs that times the steps its pixels need, against its
+// output bytes.  K4, K6 and K7 answer with one thread per pixel and per-thread
+// early exit: a sky pixel leaves after a few steps, an interior-proven pixel
+// never iterates, and only the orbits that need the budget spend it.  What that
+// leaves on the table is warp divergence: a warp of 32 neighbouring pixels
+// steps until its slowest lane retires (2.35x the needed lane steps on the main
+// path's chunks, PERF.md), and a block holds its SM slot until its last warp
+// ends.  K1, K2, K3 and K5 answer with persistent warps that refill retired
+// lanes (below, "The persistent kernels"): a warp's lanes stay on live orbits,
+// and the per-step overhead (probe, snapshot, budget, loop control, the refill
+// vote) runs once per group of 8 steps.  They differ only in where their tiles'
+// rows come from (a source): K1's one row and K2's and K5's rows ride the
+// launch's parameter space, K3's lie in device memory.  None of the TPU
+// workarounds is carried: no scratch state, no 64x128 blocks (any H, W; the
+// ragged edge is masked), no prologue pipelining, no byte-lane packing (K5's
+// tiles are simply the tiles of one persistent launch).  K6 and K7 move state
+// through device memory (24 B written per pixel by K6; per lane and round, K7
+// reads 28 B and writes 16 B), which is what the compacted pipeline pays so
+// that K7's warps hold only live lanes.
 
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "escape.cuh"
 
@@ -83,28 +82,26 @@ constexpr int kPackMax = 4;
 // A params row: start_r, start_i, step_r, step_i, julia c_r, c_i.
 constexpr int kRow = 6;
 
-// About 3.6 KB: inside the 4 KB a __grid_constant__ parameter may take.
-struct MegaParams {
-  float row[kMaxMegaTiles][kRow];  // as TileParams::row, per tile
-  int mrd[kMaxMegaTiles];          // each tile's own budget
-  int julia;                       // c = (row[4], row[5]) per tile
-  int interior_mode;               // dm::Interior
-  float disk_lim;                  // the kDisk limit
+// The params of a launch over at most CAP tiles, in parameter space.
+template <int CAP>
+struct FusedParams {
+  float row[CAP][kRow];  // as TileParams::row, per tile
+  int mrd[CAP];          // each tile's own budget
+  int julia;             // c = (row[4], row[5]) per tile
+  int interior_mode;     // dm::Interior
+  float disk_lim;        // the kDisk limit
 };
+
+// K2's, about 3.6 KB: inside the 4 KB a __grid_constant__ parameter may
+// take, which is what caps one launch at kMaxMegaTiles tiles.
+using MegaParams = FusedParams<kMaxMegaTiles>;
+using PackParams = FusedParams<kPackMax>;
 
 struct TileParams {
   float row[kRow];
   int julia;             // c = (row[4], row[5]) instead of the grid point
   int interior_mode;     // dm::Interior
   float disk_lim;        // the kDisk limit
-};
-
-struct PackParams {
-  float row[kPackMax][kRow];
-  int mrd[kPackMax];
-  int julia;
-  int interior_mode;
-  float disk_lim;
 };
 
 // The smooth epilogue's constants, each rounded once on the host.
@@ -116,9 +113,9 @@ struct SmoothParams {
   float log2_power;  // log2(power); 0 at degree 2 (no division)
 };
 
-// --- K1 and K2: persistent warps over 8-step groups ---------------------
+// --- The persistent kernels (K1, K2, K3, K5): warps over 8-step groups ---
 //
-// K1 and K2 launch only as many blocks as fit on the card at once.
+// They launch only as many blocks as fit on the card at once.
 // Each warp takes runs of 32 adjacent pixels of one row (see "Work
 // distribution" below) and hands the pixels that need iterating to its
 // lanes as lanes retire, eight or more at a time, so a warp keeps its
@@ -188,8 +185,17 @@ Runs make_runs(int k, int height, int width) {
           width};
 }
 
+// A source gives the persistent loop its tiles: row(t, c), mrd(t),
+// julia(), interior_mode(), disk_lim().  kTableTiles > 0: the rows lie
+// in parameter space (a constant operand, read where needed) and the
+// block tables each tile's epilogue multiplier and census in shared
+// memory; 0: the rows lie in device memory, and the loop reads a run's
+// budget, multiplier (div(t)) and Julia constant once, as it takes the
+// run, into registers.
+
 // The tile of a K1 launch: one params row, the Julia select at run time.
 struct TileSource {
+  static constexpr int kTableTiles = 1;
   const TileParams& p;
   int budget;
   DM_D float row(int, int c) const { return p.row[c]; }
@@ -199,17 +205,39 @@ struct TileSource {
   DM_D float disk_lim() const { return p.disk_lim; }
 };
 
-// The tiles of a K2 launch.  JULIA is a template flag: outside Julia
-// mode the compiler then knows z0 = c.  With a runtime select the
-// Mandelbrot K2 ran slower on an H100 (PERF.md).
-template <bool JULIA>
+// The tiles of a K2 (CAP = kMaxMegaTiles) or K5 (CAP = kPackMax) launch.
+// JULIA is a template flag: outside Julia mode the compiler then knows
+// z0 = c.  With a runtime select the Mandelbrot K2 ran slower on an H100
+// (PERF.md).
+template <bool JULIA, int CAP>
 struct MegaSource {
-  const MegaParams& p;
+  static constexpr int kTableTiles = CAP;
+  const FusedParams<CAP>& p;
   DM_D float row(int t, int c) const { return p.row[t][c]; }
   DM_D int mrd(int t) const { return p.mrd[t]; }
   DM_D bool julia() const { return JULIA; }
   DM_D int interior_mode() const { return p.interior_mode; }
   DM_D float disk_lim() const { return p.disk_lim; }
+};
+
+// The tiles of a K3 launch: k rows of kRow floats, k budgets and k
+// epilogue multipliers in device memory, k unbounded.  JULIA as for K2.
+template <bool JULIA>
+struct BatchSource {
+  static constexpr int kTableTiles = 0;
+  const float* rows;
+  const int* mrds;
+  const unsigned long long* divs;
+  int interior;
+  float disk;
+  DM_D float row(int t, int c) const {
+    return __ldg(rows + static_cast<size_t>(t) * kRow + c);
+  }
+  DM_D int mrd(int t) const { return __ldg(mrds + t); }
+  DM_D unsigned long long div(int t) const { return __ldg(divs + t); }
+  DM_D bool julia() const { return JULIA; }
+  DM_D int interior_mode() const { return interior; }
+  DM_D float disk_lim() const { return disk; }
 };
 
 // The warp's place in its runs: run r's tile, row and 32-column
@@ -327,8 +355,8 @@ DM_D void lane_group(uint8_t* __restrict__ out, Lane& l, int clamp,
   }
 }
 
-// The persistent loop of K1 and K2 (see above), over the ``k`` tiles of
-// ``src``.  COUNT adds the lane steps the warp issues (32 per step of
+// The persistent loop (see above), over the ``k`` tiles of ``src``.
+// COUNT adds the lane steps the warp issues (32 per step of
 // each group it runs) to *lane_steps with one atomic at exit: the
 // instrumented form that measures what the divergence and the tail
 // cost.
@@ -339,20 +367,23 @@ DM_D void persistent_escape(uint8_t* __restrict__ out,
                             int scout_steps, int power,
                             unsigned long long* counter,
                             unsigned long long* lane_steps) {
+  constexpr bool kTable = Src::kTableTiles > 0;
+  constexpr int kTab = kTable ? Src::kTableTiles : 1;
   __shared__ Lane s_park[kThreads];  // the end game's orbits in transit
   __shared__ int s_live[kWarps];
-  __shared__ unsigned long long s_div[kMaxMegaTiles];
+  __shared__ unsigned long long s_div[kTab];
   __shared__ unsigned long long s_ranges[kWarps];
-  __shared__ int s_census[kMaxMegaTiles];
+  __shared__ int s_census[kTab];
   // The refill's hand-over: the candidate of rank i for the idle lane of
   // rank i (its grid real part and its lane in the run).
   __shared__ float s_gr[kWarps][32];
   __shared__ int s_from[kWarps][32];
-  for (int i = threadIdx.x; i < k; i += blockDim.x) {
-    s_div[i] = fast_div(static_cast<unsigned long long>(
-                            src.mrd(i) > 1 ? src.mrd(i) : 2)).m;
-    s_census[i] = 0;
-  }
+  if constexpr (kTable)
+    for (int i = threadIdx.x; i < k; i += blockDim.x) {
+      s_div[i] = fast_div(static_cast<unsigned long long>(
+                              src.mrd(i) > 1 ? src.mrd(i) : 2)).m;
+      s_census[i] = 0;
+    }
   if (threadIdx.x < kWarps) s_ranges[threadIdx.x] = 0;
   __syncthreads();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -365,6 +396,22 @@ DM_D void persistent_escape(uint8_t* __restrict__ out,
   float run_gr = 0.0f, run_gi = 0.0f;
   int run_t = 0, run_mrd = 0;
   size_t run_base = 0;
+  // Without a table: the run's multiplier and Julia constant, read at
+  // the take (dead code for a source with one).
+  unsigned long long run_div = 0;
+  float run_jr = 0.0f, run_ji = 0.0f;
+  auto julia_c = [&](int c) {
+    if constexpr (kTable)
+      return src.row(run_t, 4 + c);
+    else
+      return c == 0 ? run_jr : run_ji;
+  };
+  auto run_mult = [&]() {
+    if constexpr (kTable)
+      return s_div[run_t];
+    else
+      return run_div;
+  };
   RunCursor cur = {};
   unsigned long long last = ~0ULL;  // the run ``cur`` is at
   bool spent = false, counter_spent = false;
@@ -389,16 +436,23 @@ DM_D void persistent_escape(uint8_t* __restrict__ out,
         const int col = cur.seg * 32 + lane;
         run_t = cur.t;
         run_mrd = src.mrd(cur.t);
+        if constexpr (!kTable) {
+          run_div = src.div(cur.t);
+          if (src.julia()) {
+            run_jr = src.row(cur.t, 4);
+            run_ji = src.row(cur.t, 5);
+          }
+        }
         run_base = static_cast<size_t>(cur.grow) * runs.width + cur.seg * 32;
         run_gi = dm::grid(src.row(cur.t, 1), src.row(cur.t, 3), cur.row);
         run_gr = dm::grid(src.row(cur.t, 0), src.row(cur.t, 2), col);
         const bool valid = col < runs.width;
-        const float cr = src.julia() ? src.row(cur.t, 4) : run_gr;
-        const float ci = src.julia() ? src.row(cur.t, 5) : run_gi;
+        const float cr = src.julia() ? julia_c(0) : run_gr;
+        const float ci = src.julia() ? julia_c(1) : run_gi;
         const bool proven =
             valid &&
             dm::proven_interior(src.interior_mode(), cr, ci, src.disk_lim());
-        if (scout_steps > 0) {
+        if (kTable && scout_steps > 0) {
           // K2's census: the pixels not proven interior whose bf16
           // shadow escapes within scout_steps, summed over the run, per
           // tile in shared memory (integer counts: exact, order-free).
@@ -421,12 +475,12 @@ DM_D void persistent_escape(uint8_t* __restrict__ out,
         // Every lane is free (a sky of short orbits): each takes the
         // pixel it tested.
         if (held) {
-          const float cr = src.julia() ? src.row(run_t, 4) : run_gr;
-          const float ci = src.julia() ? src.row(run_t, 5) : run_gi;
+          const float cr = src.julia() ? julia_c(0) : run_gr;
+          const float ci = src.julia() ? julia_c(1) : run_gi;
           dm::start(l.o, run_gr, run_gi, cr, ci);
           l.s = 0;
           l.mrd = run_mrd;
-          l.div = s_div[run_t];
+          l.div = run_mult();
           l.off = run_base + lane;
           l.busy = true;
         }
@@ -446,12 +500,12 @@ DM_D void persistent_escape(uint8_t* __restrict__ out,
       const int rank = __popc(idle & below);
       if (!l.busy && rank < take) {
         const float gr = s_gr[warp][rank];
-        const float cr = src.julia() ? src.row(run_t, 4) : gr;
-        const float ci = src.julia() ? src.row(run_t, 5) : run_gi;
+        const float cr = src.julia() ? julia_c(0) : gr;
+        const float ci = src.julia() ? julia_c(1) : run_gi;
         dm::start(l.o, gr, run_gi, cr, ci);
         l.s = 0;
         l.mrd = run_mrd;
-        l.div = s_div[run_t];
+        l.div = run_mult();
         l.off = run_base + s_from[warp][rank];
         l.busy = true;
       }
@@ -491,7 +545,7 @@ DM_D void persistent_escape(uint8_t* __restrict__ out,
     }
   }
   // Every warp has left the last round's barrier: the census is whole.
-  if (scout_steps > 0)
+  if (kTable && scout_steps > 0)
     for (int i = threadIdx.x; i < k; i += blockDim.x)
       if (s_census[i]) atomicAdd(&census[i], s_census[i]);
   if (COUNT && lane == 0)
@@ -507,7 +561,7 @@ __global__ void __launch_bounds__(kThreads)
                        int clamp, int cycle_check, int scout_steps, int power,
                        unsigned long long* work,
                        unsigned long long* lane_steps) {
-  const MegaSource<JULIA> src{p};
+  const MegaSource<JULIA, kMaxMegaTiles> src{p};
   persistent_escape<F, MXU, COUNT>(out, census, src, k, runs, clamp,
                                    cycle_check, scout_steps, power, work,
                                    lane_steps);
@@ -524,6 +578,37 @@ __global__ void __launch_bounds__(kThreads)
   const TileSource src{p, mrd};
   persistent_escape<F, MXU, COUNT>(out, nullptr, src, 1, runs, clamp,
                                    cycle_check, 0, power, work, lane_steps);
+}
+
+// K5: the n <= kPackMax states of a supersampled view as the n tiles of
+// one launch; no census.  Each plane equals K1 on its tile.
+template <int F, bool JULIA, bool COUNT>
+__global__ void __launch_bounds__(kThreads)
+    escape_pack_kernel(uint8_t* __restrict__ out,
+                       const __grid_constant__ PackParams p, Runs runs, int n,
+                       int clamp, int cycle_check, int power,
+                       unsigned long long* work,
+                       unsigned long long* lane_steps) {
+  const MegaSource<JULIA, kPackMax> src{p};
+  persistent_escape<F, false, COUNT>(out, nullptr, src, n, runs, clamp,
+                                     cycle_check, 0, power, work, lane_steps);
+}
+
+// K3: k tiles whose rows, budgets and epilogue multipliers lie in device
+// memory; no census.  Each plane equals K1 on its row.
+template <int F, bool JULIA, bool COUNT>
+__global__ void __launch_bounds__(kThreads)
+    escape_batch_kernel(uint8_t* __restrict__ out,
+                        const float* __restrict__ rows,
+                        const int* __restrict__ mrds,
+                        const unsigned long long* __restrict__ divs,
+                        Runs runs, int k, int clamp, int interior_mode,
+                        float disk_lim, int cycle_check, int power,
+                        unsigned long long* work,
+                        unsigned long long* lane_steps) {
+  const BatchSource<JULIA> src{rows, mrds, divs, interior_mode, disk_lim};
+  persistent_escape<F, false, COUNT>(out, nullptr, src, k, runs, clamp,
+                                     cycle_check, 0, power, work, lane_steps);
 }
 
 // Blocks of ``Kernel`` resident on one SM at once (the occupancy API
@@ -581,52 +666,6 @@ __global__ void mxu_probe_kernel(float* __restrict__ out,
   out[plane + i] = vi;
   out[2 * plane + i] = mr;
   out[3 * plane + i] = mi;
-}
-
-// N orbits per thread, stepped in lockstep (state arrays fully unrolled
-// into registers); each retires on its own and, stepping exactly as K1
-// does, ends with K1's n for its tile.
-template <int N, int F>
-__global__ void escape_pack_kernel(uint8_t* __restrict__ out, int height,
-                                   int width,
-                                   const __grid_constant__ PackParams p,
-                                   int clamp, int cycle_check, int power) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.y * blockDim.y + threadIdx.y;
-  if (row >= height || col >= width) return;
-  dm::Orbit o[N];
-  int dyn[N];
-  bool live[N];
-  bool any = false;
-#pragma unroll
-  for (int t = 0; t < N; ++t) {
-    const float gr = dm::grid(p.row[t][0], p.row[t][2], col);
-    const float gi = dm::grid(p.row[t][1], p.row[t][3], row);
-    const float cr = p.julia ? p.row[t][4] : gr;
-    const float ci = p.julia ? p.row[t][5] : gi;
-    dyn[t] = p.mrd[t] - 1;
-    dm::start(o[t], gr, gi, cr, ci);
-    const bool inside =
-        dyn[t] > 0 && dm::proven_interior(p.interior_mode, cr, ci,
-                                          p.disk_lim);
-    o[t].n = inside ? dyn[t] : 0;
-    live[t] = dyn[t] > 0 && !inside;
-    any = any || live[t];
-  }
-  for (int s = 1; any; ++s) {
-    any = false;
-#pragma unroll
-    for (int t = 0; t < N; ++t) {
-      if (live[t])
-        live[t] = s <= dyn[t] &&
-                  dm::advance<F>(o[t], s, dyn[t], cycle_check, power);
-      any = any || live[t];
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < N; ++t)
-    out[(static_cast<size_t>(t) * height + row) * width + col] =
-        dm::epilogue(o[t].n, p.mrd[t], clamp);
 }
 
 // One pixel of the smooth loop (escape_time.escape_smooth_loop and
@@ -696,7 +735,7 @@ __global__ void escape_smooth_kernel(float* __restrict__ out, int height,
 }
 
 // One pixel of tile t = t0 + blockIdx.z of a batch whose params rows
-// (kRow floats each) and budgets lie in device memory.
+// (kRow floats each) and budgets lie in device memory (K6's layout).
 struct BatchPixel {
   int t, row, col;
   float gr, gi, cr, ci;
@@ -717,21 +756,6 @@ DM_D bool batch_pixel(BatchPixel& p, const float* __restrict__ rows,
   p.ci = julia ? r[5] : p.gi;
   p.mrd = mrds[p.t];
   return true;
-}
-
-template <int F>
-__global__ void escape_batch_kernel(uint8_t* __restrict__ out,
-                                    const float* __restrict__ rows,
-                                    const int* __restrict__ mrds, int t0,
-                                    int height, int width, int julia,
-                                    int clamp, int interior_mode,
-                                    float disk_lim, int cycle_check,
-                                    int power) {
-  BatchPixel p;
-  if (!batch_pixel(p, rows, mrds, t0, height, width, julia)) return;
-  out[(static_cast<size_t>(p.t) * height + p.row) * width + p.col] =
-      dm::escape_pixel<F>(p.gr, p.gi, p.cr, p.ci, p.mrd, clamp,
-                          interior_mode, disk_lim, cycle_check, power);
 }
 
 // Phase 1 of the compacted pipeline: K3's pixel for at most
@@ -838,6 +862,37 @@ int over_tiles(int k, L launch) {
   return 0;
 }
 
+// Calls ``fn(family, julia)`` with both as compile-time constants
+// (std::integral_constant); Julia mode exists at degree 2 without a fold
+// only, so only kQuadratic instantiates the JULIA forms.
+template <typename Fn>
+void by_family(int family, int julia, Fn&& fn) {
+  using Ship = std::integral_constant<int, dm::kShip>;
+  using Multibrot = std::integral_constant<int, dm::kMultibrot>;
+  using Quadratic = std::integral_constant<int, dm::kQuadratic>;
+  if (family == dm::kShip)
+    fn(Ship{}, std::false_type{});
+  else if (family == dm::kMultibrot)
+    fn(Multibrot{}, std::false_type{});
+  else if (julia)
+    fn(Quadratic{}, std::true_type{});
+  else
+    fn(Quadratic{}, std::false_type{});
+}
+
+// A persistent kernel on its grid: the instrumented form ``Counted`` when
+// ``lane_steps`` is set, else ``Kernel``.
+template <auto Kernel, auto Counted, typename... Args>
+void launch_persistent(const Runs& runs, unsigned long long* lane_steps,
+                       cudaStream_t stream, Args... args) {
+  if (lane_steps)
+    Counted<<<persistent_grid<Counted>(runs.total), kThreads, 0, stream>>>(
+        args...);
+  else
+    Kernel<<<persistent_grid<Kernel>(runs.total), kThreads, 0, stream>>>(
+        args...);
+}
+
 // K1 with its template flags resolved: F, MXU, and COUNT (lane_steps
 // not null: the instrumented form).
 template <int F, bool MXU>
@@ -845,15 +900,10 @@ void launch_tile(uint8_t* out, const TileParams& p, const Runs& runs,
                  int mrd, int clamp, int cycle_check, int power,
                  unsigned long long* work, unsigned long long* lane_steps,
                  cudaStream_t stream) {
-  if (lane_steps) {
-    constexpr auto kernel = escape_tile_kernel<F, MXU, true>;
-    kernel<<<persistent_grid<kernel>(runs.total), kThreads, 0, stream>>>(
-        out, p, runs, mrd, clamp, cycle_check, power, work, lane_steps);
-  } else {
-    constexpr auto kernel = escape_tile_kernel<F, MXU, false>;
-    kernel<<<persistent_grid<kernel>(runs.total), kThreads, 0, stream>>>(
-        out, p, runs, mrd, clamp, cycle_check, power, work, lane_steps);
-  }
+  launch_persistent<escape_tile_kernel<F, MXU, false>,
+                    escape_tile_kernel<F, MXU, true>>(
+      runs, lane_steps, stream, out, p, runs, mrd, clamp, cycle_check, power,
+      work, lane_steps);
 }
 
 template <int F, bool MXU, bool JULIA>
@@ -861,17 +911,10 @@ void launch_mega_form(uint8_t* out, int* census, const MegaParams& p,
                       const Runs& runs, int k, int clamp, int cycle_check,
                       int scout_steps, int power, unsigned long long* work,
                       unsigned long long* lane_steps, cudaStream_t stream) {
-  if (lane_steps) {
-    constexpr auto kernel = escape_mega_kernel<F, MXU, JULIA, true>;
-    kernel<<<persistent_grid<kernel>(runs.total), kThreads, 0, stream>>>(
-        out, census, p, runs, k, clamp, cycle_check, scout_steps, power,
-        work, lane_steps);
-  } else {
-    constexpr auto kernel = escape_mega_kernel<F, MXU, JULIA, false>;
-    kernel<<<persistent_grid<kernel>(runs.total), kThreads, 0, stream>>>(
-        out, census, p, runs, k, clamp, cycle_check, scout_steps, power,
-        work, lane_steps);
-  }
+  launch_persistent<escape_mega_kernel<F, MXU, JULIA, false>,
+                    escape_mega_kernel<F, MXU, JULIA, true>>(
+      runs, lane_steps, stream, out, census, p, runs, k, clamp, cycle_check,
+      scout_steps, power, work, lane_steps);
 }
 
 // Julia mode exists at degree 2 without a fold only, so only kQuadratic
@@ -892,22 +935,6 @@ void launch_mega(uint8_t* out, int* census, const MegaParams& p,
   launch_mega_form<F, MXU, false>(out, census, p, runs, k, clamp,
                                   cycle_check, scout_steps, power, work,
                                   lane_steps, stream);
-}
-
-template <int N>
-void launch_pack(int family, uint8_t* out, int height, int width,
-                 const PackParams& p, int clamp, int cycle_check, int power,
-                 cudaStream_t stream) {
-  const dim3 g = grid_for(height, width, 1), b(kBlockX, kBlockY);
-  if (family == dm::kShip)
-    escape_pack_kernel<N, dm::kShip><<<g, b, 0, stream>>>(
-        out, height, width, p, clamp, cycle_check, power);
-  else if (family == dm::kMultibrot)
-    escape_pack_kernel<N, dm::kMultibrot><<<g, b, 0, stream>>>(
-        out, height, width, p, clamp, cycle_check, power);
-  else
-    escape_pack_kernel<N, dm::kQuadratic><<<g, b, 0, stream>>>(
-        out, height, width, p, clamp, cycle_check, power);
 }
 
 }  // namespace
@@ -1001,11 +1028,22 @@ int dm_escape_mega(void* out, void* census, const void* params,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks of K1 (``mega`` 0) or K2 (``mega`` 1, with ``julia``) per SM in
-// the form of ``family``/``mxu``, as the launches size their grids (the
-// occupancy API on the current device; 0 if it fails).
-int dm_persistent_blocks_per_sm(int mega, int family, int mxu, int julia) {
-  if (mega) {
+// Blocks per SM of a persistent kernel, as the launches size their
+// grids (the occupancy API on the current device; 0 if it fails):
+// ``kernel`` 0 K1, 1 K2 (with ``julia``), 2 K3, 3 K5 (each with
+// ``julia``), in the form of ``family``/``mxu`` (K1 and K2 only).
+int dm_persistent_blocks_per_sm(int kernel, int family, int mxu, int julia) {
+  if (kernel >= 2) {
+    int n = 0;
+    by_family(family, julia, [&](auto f, auto j) {
+      constexpr int F = decltype(f)::value;
+      constexpr bool J = decltype(j)::value;
+      n = kernel == 2 ? blocks_per_sm<escape_batch_kernel<F, J, false>>()
+                      : blocks_per_sm<escape_pack_kernel<F, J, false>>();
+    });
+    return n;
+  }
+  if (kernel == 1) {
     if (family == dm::kShip)
       return blocks_per_sm<escape_mega_kernel<dm::kShip, false, false, false>>();
     if (family == dm::kMultibrot)
@@ -1029,7 +1067,8 @@ int dm_persistent_blocks_per_sm(int mega, int family, int mxu, int julia) {
              : blocks_per_sm<escape_tile_kernel<dm::kQuadratic, false, false>>();
 }
 
-// The threads of a K1/K2 block (the occupancy API's block size).
+// The threads of a persistent kernel's block (the occupancy API's block
+// size).
 int dm_persistent_block_threads() { return kThreads; }
 
 // K8's parity probe: ``out`` (4, n, n) f32 from the grid ``xs`` (n) x
@@ -1045,11 +1084,13 @@ int dm_mxu_probe(void* out, const void* xs, const void* ys, int n,
 }
 
 // K5: n tiles into ``out`` (n, height, width) uint8.  ``rows`` (n x 6
-// f32) and ``mrds`` (n int32) are HOST pointers.
+// f32) and ``mrds`` (n int32) are HOST pointers, copied into the
+// launch's parameter block.  ``work`` and ``lane_steps`` as for K1.
 int dm_escape_pack(void* out, int n, int height, int width,
                    const float* rows, const int* mrds, int julia, int clamp,
                    int interior_mode, float disk_lim, int cycle_check,
-                   int family, int power, void* stream) {
+                   int family, int power, void* work, void* lane_steps,
+                   void* stream) {
   if (n < 1 || n > kPackMax) return static_cast<int>(cudaErrorInvalidValue);
   if (height <= 0 || width <= 0) return 0;
   PackParams p = {};
@@ -1060,14 +1101,18 @@ int dm_escape_pack(void* out, int n, int height, int width,
   p.julia = julia;
   p.interior_mode = interior_mode;
   p.disk_lim = disk_lim;
+  const Runs runs = make_runs(n, height, width);
   uint8_t* o = static_cast<uint8_t*>(out);
+  auto* w = static_cast<unsigned long long*>(work);
+  auto* ls = static_cast<unsigned long long*>(lane_steps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (n) {
-    case 1: launch_pack<1>(family, o, height, width, p, clamp, cycle_check, power, s); break;
-    case 2: launch_pack<2>(family, o, height, width, p, clamp, cycle_check, power, s); break;
-    case 3: launch_pack<3>(family, o, height, width, p, clamp, cycle_check, power, s); break;
-    default: launch_pack<4>(family, o, height, width, p, clamp, cycle_check, power, s); break;
-  }
+  by_family(family, julia, [&](auto f, auto j) {
+    constexpr int F = decltype(f)::value;
+    constexpr bool J = decltype(j)::value;
+    launch_persistent<escape_pack_kernel<F, J, false>,
+                      escape_pack_kernel<F, J, true>>(
+        runs, ls, s, o, p, runs, n, clamp, cycle_check, power, w, ls);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1101,34 +1146,34 @@ int dm_escape_smooth(void* out, int height, int width, const float* row,
 }
 
 // K3: k tiles into ``out`` (k, height, width) uint8.  ``rows`` (k x 6
-// f32) and ``mrds`` (k int32) are DEVICE pointers, read by the kernel
-// on ``stream``.
-int dm_escape_batch(void* out, const void* rows, const void* mrds, int k,
-                    int height, int width, int julia, int clamp,
-                    int interior_mode, float disk_lim, int cycle_check,
-                    int family, int power, void* stream) {
+// f32), ``mrds`` (k int32) and ``divs`` (k uint64, each budget's
+// epilogue multiplier: floor((2^64 - 1) / max(mrd, 2)) + 1) are DEVICE
+// pointers, read by the kernel on ``stream``.  ``work`` and
+// ``lane_steps`` as for K1.
+int dm_escape_batch(void* out, const void* rows, const void* mrds,
+                    const void* divs, int k, int height, int width, int julia,
+                    int clamp, int interior_mode, float disk_lim,
+                    int cycle_check, int family, int power, void* work,
+                    void* lane_steps, void* stream) {
   if (k < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (k == 0 || height <= 0 || width <= 0) return 0;
+  const Runs runs = make_runs(k, height, width);
   uint8_t* o = static_cast<uint8_t*>(out);
   const float* r = static_cast<const float*>(rows);
   const int* m = static_cast<const int*>(mrds);
+  const auto* d = static_cast<const unsigned long long*>(divs);
+  auto* w = static_cast<unsigned long long*>(work);
+  auto* ls = static_cast<unsigned long long*>(lane_steps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 b(kBlockX, kBlockY);
-  return over_tiles(k, [&](int t0, int n) {
-    const dim3 g = grid_for(height, width, n);
-    if (family == dm::kShip)
-      escape_batch_kernel<dm::kShip><<<g, b, 0, s>>>(
-          o, r, m, t0, height, width, julia, clamp, interior_mode, disk_lim,
-          cycle_check, power);
-    else if (family == dm::kMultibrot)
-      escape_batch_kernel<dm::kMultibrot><<<g, b, 0, s>>>(
-          o, r, m, t0, height, width, julia, clamp, interior_mode, disk_lim,
-          cycle_check, power);
-    else
-      escape_batch_kernel<dm::kQuadratic><<<g, b, 0, s>>>(
-          o, r, m, t0, height, width, julia, clamp, interior_mode, disk_lim,
-          cycle_check, power);
+  by_family(family, julia, [&](auto f, auto j) {
+    constexpr int F = decltype(f)::value;
+    constexpr bool J = decltype(j)::value;
+    launch_persistent<escape_batch_kernel<F, J, false>,
+                      escape_batch_kernel<F, J, true>>(
+        runs, ls, s, o, r, m, d, runs, k, clamp, interior_mode, disk_lim,
+        cycle_check, power, w, ls);
   });
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K6: the six (k, height, width) state planes c_re, c_im, z_re, z_im

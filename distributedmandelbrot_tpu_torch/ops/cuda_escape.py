@@ -11,9 +11,11 @@ plain PyTorch version and a launch counter:
   :func:`compute_tile_julia_cuda` and :func:`compute_tile_family_cuda`
   return it as a flat numpy array.
 - K2, ``escape_mega`` (replaces ``_escape_mega_kernel``):
-  :func:`compute_tiles_mega_cuda`, k same-shaped tiles of one mode in one
-  launch -> (k, height, width) uint8 plus the (k, 1) int32 bf16 scout
-  census, every mode of K1, each plane equal to K1 on its tile.
+  :func:`compute_tiles_mega_cuda`, k same-shaped tiles of one mode fused
+  -> (k, height, width) uint8 plus the (k, 1) int32 bf16 scout census,
+  every mode of K1, each plane equal to K1 on its tile.  k is unbounded:
+  a batch of more than :data:`MEGA_MAX_TILES` tiles runs as several
+  launches of one plan.
 - K8 (replaces ``ops/mxu_iteration.py``'s ``mxu_step``, which rides
   inside the Pallas K1 and K2): ``use_mxu`` of K1 and K2, the
   rotation-matrix form of z^2 + c (degree 2 without the Burning Ship's
@@ -39,9 +41,11 @@ other than Mandelbrot, are counted under names of their own
 so ``escape_tile`` and ``escape_mega`` count the cached-squares form and,
 for K2, Mandelbrot only.
 
-K1 and K2 run persistent warps that refill retired lanes, stepping in
-groups of 8 (``escape_kernels.cu``): each launch takes its own run
-counter, zeroed on its stream, and its grid from the occupancy API.
+K1, K2, K3 and K5 run persistent warps that refill retired lanes,
+stepping in groups of 8 (``escape_kernels.cu``): each launch takes its
+own run counter, zeroed on its stream, and its grid from the occupancy
+API; each has an instrumented form (``lane_steps``) that counts the lane
+steps its warps issue.
 
 A wrapper given CUDA tensors' device launches its kernel (or raises); it
 takes the plain version only for the CPU, the counterpart of the
@@ -71,7 +75,8 @@ SCOUT_SEGMENTS_DEFAULT = 1
 SCOUT_MIN_ITER = 256
 
 # Fused tiles per K2 launch (their params ride the launch's parameter
-# block; see escape_kernels.cu).
+# block; see escape_kernels.cu).  A larger batch runs as launches of at
+# most this many tiles.
 MEGA_MAX_TILES = 128
 
 # Same-shaped tiles per K5 launch (the reference's PACK_MAX).
@@ -135,8 +140,8 @@ def _count_launch(name: str) -> None:
 class KernelUnsupported(ValueError):
     """The intentional declines of the kernel path (pitch below f32
     resolution, a budget needing int64 scaling, tiles of different
-    shapes in one fused or packed batch, too many tiles for one launch,
-    the MXU form): the cue for callers to fall back.  A ValueError
+    shapes in one fused or packed batch, more than PACK_MAX tiles in a
+    pack, the MXU form): the cue for callers to fall back.  A ValueError
     subclass, but fall-back sites catch THIS type, so a real bug still
     propagates."""
 
@@ -271,9 +276,6 @@ def mega_dispatch_plan(specs, max_iters, *, clamp: bool = False,
     for spec in specs:
         if (spec.height, spec.width) != (h, w):
             raise KernelUnsupported("fused tiles must share height/width")
-    if k > MEGA_MAX_TILES:
-        raise KernelUnsupported(
-            f"{k} tiles exceed one fused launch ({MEGA_MAX_TILES})")
     cap_req = max(int(m) for m in max_iters)
     _guard_budget(cap_req)
     rows = np.asarray([_params_row(spec, julia_cs[t] if julia else None)
@@ -545,17 +547,24 @@ def _lane_steps_ptr(lane_steps: torch.Tensor | None,
     return ctypes.c_void_p(lane_steps.data_ptr())
 
 
-def persistent_occupancy(*, mega: bool, power: int = 2,
+# The persistent kernels, as dm_persistent_blocks_per_sm numbers them.
+_PERSISTENT = {KERNEL_TILE: 0, KERNEL_MEGA: 1, KERNEL_BATCH: 2,
+               KERNEL_PACK: 3}
+
+
+def persistent_occupancy(kernel: str, *, power: int = 2,
                          burning: bool = False, use_mxu: bool = False,
                          julia: bool = False, device="cuda") -> dict:
-    """K1's or K2's persistent grid on ``device``: blocks and warps per
+    """A persistent kernel's grid on ``device`` (``kernel``: K1
+    ``escape_tile``, K2 ``escape_mega``, K3 ``escape_batch`` or K5
+    ``escape_pack``; ``use_mxu`` for K1 and K2 only): blocks and warps per
     SM (the occupancy API, as the launches size their grids) and the
     threads per block."""
     from distributedmandelbrot_tpu_torch.ops import _build
     lib = _build.load()
     family, _, _ = _mode_args(power, burning, julia, False)
     with torch.cuda.device(_cuda_device(device)):
-        blocks = lib.dm_persistent_blocks_per_sm(int(mega), family,
+        blocks = lib.dm_persistent_blocks_per_sm(_PERSISTENT[kernel], family,
                                                  int(use_mxu), int(julia))
     threads = lib.dm_persistent_block_threads()
     return {"blocks_per_sm": blocks, "threads_per_block": threads,
@@ -715,17 +724,29 @@ def _mega_counter(rows: np.ndarray, kw: dict) -> str:
     return KERNEL_MEGA_MULTIBROT if kw["power"] > 2 else KERNEL_MEGA
 
 
+def mega_launch_slices(k: int) -> list[tuple[int, int]]:
+    """The ``[t0, t1)`` tile ranges of a k-tile fused batch's launches, in
+    order: at most :data:`MEGA_MAX_TILES` tiles each."""
+    return [(t0, min(k, t0 + MEGA_MAX_TILES))
+            for t0 in range(0, k, MEGA_MAX_TILES)]
+
+
 def launch_mega(rows: np.ndarray, mrds: np.ndarray, kw: dict, device, *,
                 lane_steps: torch.Tensor | None = None):
     """K2 on a resolved plan: ``rows`` (k, 4|6) f32 and ``mrds`` (k, 1)
     int32 C-contiguous numpy arrays and the plan's launch keywords ->
     ``(tiles, census)`` on ``device``, enqueued on its current stream
     (the plain version on the CPU).  The mesh route launches each shard
-    of one plan through here."""
+    of one plan through here.
+
+    A plan of more than :data:`MEGA_MAX_TILES` tiles (one launch's
+    parameter block) runs as launches of at most that many
+    (:func:`mega_launch_slices`), in order on the same stream, each with
+    its own run counter and each writing its slice of the one output and
+    census by pointer offset.  Every launch decision (probe, census
+    window, matrix form) is the one plan's, so the pixels and the census
+    equal one launch of the whole batch; each launch is counted."""
     k = rows.shape[0]
-    if k > MEGA_MAX_TILES:
-        raise KernelUnsupported(
-            f"{k} tiles exceed one fused launch ({MEGA_MAX_TILES})")
     dev = _cuda_device(device)
     if dev.type != "cuda":
         return escape_mega_plain(rows, mrds, device=dev, **kw)
@@ -735,24 +756,26 @@ def launch_mega(rows: np.ndarray, mrds: np.ndarray, kw: dict, device, *,
     julia = rows.shape[1] == 6
     family, interior_mode, disk_lim = _mode_args(
         kw["power"], kw["burning"], julia, kw["interior_check"])
-    rows6, _ = batch_rows(rows, mrds)
+    rows6, budgets = batch_rows(rows, mrds)
     with torch.cuda.device(dev):
         tiles = torch.empty((k, h, w), dtype=torch.uint8, device=dev)
         census = torch.zeros((k, 1), dtype=torch.int32, device=dev)
-        work = _work_counter(dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.dm_escape_mega(
-            ctypes.c_void_p(tiles.data_ptr()),
-            ctypes.c_void_p(census.data_ptr()),
-            ctypes.c_void_p(rows6.ctypes.data),
-            ctypes.c_void_p(mrds.ctypes.data), k, h, w, int(julia),
-            int(kw["clamp"]), interior_mode, disk_lim,
-            int(kw["cycle_check"]), int(kw["scout_steps"]), family,
-            int(kw["power"]), int(kw["use_mxu"]),
-            ctypes.c_void_p(work.data_ptr()), _lane_steps_ptr(lane_steps, dev),
-            ctypes.c_void_p(stream))
-    _check_rc(lib, rc, KERNEL_MEGA)
-    _count_launch(_mega_counter(rows, kw))
+        for t0, t1 in mega_launch_slices(k):
+            work = _work_counter(dev)
+            rc = lib.dm_escape_mega(
+                ctypes.c_void_p(tiles.data_ptr() + t0 * h * w),
+                ctypes.c_void_p(census.data_ptr()
+                                + t0 * census.element_size()),
+                ctypes.c_void_p(rows6[t0:t1].ctypes.data),
+                ctypes.c_void_p(budgets[t0:t1].ctypes.data), t1 - t0, h, w,
+                int(julia), int(kw["clamp"]), interior_mode, disk_lim,
+                int(kw["cycle_check"]), int(kw["scout_steps"]), family,
+                int(kw["power"]), int(kw["use_mxu"]),
+                ctypes.c_void_p(work.data_ptr()),
+                _lane_steps_ptr(lane_steps, dev), ctypes.c_void_p(stream))
+            _check_rc(lib, rc, KERNEL_MEGA)
+            _count_launch(_mega_counter(rows, kw))
     return tiles, census
 
 
@@ -810,12 +833,15 @@ def compute_tiles_packed_cuda(specs, max_iters, *, clamp: bool = False,
                               interior_check: bool = True,
                               cycle_check: bool | None = None,
                               power: int = 2, burning: bool = False,
-                              julia_cs=None, device="cuda") -> torch.Tensor:
+                              julia_cs=None, device="cuda",
+                              lane_steps: torch.Tensor | None = None
+                              ) -> torch.Tensor:
     """K5: up to :data:`PACK_MAX` same-shaped tiles in one launch ->
     (n, height, width) uint8 on ``device``, each plane equal to K1 on
     that tile.  One family per pack; ``julia_cs`` gives a Julia constant
     per tile (all set) or is None.  The probe policy follows the deepest
-    requested budget."""
+    requested budget.  ``lane_steps`` launches the instrumented form
+    (:func:`compute_tile_row_cuda`)."""
     n = len(specs)
     julia = julia_cs is not None
     _check_dispatch_mode(power, burning, julia)
@@ -849,13 +875,15 @@ def compute_tiles_packed_cuda(specs, max_iters, *, clamp: bool = False,
     rows6 = np.ascontiguousarray(np.stack([_row6(r) for r in rows]))
     with torch.cuda.device(dev):
         out = torch.empty((n, h, w), dtype=torch.uint8, device=dev)
+        work = _work_counter(dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.dm_escape_pack(
             ctypes.c_void_p(out.data_ptr()), n, h, w,
             ctypes.c_void_p(rows6.ctypes.data),
             ctypes.c_void_p(mrds.ctypes.data), int(julia), int(clamp),
             interior_mode, disk_lim, int(cycle), family, int(power),
-            ctypes.c_void_p(stream))
+            ctypes.c_void_p(work.data_ptr()),
+            _lane_steps_ptr(lane_steps, dev), ctypes.c_void_p(stream))
     _check_rc(lib, rc, KERNEL_PACK)
     _count_launch(KERNEL_PACK)
     return out
@@ -878,17 +906,29 @@ def device_rows(rows, mrd_rows, dev: torch.device):
     return (torch.from_numpy(rows6).to(dev), torch.from_numpy(mrds).to(dev))
 
 
+def epilogue_multipliers(mrds) -> np.ndarray:
+    """Each budget's epilogue multiplier as K3 reads it from device
+    memory: floor((2^64 - 1) / max(mrd, 2)) + 1, the kernels' ``fast_div``
+    (a budget of 1 or less never reaches the epilogue), as uint64."""
+    d = np.maximum(np.asarray(mrds, dtype=np.int64).reshape(-1),
+                   2).astype(np.uint64)
+    return np.uint64(np.iinfo(np.uint64).max) // d + np.uint64(1)
+
+
 def compute_tiles_batch_cuda(rows, mrd_rows, *, height: int, width: int,
                              clamp: bool = False, interior_check: bool = True,
                              cycle_check: bool | None = None, power: int = 2,
-                             burning: bool = False,
-                             device="cuda") -> torch.Tensor:
+                             burning: bool = False, device="cuda",
+                             lane_steps: torch.Tensor | None = None
+                             ) -> torch.Tensor:
     """K3: k same-shaped tiles from their params rows ((k, 4) f32, or
     (k, 6) with Julia constants) and budgets ((k,) or (k, 1) int32) in
     one launch -> (k, height, width) uint8 on ``device``, enqueued on
-    its current stream; each plane equals K1 on its row.  The rows and
-    budgets travel to the card as tensors, so k has no limit (a mesh
-    shard's size).  The probe policy follows the deepest budget."""
+    its current stream; each plane equals K1 on its row.  The rows,
+    budgets and epilogue multipliers travel to the card as tensors, so k
+    has no limit (a mesh shard's size).  The probe policy follows the
+    deepest budget.  ``lane_steps`` launches the instrumented form
+    (:func:`compute_tile_row_cuda`)."""
     rows = np.asarray(rows, dtype=np.float32)
     if rows.ndim != 2 or rows.shape[1] not in (4, 6):
         raise ValueError(f"rows must be (k, 4) or (k, 6), got {rows.shape}")
@@ -913,16 +953,21 @@ def compute_tiles_batch_cuda(rows, mrd_rows, *, height: int, width: int,
     lib = _build.load()
     family, interior_mode, disk_lim = _mode_args(power, burning, julia,
                                                  interior_check)
+    divs = torch.from_numpy(epilogue_multipliers(mrds).view(np.int64))
     with torch.cuda.device(dev):
         rows_d, mrds_d = device_rows(rows, mrds, dev)
+        divs_d = divs.to(dev)
         out = torch.empty((k, height, width), dtype=torch.uint8, device=dev)
+        work = _work_counter(dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.dm_escape_batch(
             ctypes.c_void_p(out.data_ptr()),
             ctypes.c_void_p(rows_d.data_ptr()),
-            ctypes.c_void_p(mrds_d.data_ptr()), k, height, width,
+            ctypes.c_void_p(mrds_d.data_ptr()),
+            ctypes.c_void_p(divs_d.data_ptr()), k, height, width,
             int(julia), int(clamp), interior_mode, disk_lim, int(cycle),
-            family, int(power), ctypes.c_void_p(stream))
+            family, int(power), ctypes.c_void_p(work.data_ptr()),
+            _lane_steps_ptr(lane_steps, dev), ctypes.c_void_p(stream))
     _check_rc(lib, rc, KERNEL_BATCH)
     _count_launch(KERNEL_BATCH)
     return out

@@ -11,8 +11,8 @@ Two shardings, one per scaling axis:
   shard for deep or small-grid batches, a chain of K1 launches
   otherwise, or the compacted pipeline (K6, K7) under
   ``DMTPU_COMPACT=1`` (:func:`kernel_batch_config`, the reference's
-  policy).  :func:`compute_tiles_mega_sharded` makes one K2 launch per
-  device.
+  policy).  :func:`compute_tiles_mega_sharded` runs K2 on each
+  device's shard (one launch per 128 tiles).
 - within-tile row sharding (:func:`compute_tile_row_sharded`): one
   tile's rows split over devices, the latency path.
 
@@ -256,8 +256,9 @@ def compute_tiles_mega_sharded(specs, max_iters, *, mesh: Mesh | None = None,
                                power: int = 2, burning: bool = False,
                                julia_cs=None, use_mxu: bool | None = None):
     """One fused K-tile batch split over ``mesh`` (default: every local
-    GPU in :func:`~.mesh.device_ring` order), one K2 launch per device
-    on its shard, each on that position's own stream.  Returns
+    GPU in :func:`~.mesh.device_ring` order), K2 on each device's
+    shard (one launch per :data:`~...ops.cuda_escape.MEGA_MAX_TILES`
+    tiles, any shard size), each on that position's own stream.  Returns
     ``(tiles, scout)`` in batch order with the padding stripped, as
     per-tile lists: ``tiles[i]`` the (h, w) uint8 plane and ``scout[i]``
     the (1,) int32 census of tile i, each on the device that computed

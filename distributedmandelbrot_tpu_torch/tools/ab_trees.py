@@ -1,5 +1,5 @@
-"""Parent against change on one card: the worker's main-path drain and
-the main path's kernels, each tree in processes of its own.
+"""Parent against change on one card: the worker's main-path drain, a
+mesh drain and the kernels, each tree in processes of its own.
 
     python3 distributedmandelbrot_tpu_torch/tools/ab_trees.py PARENT_DIR \\
         [--out FILE] [--drains N]
@@ -20,11 +20,18 @@ Each run, on ``cuda:0``, times:
   each ended by ``torch.cuda.synchronize()``; then one drain under
   ``torch.profiler`` (that tree's ``phase_main_path_profile``) for the
   card's busy share;
+- one mesh drain of that tree's ``chip_smoke.py`` (``MESH_DRAINS[0]``:
+  16 chunks of level 4 at max_iter 5000, the K3 route; ``MeshBackend``
+  on ``cuda:0``, the classic loop, batches of 4), after a warm-up drain,
+  on the host clock;
 - K2 on the chunks (10, 3, 5) and (10, 3, 4) at max_iter 1024, census
   armed; K1 on (10, 3, 5); K2 in Julia mode (c = -0.8 + 0.156i) on the
   render view (span 3) and the window a quarter span right; K2 on two
-  lighter pairs of the profile (``LIGHT``): the median of 50 launches
-  each by CUDA events.
+  lighter pairs of the profile (``LIGHT``); K3 on the level-10 batch
+  (3,5), (3,4), (2,4), (2,5) at max_iter 5000 and on the light batch
+  (4,1,1), (4,1,2), (4,2,1), (4,2,2) at 256; K5 at n = 4 on the
+  supersample windows of (10, 3, 5) at 1024: the median of 50 launches
+  each by CUDA events (20 for K3's heavy batch).
 
 It prints one JSON line per run, the card's name and power limit, and a
 last JSON line with each tree's medians over its runs and, for each
@@ -50,8 +57,14 @@ JULIA_C = complex(-0.8, 0.156)
 # spend the budget beside the proven cardioid).
 LIGHT = {"k2_sky_ms": ((10, 0, 0), (10, 0, 1), 1024),
          "k2_level4_ms": ((4, 1, 1), (4, 1, 2), 256)}
+# K3's batches: the level-10 edge at 5000 and level 4 at 256.
+K3_HEAVY = ([(10, 3, 5), (10, 3, 4), (10, 2, 4), (10, 2, 5)], 5000)
+K3_LIGHT = ([(4, 1, 1), (4, 1, 2), (4, 2, 1), (4, 2, 2)], 256)
+# The supersampled render's subpixel offsets (cli._SS_OFFSETS).
+SS4 = ((-0.25, -0.25), (0.25, -0.25), (-0.25, 0.25), (0.25, 0.25))
 TIMED = ("drain_chunks_per_s_median", "k2_ms", "k1_ms", "k2_julia_ms",
-         *LIGHT)
+         *LIGHT, "k3_ms", "k3_light_ms", "k5_ms",
+         "mesh_drain_chunks_per_s")
 
 
 def cuda_ms(torch, fn, reps: int = 50, warmup: int = 3) -> float:
@@ -98,6 +111,8 @@ def child(tree: Path, drains: int) -> dict:
     import torch
 
     import chip_smoke as cs
+    import numpy as np
+    from distributedmandelbrot_tpu_torch import parallel
     from distributedmandelbrot_tpu_torch import worker as wk
     from distributedmandelbrot_tpu_torch.core.geometry import TileSpec
     from distributedmandelbrot_tpu_torch.core.workload import Workload
@@ -153,6 +168,21 @@ def child(tree: Path, drains: int) -> dict:
         pair = [TileSpec.for_chunk(*a), TileSpec.for_chunk(*b)]
         light[key] = cuda_ms(torch, lambda: ce.compute_tiles_mega_cuda(
             pair, [mi, mi], device=dev))
+    k3 = {}
+    for key, (chunks, mi), reps in (("k3_ms", K3_HEAVY, 20),
+                                    ("k3_light_ms", K3_LIGHT, 50)):
+        rows = np.asarray([ce._params_row(TileSpec.for_chunk(*c))
+                           for c in chunks], np.float32)
+        k3[key] = cuda_ms(torch, lambda: ce.compute_tiles_batch_cuda(
+            rows, [mi] * len(chunks), height=4096, width=4096, device=dev),
+            reps=reps)
+    win = [cs.shifted(specs[0], dx, dy) for dx, dy in SS4]
+    k5_ms = cuda_ms(torch, lambda: ce.compute_tiles_packed_cuda(
+        win, [1024] * 4, device=dev))
+    _, grants, _, _ = cs.MESH_DRAINS[0]
+    mesh_work = [Workload(*g) for g in grants]
+    cs.drain_mesh(wk, parallel, mesh_work)
+    _, _, _, mesh_wall = cs.drain_mesh(wk, parallel, mesh_work)
     n = len(workloads)
     return {"build_s": build_s, "drain_walls_s": walls,
             "drain_chunks_per_s": [n / w for w in walls],
@@ -163,7 +193,9 @@ def child(tree: Path, drains: int) -> dict:
             "device_busy_share": profile["device_busy_share"],
             "device_ms_by_kind": profile["device_ms_by_kind"],
             "k2_ms": k2_ms, "k1_ms": k1_ms, "k2_julia_ms": k2_julia_ms,
-            **light}
+            **light, **k3, "k5_ms": k5_ms,
+            "mesh_drain_s": mesh_wall,
+            "mesh_drain_chunks_per_s": len(mesh_work) / mesh_wall}
 
 
 def main(argv: list[str]) -> int:

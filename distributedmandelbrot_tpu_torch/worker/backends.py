@@ -200,7 +200,7 @@ class CudaBackend:
     raises.  The device ring (:meth:`devices`) is ``mesh``'s devices
     when given, every local GPU for the default ``device="cuda"``, else
     ``device`` alone; with more than one device a fused batch splits
-    over the ring, one K2 launch per device (the mesh route;
+    over the ring, K2 on each device's shard (the mesh route;
     ``DMTPU_MESH=0`` opts out, and a batch the route declines takes the
     one-device fused launch, counted as ``mesh_to_fused``).  The
     ``DMTPU_MXU`` gate (:mod:`~distributedmandelbrot_tpu_torch.ops.mxu_iteration`)
@@ -356,14 +356,17 @@ class CudaBackend:
 
     def dispatch_many(self, workloads: Sequence[Workload],
                       device=None) -> list:
-        """Fuse a same-shaped batch into ONE K2 launch on ``device``;
-        returns per-tile :class:`MegaTileHandle` slices in workload
-        order.  With a ring of several devices and ``device=None`` (the
-        caller did not pin the launch), the batch splits over the ring
-        instead, one K2 launch per device (:meth:`mesh_width`).  A
-        singleton batch, ``DMTPU_MEGA=0``, or a batch the fused kernel
-        declines goes through :meth:`dispatch_tile` per tile (one
-        declined tile demotes the whole batch, as in the reference).
+        """Fuse a same-shaped batch into K2 on ``device`` (one launch
+        per :data:`~...ops.cuda_escape.MEGA_MAX_TILES` tiles, of any
+        batch size); returns per-tile :class:`MegaTileHandle` slices in
+        workload order.  With a ring of several devices and
+        ``device=None`` (the caller did not pin the launch), the batch
+        splits over the ring instead, K2 on each device's shard
+        (:meth:`mesh_width`).  A singleton batch, ``DMTPU_MEGA=0``, or a
+        batch the fused kernel declines goes through :meth:`dispatch_tile`
+        per tile (one declined tile demotes the whole batch, as in the
+        reference), on ``device``: the backend's own when None, as the
+        reference's fallback runs on its default device.
         The MXU gate resolves once per batch, for every device the
         batch may run on (the ring's, or ``device``)."""
         from distributedmandelbrot_tpu_torch.ops.mxu_iteration import (
@@ -404,7 +407,7 @@ class CudaBackend:
 
     def _dispatch_mesh(self, workloads: Sequence[Workload], specs: list, *,
                        use_mxu: bool = False) -> Optional[list]:
-        """The mesh route: one K2 launch per ring device on its shard;
+        """The mesh route: K2 on each ring device's shard;
         None (counted as ``mesh_to_fused``) when the route declines."""
         from distributedmandelbrot_tpu_torch.parallel.sharding import (
             compute_tiles_mega_sharded)

@@ -443,9 +443,9 @@ STRESS_MODES = {"mandelbrot": {}, "julia": {"julia_c": JULIA_C},
                 "mxu_julia": {"use_mxu": True, "julia_c": JULIA_C}}
 
 
-def stress_batch(seed=5, k=128, side=64):
+def stress_batch(seed=5, k=128, side=64, top=2000):
     """k views of side^2 on boundary windows of every scale, and their
-    budgets from 1-2000, 1 through 9 among them (numpy, seeded)."""
+    budgets from 1-``top``, 1 through 9 among them (numpy, seeded)."""
     rng = np.random.default_rng(seed)
     anchors = np.array([(-0.745, 0.11), (-0.2, 0.7), (-1.25, 0.0),
                         (0.28, 0.01), (-0.5, -0.5), (0.0, 0.0),
@@ -456,7 +456,7 @@ def stress_batch(seed=5, k=128, side=64):
         span = float(10 ** rng.uniform(-3, 0.5))
         specs.append(TileSpec(cx - span / 2, cy - span / 2, span, span,
                               width=side, height=side))
-    mis = [int(m) for m in rng.integers(1, 2001, k)]
+    mis = [int(m) for m in rng.integers(1, top + 1, k)]
     mis[:9] = list(range(1, 10))
     return specs, mis
 
@@ -567,3 +567,182 @@ def test_the_instrumented_form_counts_lane_steps(cuda):
                                           device=cuda, lane_steps=mega)
     assert torch.equal(tiles[0], want) and torch.equal(tiles[1], want)
     assert int(mega.item()) >= 2 * int(need.sum())
+
+
+# --- K3 and K5 on the persistent loop; fused batches over 128 tiles -----
+
+K3_MODES = {"mandelbrot": {}, "julia": {"julia_c": JULIA_C},
+            "multibrot3": {"power": 3}, "ship": {"burning": True}}
+
+
+def _batch_rows(specs, kw):
+    return np.asarray([ce._params_row(s, kw.get("julia_c")) for s in specs],
+                      np.float32)
+
+
+def _k3_vs_plain_and_k1(specs, mis, kw, dev, per_tile=True):
+    rows = _batch_rows(specs, kw)
+    h, w = specs[0].height, specs[0].width
+    got = ce.compute_tiles_batch_cuda(rows, mis, height=h, width=w,
+                                      device=dev, **_mode_args(kw))
+    cyc = ce.escape_time.resolve_cycle_check(None, max(mis))
+    want = ce.escape_batch_plain(rows, mis, height=h, width=w,
+                                 cycle_check=cyc, device=dev,
+                                 **_mode_args(kw))
+    assert torch.equal(got, want)
+    if per_tile:
+        for t, (row, mi) in enumerate(zip(rows, mis)):
+            one = ce.compute_tile_row_cuda(row, mi, h, w, cycle_check=cyc,
+                                           device=dev, **_mode_args(kw))
+            assert torch.equal(got[t], one), (t, mi)
+    return got
+
+
+@pytest.mark.parametrize("mode", sorted(K3_MODES))
+def test_k3_refill_stress_300_tiles(cuda, mode):
+    """K3 at k = 300 tiles of 64^2 (past one K2 launch's 128) with budgets
+    1-5000 (1-9 included): against its plain version and each tile
+    against K1."""
+    specs, mis = stress_batch(k=300, top=5000)
+    _k3_vs_plain_and_k1(specs, mis, K3_MODES[mode], cuda)
+
+
+def test_k3_past_the_old_grid_z_slice(cuda):
+    """K3 at k = 65,537 tiles of 4x32, past the 65,535 tiles of a grid's
+    z extent the old kernel sliced at: tile t repeats distinct tile t % 7
+    (budgets 1-5000), so the plain version of the 7 gives every plane."""
+    base = [TileSpec(-0.75 + 0.01 * i, 0.1 - 0.003 * i, 0.02 * (i + 1),
+                     0.01, width=32, height=4) for i in range(7)]
+    base_mis = [1, 2, 9, 17, 300, 1500, 5000]
+    k = 65_537
+    rows = _batch_rows(base, {})
+    idx = np.arange(k) % 7
+    mis = [base_mis[i] for i in idx]
+    got = ce.compute_tiles_batch_cuda(rows[idx], mis, height=4, width=32,
+                                      device=cuda)
+    cyc = ce.escape_time.resolve_cycle_check(None, 5000)
+    want = ce.escape_batch_plain(rows, base_mis, height=4, width=32,
+                                 cycle_check=cyc, device=cuda)
+    assert torch.equal(got, want[torch.from_numpy(idx).to(cuda)])
+
+
+def test_two_k3_launches_at_once_on_two_streams(cuda):
+    specs, mis = stress_batch(seed=11, k=64, top=5000)
+    halves = [(specs[:32], mis[:32]), (specs[32:], mis[32:])]
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    torch.cuda.synchronize()
+    got = []
+    for (sp, mi), st in zip(halves, streams):
+        with torch.cuda.stream(st):
+            got.append(ce.compute_tiles_batch_cuda(
+                _batch_rows(sp, {}), mi, height=64, width=64, device=cuda))
+    torch.cuda.synchronize()
+    for (sp, mi), out in zip(halves, got):
+        want = ce.escape_batch_plain(
+            _batch_rows(sp, {}), mi, height=64, width=64, device=cuda,
+            cycle_check=ce.escape_time.resolve_cycle_check(None, max(mi)))
+        assert torch.equal(out, want)
+
+
+PACK_BUDGETS = [*range(1, 10), 17, 1500]
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_k5_small_and_ragged_tiles_every_budget(cuda, mode, n):
+    """K5 at n states on 7x3 and 64^2 tiles, the budgets 1-9, 17 and 1500
+    each in every position of a pack: against its plain version and
+    each plane against K1."""
+    kw = dict(MODES[mode])
+    jc = kw.pop("julia_c", None)
+    for w, h in ((7, 3), (64, 64)):
+        base = TileSpec(-0.8, 0.1, 0.2, 0.1, width=w, height=h)
+        specs = [TileSpec(base.start_real + 0.25 * dx * base.range_real / w,
+                          base.start_imag + 0.25 * dy * base.range_imag / h,
+                          base.range_real, base.range_imag, width=w,
+                          height=h)
+                 for dx, dy in ((-1, -1), (1, -1), (-1, 1), (1, 1))[:n]]
+        for i in range(len(PACK_BUDGETS)):
+            mis = [PACK_BUDGETS[(i + j) % len(PACK_BUDGETS)]
+                   for j in range(n)]
+            got = ce.compute_tiles_packed_cuda(
+                specs, mis, julia_cs=[jc] * n if jc is not None else None,
+                device=cuda, **kw)
+            rows = np.asarray([ce._params_row(s, jc) for s in specs],
+                              np.float32)
+            cyc = ce.escape_time.resolve_cycle_check(None, max(mis))
+            want = ce.escape_pack_plain(rows, mis, height=h, width=w,
+                                        cycle_check=cyc, device=cuda,
+                                        **_mode_args(kw))
+            assert torch.equal(got, want), (w, mis)
+            for t, (spec, mi) in enumerate(zip(specs, mis)):
+                one = ce.compute_tile_cuda_device(
+                    spec, mi, julia_c=jc, cycle_check=cyc, device=cuda, **kw)
+                assert torch.equal(got[t], one), (w, mis, t)
+
+
+def test_k3_and_k5_instrumented_forms(cuda):
+    """K3's and K5's instrumented forms: the same bytes, and at least the
+    lane steps the pixels need, in whole groups of 8 steps x 32 lanes."""
+    specs = [TileSpec.for_chunk(4, 1, 2, definition=256),
+             TileSpec.for_chunk(4, 1, 1, definition=256)]
+    rows = _batch_rows(specs, {})
+    want, need = ce.escape_batch_plain(rows, [1024, 1024], height=256,
+                                       width=256, cycle_check=True,
+                                       device=cuda, return_steps=True)
+    for launch in (
+            lambda c: ce.compute_tiles_batch_cuda(
+                rows, [1024, 1024], height=256, width=256, device=cuda,
+                lane_steps=c),
+            lambda c: ce.compute_tiles_packed_cuda(
+                specs, [1024, 1024], device=cuda, lane_steps=c)):
+        steps = torch.zeros((1,), dtype=torch.int64, device=cuda)
+        assert torch.equal(launch(steps), want)
+        issued = int(steps.item())
+        assert issued >= int(need.sum()) and issued % 256 == 0
+
+
+@pytest.mark.parametrize("ring", [False, True])
+def test_a_129_tile_fused_batch_splits_without_demotion(cuda, ring):
+    """129 tiles through CudaBackend.dispatch_many, on cuda:0 (two K2
+    launches: 128 + 1) and on the ring [cuda:0, cuda:0] (one launch per
+    shard of 65): no demotion, each tile equal to K1; 300 tiles through
+    compute_tiles_mega_sharded on the ring: shards of 150, each split in
+    two."""
+    from distributedmandelbrot_tpu_torch.parallel import sharding as sh
+    from distributedmandelbrot_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh([cuda, cuda]) if ring else None
+    rng = np.random.default_rng(29)
+    ws = [Workload(12, int(m), i % 12, i // 12)
+          for i, m in enumerate(rng.integers(1, 301, 129))]
+    cyc = ce.escape_time.resolve_cycle_check(
+        None, max(w.max_iter for w in ws))
+    backend = bk.CudaBackend(definition=64, device=cuda, mesh=mesh)
+    torch.cuda.synchronize()
+    ce.reset_launch_counts()
+    handles = backend.dispatch_many(ws)
+    torch.cuda.synchronize()
+    assert ce.launch_counts()[ce.KERNEL_MEGA] == 2
+    assert all(isinstance(h, bk.MegaTileHandle) for h in handles)
+    for route in (obs_names.ROUTE_MESH_TO_FUSED,
+                  obs_names.ROUTE_FUSED_TO_PER_TILE):
+        assert backend.demotions(route) == 0
+    for w, h in zip(ws, handles):
+        spec = TileSpec.for_chunk(w.level, w.index_real, w.index_imag,
+                                  definition=64)
+        one = ce.compute_tile_cuda_device(spec, w.max_iter, device=cuda,
+                                          cycle_check=cyc)
+        assert np.array_equal(backend.materialize_tile(h),
+                              one.cpu().numpy().ravel()), w
+    if ring:
+        specs, mis = stress_batch(seed=13, k=300, side=16, top=300)
+        ce.reset_launch_counts()
+        tiles, scout = sh.compute_tiles_mega_sharded(specs, mis, mesh=mesh)
+        torch.cuda.synchronize()
+        assert ce.launch_counts()[ce.KERNEL_MEGA] == 4
+        ftiles, fscout = ce.compute_tiles_mega_cuda(specs, mis, device=cuda)
+        assert torch.equal(torch.stack(tiles), ftiles)
+        assert torch.equal(torch.stack(scout), fscout)
+        rows, mrds, kw = ce.mega_dispatch_plan(specs, mis)
+        ptiles, pcensus = ce.escape_mega_plain(rows, mrds, device=cuda, **kw)
+        assert torch.equal(ftiles, ptiles) and torch.equal(fscout, pcensus)

@@ -100,10 +100,20 @@ def test_k2_plain_against_interpret_mode(cycle_check):
     assert diff.max() <= 0.005 * TILE * TILE, (census, ref_census)
 
 
+def _big_batch(k=128, seed=7):
+    """k (view, budget) pairs from a numpy seed: every view, budgets
+    1-2000."""
+    rng = np.random.default_rng(seed)
+    views = sorted(VIEWS)
+    return [(views[int(v)], int(m)) for v, m in
+            zip(rng.integers(0, len(views), k), rng.integers(1, 2001, k))]
+
+
 @pytest.mark.parametrize("specs", [
     [("seahorse", 300), ("bulb", 150), ("sky", 80), ("valley", 260)],
     [("full", 2000), ("valley", 1024)],
     [("sky", 1)],
+    _big_batch(),  # with the tile the test appends: 129, over one launch
 ])
 def test_plan_rows_equal_the_reference(specs):
     """Params rows (k, 4) f32 and budget rows (k, 1) int32: the state the
@@ -156,14 +166,63 @@ def test_guards_decline_as_the_reference_does():
     with pytest.raises(ce.KernelUnsupported, match="[Mm][Xx][Uu]"):
         ce.compute_tile_cuda_device(_spec("sky"), 100, use_mxu=True,
                                     burning=True, device="cpu")
-    with pytest.raises(ce.KernelUnsupported, match="fused launch"):
-        ce.mega_dispatch_plan([_spec("sky")] * (ce.MEGA_MAX_TILES + 1),
-                              [100] * (ce.MEGA_MAX_TILES + 1))
+    # No batch size is declined, as in the reference: past one launch's
+    # MEGA_MAX_TILES the batch runs as several launches of one plan.
+    over = ce.MEGA_MAX_TILES + 1
+    rows, _, _ = ce.mega_dispatch_plan([_spec("sky")] * over, [100] * over)
+    ref_rows, _, _ = pe.mega_dispatch_plan([_spec("sky", RefSpec)] * over,
+                                           [100] * over, block_h=32)
+    assert rows.shape == (over, 4) and len(ref_rows) == over
     with pytest.raises(ValueError, match=r"\(2, 4\)"):
         ce.compute_tiles_mega_cuda([_spec("sky")] * 2, [10, 10],
                                    rows=np.zeros((1, 4), np.float32),
                                    device="cpu")
     assert issubclass(ce.KernelUnsupported, ValueError)
+
+
+def _small_batch(k, seed=3, height=16, width=32):
+    """k small tiles on windows of every scale around the set's boundary,
+    with budgets 1-300 (1 and 2 among them), from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    anchors = np.array([(-0.745, 0.11), (-0.2, 0.7), (-1.25, 0.0),
+                        (0.28, 0.01), (-0.5, -0.5), (1.5, 1.5)])
+    specs = []
+    for t in range(k):
+        cx, cy = anchors[t % len(anchors)] + rng.normal(0, 0.02, 2)
+        span = float(10 ** rng.uniform(-2, 0.5))
+        specs.append(TileSpec(cx - span / 2, cy - span / 2, span, span,
+                              width=width, height=height))
+    mis = [int(m) for m in rng.integers(1, 301, k)]
+    mis[:2] = [1, 2]
+    return specs, mis
+
+
+def test_a_batch_over_one_launch_fuses():
+    """129 tiles of 16x32, one more than a launch takes: the plan accepts
+    them, and the fused route equals K1's plain version per tile, each
+    tile's census that of the tile alone under the batch's plan."""
+    specs, mis = _small_batch(ce.MEGA_MAX_TILES + 1)
+    rows, mrds, kw = ce.mega_dispatch_plan(specs, mis)
+    assert rows.shape == (129, 4) and mrds.shape == (129, 1)
+    assert kw["scout_steps"] > 0, "the deepest budget arms the census"
+    tiles, census = ce.compute_tiles_mega_cuda(specs, mis, device="cpu")
+    assert tiles.shape == (129, 16, 32) and census.shape == (129, 1)
+    for t, (row, mi) in enumerate(zip(rows, mis)):
+        one = ce.escape_tile_plain(row, mi, 16, 32,
+                                   cycle_check=kw["cycle_check"])
+        assert torch.equal(tiles[t], one), (t, mi)
+        _, alone = ce.escape_mega_plain(rows[t:t + 1], mrds[t:t + 1], **kw)
+        assert int(census[t, 0]) == int(alone[0, 0]), (t, mi)
+    assert census.any()
+
+
+@pytest.mark.parametrize("k", [1, 127, 128, 129, 256, 300])
+def test_mega_launch_slices_cover_the_batch_in_order(k):
+    slices = ce.mega_launch_slices(k)
+    assert slices[0][0] == 0 and slices[-1][1] == k
+    assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+    assert all(0 < t1 - t0 <= ce.MEGA_MAX_TILES for t0, t1 in slices)
+    assert len(slices) == -(-k // ce.MEGA_MAX_TILES)
 
 
 @pytest.mark.parametrize("cycle_check", [None, True, False])

@@ -12,7 +12,10 @@ its plain PyTorch version, against the JAX package on the CPU:
   ``pallas_batch_config``/``prefer_batch_grid``;
 - ``MeshBackend(kernel="cuda")`` on a CPU ring against the JAX
   ``MeshBackend(kernel="xla")``, with the f64 recompute of an
-  unresolvable pitch.
+  unresolvable pitch;
+- a fused batch past one launch's 128 tiles split over a CPU ring, K3's
+  epilogue multipliers, and ``CudaBackend``'s fallback placed as the
+  reference's ``PallasBackend`` places it.
 
 The kernels themselves are held bitwise against their plain versions on
 the card (test_torch_gpu.py, chip_smoke.py)."""
@@ -31,7 +34,8 @@ from distributedmandelbrot_tpu.parallel import MeshBackend as RefMeshBackend
 from distributedmandelbrot_tpu.parallel import mesh as ref_mesh
 from distributedmandelbrot_tpu.parallel import sharding as ref_sh
 from distributedmandelbrot_tpu.worker import backends as ref_backends
-from distributedmandelbrot_tpu_torch.core.geometry import TileSpec
+from distributedmandelbrot_tpu_torch.core.geometry import (TileSpec,
+                                                           spec_f32_resolvable)
 from distributedmandelbrot_tpu_torch.core.workload import Workload
 from distributedmandelbrot_tpu_torch.obs import names as obs_names
 from distributedmandelbrot_tpu_torch.ops import cuda_escape as ce
@@ -164,6 +168,81 @@ def test_split_over_a_ring_equals_one_device(n_dev):
     assert len(tiles) == len(scout) == 5
     assert torch.equal(torch.stack(tiles), ftiles)
     assert torch.equal(torch.stack(scout), fscout)
+
+
+def test_a_129_tile_batch_splits_over_a_ring():
+    """129 small tiles (one more than a launch takes) on a two-entry
+    ring: two shards of 65 (one trivial padding tile), pixels and census
+    equal to the one-device fused route, bitwise."""
+    rng = np.random.default_rng(17)
+    specs = []
+    for _ in range(129):
+        cx, cy = rng.uniform(-2.0, 0.5), rng.uniform(-1.2, 1.2)
+        span = float(10 ** rng.uniform(-2, 0))
+        specs.append(TileSpec(cx, cy, span, span, width=32, height=8))
+    mis = [int(m) for m in rng.integers(1, 301, 129)]
+    tiles, scout = sh.compute_tiles_mega_sharded(specs, mis, mesh=_ring(2))
+    ftiles, fscout = ce.compute_tiles_mega_cuda(specs, mis, device="cpu")
+    assert len(tiles) == len(scout) == 129
+    assert torch.equal(torch.stack(tiles), ftiles)
+    assert torch.equal(torch.stack(scout), fscout)
+    assert fscout.any()
+
+
+def test_k3_epilogue_multipliers_divide_exactly():
+    """K3 reads each budget's epilogue multiplier from device memory: a
+    high multiply by it equals the int32 ceil-division of the plain
+    version's epilogue for every dividend a count gives, at edge budgets
+    and budgets from a numpy seed."""
+    rng = np.random.default_rng(23)
+    budgets = [-3, 0, 1, 2, 3, 255, 256, 257, 1000, 4096, 5000,
+               ce.escape_time.INT32_SCALE_LIMIT]
+    budgets += [int(b) for b in rng.integers(2, 10**6, 40)]
+    mult = ce.epilogue_multipliers(np.asarray(budgets, np.int32))
+    assert mult.dtype == np.uint64 and mult.shape == (len(budgets),)
+    for mrd, m in zip(budgets, mult.tolist()):
+        d = max(mrd, 2)
+        assert m == (2**64 - 1) // d + 1
+        if mrd <= 1:
+            continue
+        counts = {0, 1, 2, mrd - 2, mrd - 1, *rng.integers(0, mrd, 20)}
+        for count in counts:
+            x = int(count) * 256 + mrd - 1
+            assert (x * m) >> 64 == x // mrd, (mrd, count)
+
+
+def test_cuda_backend_fallback_stays_where_the_reference_puts_it(
+        monkeypatch):
+    """A ring batch holding an f32-unresolvable pitch: the mesh route and
+    the fused route decline (one demotion each), and every tile goes to
+    ``dispatch_tile`` with the device the caller gave (None: the
+    backend's own), as the reference's ``PallasBackend.dispatch_many``
+    hands its fallback ``device``; the pixels equal the per-tile
+    route's."""
+    deep = Workload(200000, 40, 0, 0)  # pitch below f32 at |c| ~ 2
+    assert not spec_f32_resolvable(TileSpec.for_chunk(
+        deep.level, 0, 0, definition=DEF))
+    ws = [Workload(4, 40, 3, 3), deep, Workload(4, 300, 1, 1)]
+    ring = CudaBackend(definition=DEF, device="cpu", mesh=_ring(2))
+    calls = []
+    per_tile = ring.dispatch_tile
+
+    def spy(w, device=None):
+        calls.append((w.key, device))
+        return per_tile(w, device)
+
+    monkeypatch.setattr(ring, "dispatch_tile", spy)
+    got = [ring.materialize_tile(h) for h in ring.dispatch_many(ws)]
+    assert calls == [(w.key, None) for w in ws]
+    assert ring.demotions(obs_names.ROUTE_MESH_TO_FUSED) == 1
+    assert ring.demotions(obs_names.ROUTE_FUSED_TO_PER_TILE) == 1
+    assert ring.demotions(obs_names.ROUTE_PER_TILE_TO_TORCH) == 1
+    want = [per_tile(w) for w in ws]
+    assert all(np.array_equal(a, ring.materialize_tile(b))
+               for a, b in zip(got, want))
+    calls.clear()
+    ring.dispatch_many(ws, device="cpu")
+    assert calls == [(w.key, "cpu") for w in ws]
 
 
 def test_padding_rows_equal_the_reference():
