@@ -32,7 +32,13 @@ JSON line; any failure raises and the script exits non-zero.
    in every mode (per tile against K1), the batch's halves as two K3
    launches at once on two streams, and K3 at k = 65,537 tiles of 4x32;
    K5 at n = 1-4 in every mode on 7x3 and 64^2 windows at budgets 1-9,
-   17 and 1500 (per plane against K1).  Fused batches past one K2
+   17 and 1500 (per plane against K1).  K4 on the same loop in every
+   mode on 7x3 and 64^2 windows (one holding c = -2, an orbit that stops
+   at the step limit) at budgets 1-9, 17 and 1500, the probe by policy
+   and armed, two launches at once on two streams; K6 (one thread a
+   pixel) at k = 300 tiles of 64^2 with budgets 1-1000 in every mode at
+   phases 256 and 61, and at k = 65,537 tiles of 4x32 (two launches of
+   its grid's tile slices).  Fused batches past one K2
    launch's 128 tiles: 129 level-12 chunks at 64^2 through
    ``CudaBackend.dispatch_many`` on cuda:0 and on the ring ``[cuda:0,
    cuda:0]`` (two K2 launches, no demotion, per tile against K1), and
@@ -89,10 +95,11 @@ JSON line; any failure raises and the script exits non-zero.
    beside K2 in the same run, with the static f32 instructions of each
    persistent kernel's instantiation (``cuobjdump -sass``), and K2 in
    each mode.  For K1, K2 and their modes, K3 (also on a light batch of
-   four level-4 chunks at 256) and K5 also the lane steps the warps issue
-   (measured by the instrumented form, beside the modelled
-   ``f32_warp_steps`` of a one-pixel-a-thread loop), registers, occupancy
-   and the SASS of the inner step group.
+   four level-4 chunks at 256), K4 (also on chunk (4,1,1) at 256), K5
+   and K6 (also on the light batch at 700) also the lane steps the warps
+   issue (measured by the instrumented form, beside the modelled
+   ``f32_warp_steps`` of a one-pixel-a-thread loop), registers,
+   occupancy and the SASS of the inner step group.
 
 The second-to-last line is ``nvidia-smi``'s name and power limit, the
 last ``{"ok": true, "device": {...}}``.
@@ -351,7 +358,8 @@ def sass_functions(listing: str) -> dict:
             name = kernel_name(m.group(1))
             cur = (per.setdefault(name, [[]])
                    if name.startswith(("escape_tile", "escape_mega",
-                                       "escape_batch", "escape_pack"))
+                                       "escape_batch", "escape_pack",
+                                       "escape_smooth"))
                    else None)
             continue
         if cur is None:
@@ -691,6 +699,74 @@ def check_refill_stress(ce, TileSpec, check) -> None:
         check("escape_mega", census, pcensus,
               "the plain census (two streams at once)")
     check_k3_k5_stress(ce, TileSpec, check)
+    check_k4_k6_stress(ce, TileSpec, check)
+
+
+# K4's stress budgets; K6's 300 tiles' top budget and phases.
+SMOOTH_BUDGETS = (*range(1, 10), 17, 1500)
+STATE_TOP = 1000
+STATE_PHASES = (256, 61)
+
+
+def check_k4_k6_stress(ce, TileSpec, check) -> None:
+    """K4 on the persistent loop and K6, bitwise: K4 in every mode on
+    7x3 and 64^2 windows (one whose pixel (0, 0) is c = -2, which stops at
+    the step limit) at budgets 1-9, 17 and 1500, with the probe by the
+    budget's policy and armed, the two launches in flight at once on two
+    streams; K6 at k = 300 tiles of 64^2 with budgets 1-1000 in every mode
+    at phases 256 and 61, and at k = 65,537 tiles of 4x32 (past one
+    launch's 65,535 grid slices), tile t repeating distinct tile t % 7."""
+    from distributedmandelbrot_tpu_torch.ops import compact_escape as cx
+    dev = torch.device("cuda", 0)
+    windows = [TileSpec(-0.8, 0.1, 0.2, 0.1, width=7, height=3),
+               TileSpec(-0.8, 0.1, 0.2, 0.1, width=64, height=64),
+               TileSpec(-2.0, 0.0, 0.5, 0.5, width=64, height=64)]
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    for mode, kw in MODES.items():
+        for spec in windows:
+            for mi in SMOOTH_BUDGETS:
+                cycles = (ce.escape_time.resolve_cycle_check(None, mi), True)
+                torch.cuda.synchronize()
+                got = []
+                for st, cyc in zip(streams, cycles):
+                    with torch.cuda.stream(st):
+                        got.append(ce.compute_tile_smooth_cuda(
+                            spec, mi, cycle_check=cyc, device=dev, **kw))
+                torch.cuda.synchronize()
+                for g, cyc in zip(got, cycles):
+                    want = ce.escape_smooth_plain(
+                        ce._params_row(spec, kw.get("julia_c")), mi,
+                        spec.height, spec.width, cycle_check=cyc,
+                        device=dev, **mode_args(kw))
+                    check("escape_smooth", g, want,
+                          f"plain ({mode}, {spec.width}x{spec.height}, mi "
+                          f"{mi}, probe {cyc}, two streams)")
+    specs, mis = stress_batch(TileSpec, k=300, top=STATE_TOP)
+    for mode, kw in MODES.items():
+        rows = np.asarray([ce._params_row(sp, kw.get("julia_c"))
+                           for sp in specs], np.float32)
+        for phase in STATE_PHASES:
+            got = cx.escape_state_cuda(rows, mis, height=64, width=64,
+                                       phase_budget=phase, device=dev,
+                                       **mode_args(kw))
+            want = cx.escape_state_plain(rows, mis, height=64, width=64,
+                                         phase_budget=phase, device=dev,
+                                         **mode_args(kw))
+            for g, w in zip(got, want):
+                check("escape_state", g, w,
+                      f"plain (300 tiles, {mode}, phase {phase})")
+    base = [TileSpec(-0.75 + 0.01 * i, 0.1 - 0.003 * i, 0.02 * (i + 1),
+                     0.01, width=32, height=4) for i in range(7)]
+    base_mis = [1, 2, 9, 17, 257, 300, 1000]
+    rows = np.asarray([ce._params_row(sp) for sp in base], np.float32)
+    idx = np.arange(65_537) % 7
+    got = cx.escape_state_cuda(rows[idx], [base_mis[i] for i in idx],
+                               height=4, width=32, device=dev)
+    want = cx.escape_state_plain(rows, base_mis, height=4, width=32,
+                                 device=dev)
+    pick = torch.from_numpy(idx).to(dev)
+    for g, w in zip(got, want):
+        check("escape_state", g, w[pick], "plain (65,537 tiles of 4x32)")
 
 
 # K5's stress budgets, each in every position of a pack.
@@ -1582,9 +1658,10 @@ def warp_steps(steps) -> int:
 
 
 def issued_lane_steps(launch) -> int:
-    """Lane steps a persistent kernel's instrumented form issues:
-    ``launch`` gets a zeroed (1,) int64 counter on the card, to which each
-    warp adds 8 x 32 per group it runs (the counting form is launched
+    """Lane steps a kernel's instrumented form issues: ``launch`` gets a
+    zeroed (1,) int64 counter on the card, to which each warp of a
+    persistent kernel adds 8 x 32 per group it runs, and each warp of K6
+    32 per step of its slowest lane (the counting form is launched
     only here)."""
     counter = torch.zeros((1,), dtype=torch.int64, device="cuda")
     launch(counter)
@@ -1593,9 +1670,9 @@ def issued_lane_steps(launch) -> int:
 
 
 # The persistent kernels' instantiations by form: escape_tile_kernel<F,
-# MXU, COUNT>, escape_mega_kernel<F, MXU, JULIA, COUNT>,
-# escape_batch_kernel<F, JULIA, COUNT>, escape_pack_kernel<F, JULIA,
-# COUNT> (the uncounted form).
+# MXU, COUNT>, escape_mega_kernel<F, MXU, JULIA, COUNT>, and
+# escape_batch_kernel, escape_pack_kernel and escape_smooth_kernel<F,
+# JULIA, COUNT> (the uncounted form).
 PERSISTENT_FORMS = {
     "escape_tile": ("escape_tile_kernel<0,0,0>", {}),
     "escape_tile_julia": ("escape_tile_kernel<0,0,0>", {"julia": True}),
@@ -1608,12 +1685,17 @@ PERSISTENT_FORMS = {
     "escape_mega_mxu": ("escape_mega_kernel<0,1,0,0>", {"use_mxu": True}),
     "escape_batch": ("escape_batch_kernel<0,0,0>", {}),
     "escape_pack": ("escape_pack_kernel<0,0,0>", {}),
+    "escape_smooth": ("escape_smooth_kernel<0,0,0>", {}),
 }
+
+
+# K6's uncounted form, escape_state_kernel<F, COUNT>: one thread a pixel.
+K6_FORM = "escape_state_kernel<0,0>"
 
 
 def persistent_fields(ce, ptxas: dict, groups, form: str, issued: int,
                       needed: int) -> dict:
-    """The persistent loop's own numbers for a K1, K2, K3 or K5 row: lane
+    """The persistent loop's own numbers for a kernel's row: lane
     steps issued (measured by the instrumented form) over the steps the
     pixels need, registers and spills, occupancy, and the inner step
     group's SASS."""
@@ -1723,8 +1805,67 @@ def compact_warp_steps(steps, phase: int, seg: int, cap: int):
 
 
 # K3's light batch: four level-4 chunks at budget 256 (the probe off),
-# where the persistent loop has little divergence to remove.
+# where the persistent loop has little divergence to remove; K6 takes it
+# at 700, inside the compacted route's band of budgets (513-1023).
 K3_LIGHT = [(4, 1, 1), (4, 1, 2), (4, 2, 1), (4, 2, 2)]
+K6_LIGHT_BUDGET = 700
+
+
+def smooth_need(nu, steps, mi: int) -> int:
+    """The steps K4's pixels need: the plain loop's, except that a pixel
+    in the set (nu = 0) needs at most the budget's dyn steps, whatever
+    the loop runs after (its value is 0 from then on)."""
+    return int(torch.where(nu == 0, steps.clamp(max=mi - 1), steps).sum())
+
+
+def time_smooth_light(ce, TileSpec, dev) -> dict:
+    """K4 on a light input: chunk (4, 1, 1) at 4096^2 and budget 256 (the
+    probe off), bulbs beside the proven cardioid."""
+    spec = TileSpec.for_chunk(4, 1, 1)
+    want, steps = plain_smooth(ce, spec, 256, {}, dev, return_steps=True)
+    if bit_diff(ce.compute_tile_smooth_cuda(spec, 256, device=dev),
+                want)[0]:
+        raise AssertionError("K4 (light) differs from its plain version")
+    need = smooth_need(want, steps, 256)
+    issued = issued_lane_steps(lambda c: ce.compute_tile_smooth_cuda(
+        spec, 256, device=dev, lane_steps=c))
+    b_ms, b_by, _ = bound(need, 0, 4 * 4096 * 4096,
+                          extra_ops=int((want > 0).sum())
+                          * SMOOTH_EPILOGUE_OPS)
+    return {"input": "chunk (4, 1, 1) at 4096^2, max_iter 256, probe off",
+            "ms": median_ms(lambda: ce.compute_tile_smooth_cuda(
+                spec, 256, device=dev), reps=30),
+            "bound_ms": b_ms, "bound_by": b_by, "f32_steps": need,
+            "lane_steps_issued": issued,
+            "lane_steps_over_needed": issued / need}
+
+
+def time_state_light(ce, cx, TileSpec, dev) -> dict:
+    """K6 on the light batch K3_LIGHT at K6_LIGHT_BUDGET."""
+    specs = [TileSpec.for_chunk(*key) for key in K3_LIGHT]
+    rows = np.asarray([ce._params_row(sp) for sp in specs], np.float32)
+    mis = [K6_LIGHT_BUDGET] * len(specs)
+    got = cx.escape_state_cuda(rows, mis, height=4096, width=4096,
+                               device=dev)
+    want = cx.escape_state_plain(rows, mis, height=4096, width=4096,
+                                 device=dev)
+    if any(bit_diff(g, w)[0] for g, w in zip(got, want)):
+        raise AssertionError("K6 (light) differs from its plain version")
+    _, steps = ce.escape_batch_plain(rows, mis, height=4096, width=4096,
+                                     device=dev, return_steps=True)
+    need = int(steps.clamp(max=cx.PHASE1_BUDGET).sum())
+    issued = issued_lane_steps(lambda c: cx.escape_state_cuda(
+        rows, mis, height=4096, width=4096, device=dev, lane_steps=c))
+    b_ms, b_by, _ = bound(need, 0, STATE_BYTES_PER_PIXEL * len(specs)
+                          * 4096 * 4096)
+    return {"input": "k=4: level-4 chunks (4,1,1), (4,1,2), (4,2,1), "
+                     f"(4,2,2) at 4096^2, max_iter {K6_LIGHT_BUDGET}, "
+                     "phase 1 (256 steps)",
+            "ms": median_ms(lambda: cx.escape_state_cuda(
+                rows, mis, height=4096, width=4096, device=dev), reps=30),
+            "bound_ms": b_ms, "bound_by": b_by, "f32_steps": need,
+            "lane_steps_issued": issued,
+            "lane_steps_over_needed": issued / need}
 
 
 def time_mesh_kernels(ce, TileSpec, dev, ptxas, groups) -> dict:
@@ -1842,8 +1983,10 @@ def time_mesh_kernels(ce, TileSpec, dev, ptxas, groups) -> dict:
     plain = cx.escape_state_plain(rows, [mi] * k, height=4096, width=4096,
                                   device=dev)
     state_bitwise = all(bit_diff(a, b)[0] == 0 for a, b in zip(state, plain))
-    b_ms, b_by, ops = bound(int(steps.clamp(max=cx.PHASE1_BUDGET).sum()), 0,
-                            STATE_BYTES_PER_PIXEL * n_pix)
+    k6_need = int(steps.clamp(max=cx.PHASE1_BUDGET).sum())
+    b_ms, b_by, ops = bound(k6_need, 0, STATE_BYTES_PER_PIXEL * n_pix)
+    k6_issued = issued_lane_steps(lambda c: cx.escape_state_cuda(
+        rows, [mi] * k, height=4096, width=4096, device=dev, lane_steps=c))
     out["escape_state"] = {
         "ms": median_ms(lambda: cx.escape_state_cuda(
             rows, [mi] * k, height=4096, width=4096, device=dev), reps=20),
@@ -1851,8 +1994,14 @@ def time_mesh_kernels(ce, TileSpec, dev, ptxas, groups) -> dict:
             rows, [mi] * k, height=4096, width=4096, device=dev), reps=1),
         "bound_ms": b_ms, "bound_by": b_by, "ops": ops,
         "bitwise_vs_plain": state_bitwise,
-        "f32_warp_steps": k6_lanes,
-        "input": finding["input"] + ", phase 1 (256 steps)"}
+        "f32_steps": k6_need, "f32_warp_steps": k6_lanes,
+        "lane_steps_issued": k6_issued,
+        "lane_steps_over_needed": k6_issued / k6_need,
+        "instantiation": K6_FORM,
+        "registers": ptxas.get(K6_FORM, {}).get("registers"),
+        "spill_stores": ptxas.get(K6_FORM, {}).get("spill_stores"),
+        "input": finding["input"] + ", phase 1 (256 steps)",
+        "light_batch": time_state_light(ce, cx, TileSpec, dev)}
 
     # K7's first round on the packed live lanes, each timed launch on a
     # fresh copy (the kernel updates its lanes in place).
@@ -2036,9 +2185,20 @@ def phase_kernels(ce, TileSpec, launches, err, build):
     k4_got = ce.compute_tile_smooth_cuda(a, mi, device=dev)
     k4_want, k4_steps = plain_smooth(ce, a, mi, {}, dev, return_steps=True)
     k4_bitwise = bit_diff(k4_got, k4_want)[0] == 0
+    k4_need = smooth_need(k4_want, k4_steps, mi)
     k4_bound, k4_by, k4_ops = bound(
-        int(k4_steps.sum()), 0, 4 * 4096 * 4096,
+        k4_need, 0, 4 * 4096 * 4096,
         extra_ops=int((k4_want > 0).sum()) * SMOOTH_EPILOGUE_OPS)
+    # The same under the plain loop's count (in-set pixels run on to the
+    # step limit), the count the K4 row used before K4's loop retired
+    # in-set pixels early.
+    k4_plain_steps = int(k4_steps.sum())
+    k4_bound_plain_loop = bound(
+        k4_plain_steps, 0, 4 * 4096 * 4096,
+        extra_ops=int((k4_want > 0).sum()) * SMOOTH_EPILOGUE_OPS)[0]
+    k4_issued = issued_lane_steps(lambda c: ce.compute_tile_smooth_cuda(
+        a, mi, device=dev, lane_steps=c))
+    k4_light = time_smooth_light(ce, TileSpec, dev)
 
     # K5 on the four supersample windows of the same chunk, beside four
     # K1 launches on them (what the pack replaces), and at n = 2.
@@ -2110,8 +2270,13 @@ def phase_kernels(ce, TileSpec, launches, err, build):
          "library_ms": None, "library_reason": NO_LIBRARY,
          "bitwise_vs_plain": k4_bitwise,
          "input": "chunk (10, 3, 5) at 4096^2, max_iter 1024, bailout 256",
-         "f32_steps": int(k4_steps.sum()),
-         "f32_warp_steps": warp_steps(k4_steps), "ops": k4_ops},
+         "f32_steps": k4_need, "f32_steps_plain_loop": k4_plain_steps,
+         "bound_ms_plain_loop": k4_bound_plain_loop,
+         "lane_steps_over_needed_plain_loop": k4_issued / k4_plain_steps,
+         "f32_warp_steps": warp_steps(k4_steps), "ops": k4_ops,
+         **persistent_fields(ce, ptxas, groups, "escape_smooth", k4_issued,
+                             k4_need),
+         "light": k4_light},
         {"name": "escape_pack", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES["escape_pack"], **runs("escape_pack"),
          "max_abs_err": err["escape_pack"], "ms": k5_ms,

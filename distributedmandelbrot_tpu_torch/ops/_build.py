@@ -120,13 +120,13 @@ def load() -> ctypes.CDLL:
                                            i, i, i, vp, vp, vp]
             lib.dm_escape_pack.restype = i
             lib.dm_escape_smooth.argtypes = [vp, i, i, vp, i, i, i, f, f, f,
-                                             i, f, i, i, i, vp]
+                                             i, f, i, i, i, vp, vp, vp]
             lib.dm_escape_smooth.restype = i
             lib.dm_escape_batch.argtypes = [vp, vp, vp, vp, i, i, i, i, i,
                                             i, f, i, i, i, vp, vp, vp]
             lib.dm_escape_batch.restype = i
             lib.dm_escape_state.argtypes = [vp] * 8 + [i, i, i, i, i, f, i,
-                                                       i, i, vp]
+                                                       i, i, vp, vp]
             lib.dm_escape_state.restype = i
             lib.dm_escape_resume.argtypes = [vp] * 7 + [ctypes.c_longlong,
                                                         i, i, i, i, vp]

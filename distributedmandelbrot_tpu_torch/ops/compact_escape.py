@@ -200,10 +200,12 @@ def escape_resume_plain(it0: int, seg: int, dyn, cr, ci, zr, zi, n, act, *,
 def escape_state_cuda(rows, mrd_rows, *, height: int, width: int,
                       phase_budget: int = PHASE1_BUDGET,
                       interior_check: bool = True, power: int = 2,
-                      burning: bool = False, device="cuda"):
+                      burning: bool = False, device="cuda",
+                      lane_steps: torch.Tensor | None = None):
     """K6: the six state planes of :func:`escape_state_plain`, on
     ``device``, enqueued on its current stream (the plain version on the
-    CPU)."""
+    CPU).  ``lane_steps`` launches the instrumented form, which adds the
+    lane steps its warps issue (32 per step of a warp's slowest lane)."""
     rows = np.asarray(rows, dtype=np.float32)
     julia = rows.shape[1] == 6
     ce._check_dispatch_mode(power, burning, julia)
@@ -231,7 +233,7 @@ def escape_state_cuda(rows, mrd_rows, *, height: int, width: int,
             ctypes.c_void_p(rows_d.data_ptr()),
             ctypes.c_void_p(mrds_d.data_ptr()), k, height, width, int(julia),
             interior_mode, disk_lim, family, int(power), int(phase_budget),
-            ctypes.c_void_p(stream))
+            ce._lane_steps_ptr(lane_steps, dev), ctypes.c_void_p(stream))
     ce._check_rc(lib, rc, ce.KERNEL_STATE)
     ce._count_launch(ce.KERNEL_STATE)
     return tuple(planes)

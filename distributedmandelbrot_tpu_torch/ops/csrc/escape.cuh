@@ -203,6 +203,85 @@ DM_D bool step_group(Orbit& o, int s, int dyn, bool cycle_check, int power) {
   return true;
 }
 
+// One orbit of the smooth loop (K4): z, its squares, c and the probe's
+// snapshot in ``o``, where o.n counts the steps inside the bailout; the
+// sticky radius-2 flag and its count n2 (plus dyn once the probe finds a
+// cycle), which own the in-set decision; and mag2, |z|^2 at the pixel's
+// last step (its bailout crossing, or the step limit), the smoothing
+// payload.
+struct SmoothOrbit {
+  Orbit o;
+  int n2;
+  float mag2;
+  bool in2;
+};
+
+DM_D void start(SmoothOrbit& p, float zr0, float zi0, float cr, float ci) {
+  start(p.o, zr0, zi0, cr, ci);
+  p.n2 = 0;
+  p.mag2 = 0.0f;
+  p.in2 = true;
+}
+
+// One group of kCycleStride steps, s + 1 .. s + kCycleStride, of a smooth
+// orbit live after its own step s (a multiple of kCycleStride), equal to
+// escape_time.escape_smooth_loop on every output it uses: n, the in-set
+// decision (n2 >= dyn) and mag2.  Each step: the update, m2 = |z|^2, the
+// bailout test (b2 = bailout^2), which freezes n at the first crossing,
+// and the sticky radius-2 flag and count.  A lane that crosses keeps
+// stepping to the group's end (z may run to inf or NaN), so its payload
+// is kept by a select per step (faster on an H100 than replaying the
+// retiring lane's steps from the group's first z; PERF.md).  Once
+// per group, at the pixel's own step s + kCycleStride: the probe (only
+// while inside radius 2, the plain version's act2) and the snapshot
+// refresh at powers of two, as step_group does.  After steps 2 and 4 the group ends early when no lane
+// stepping with this one is inside the bailout.  The orbit retires at the
+// crossing, at ``step_limit`` (a multiple of kCycleStride, so never
+// inside a group), on a cycle, or once n2 >= dyn: in the set, whatever
+// follows (the plain version runs such a pixel on to step_limit for the
+// same value).  Returns whether the orbit is still live; on false, n, n2
+// and mag2 are final.
+template <int F>
+DM_D bool smooth_group(SmoothOrbit& p, int s, int dyn, int step_limit,
+                       float b2, bool cycle_check, int power) {
+  Orbit& o = p.o;
+  const bool first = s == 0;
+  bool live = true, in2 = p.in2;
+  int n2 = p.n2;
+  float mag2 = 0.0f;
+#pragma unroll
+  for (int k = 1; k <= kCycleStride; ++k) {
+    update<F>(o.zr, o.zi, o.zr2, o.zi2, o.cr, o.ci, power);
+    const float m2 = fadd(o.zr2, o.zi2);
+    if (live) mag2 = m2;
+    live = live && m2 < b2;
+    o.n += live ? 1 : 0;
+    in2 = in2 && m2 < 4.0f;
+    n2 += in2 ? 1 : 0;
+    if (k == kCycleStride / 2 && first) {
+      o.szr = o.zr;
+      o.szi = o.zi;
+    }
+    if ((k == 2 || k == 4) && !__any_sync(__activemask(), live)) break;
+  }
+  const int end = s + kCycleStride;
+  p.in2 = in2;
+  p.n2 = n2;
+  if (live && end < step_limit && n2 < dyn) {
+    if (!(cycle_check && in2 && o.zr == o.szr && o.zi == o.szi)) {
+      if (cycle_check && snapshot_step(end)) {
+        o.szr = o.zr;
+        o.szi = o.zi;
+      }
+      return true;
+    }
+    p.n2 += dyn;  // a cycle: in the set, as the plain version's probe
+    return false;
+  }
+  p.mag2 = mag2;
+  return false;
+}
+
 // Updates survived (0..dyn) for an orbit from z0 with constant c,
 // running at most dyn steps and exiting as soon as the pixel retires.
 // A pixel escaping at step e returns e - 1; one that never escapes

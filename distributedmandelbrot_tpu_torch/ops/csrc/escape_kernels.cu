@@ -16,14 +16,14 @@
 //   tiles (the supersampled render's samples), out as (n, H, W) uint8,
 //   each plane equal to K1 on its tile.
 // - escape_smooth_kernel (K4, _smooth_block_kernel): one tile's f32
-//   smooth value nu, for every family.
+//   smooth value nu, for every family, its row in parameter space.
 // - escape_batch_kernel (K3, _escape_batch_kernel): k same-shaped tiles
 //   in one launch, every family, with the params rows, budgets and
 //   epilogue multipliers in device memory (k is a mesh shard's size,
 //   unbounded).
 // - escape_state_kernel (K6, compact_escape.py's _state_batch_kernel):
 //   K3's pixel capped at a phase budget, writing the raw per-pixel state
-//   (c, z, n, act) instead of bytes.
+//   (c, z, n, act) instead of bytes, from K3's rows in device memory.
 // - escape_resume_kernel (K7, compact_escape.py's _resume_block_kernel):
 //   one resume round over a flat buffer of lanes, each carrying its own
 //   c and budget.
@@ -34,8 +34,9 @@
 // the same correctly rounded multiply and continues the same step
 // sequence (per-pixel exit makes every seam exact).  K1, K2, K3 and K5
 // step in groups of 8 (dm::step_group), which equals 8 calls of
-// dm::advance on every output; tests/test_torch_step_groups.py builds
-// that loop on the host and holds it to the plain version.
+// dm::advance on every output; K4 in groups of the smooth loop
+// (dm::smooth_group); tests/test_torch_step_groups.py builds both loops
+// on the host and holds them to the plain versions.
 //
 // What bounds them on an H100: operations.  A pixel reads nothing and writes
 // one byte (four for nu); each step is 8 f32 operations at degree 2 (3
@@ -43,24 +44,28 @@
 // abs, degree d costs 6d - 1, K8's matrix form 11 as written: 4 multiplies and
 // 2 adds for the product, 2 adds of c, 2 squares and an add for |z|^2) plus a
 // compare, so a tile costs that times the steps its pixels need, against its
-// output bytes.  K4, K6 and K7 answer with one thread per pixel and per-thread
-// early exit: a sky pixel leaves after a few steps, an interior-proven pixel
-// never iterates, and only the orbits that need the budget spend it.  What that
-// leaves on the table is warp divergence: a warp of 32 neighbouring pixels
-// steps until its slowest lane retires (2.35x the needed lane steps on the main
-// path's chunks, PERF.md), and a block holds its SM slot until its last warp
-// ends.  K1, K2, K3 and K5 answer with persistent warps that refill retired
-// lanes (below, "The persistent kernels"): a warp's lanes stay on live orbits,
-// and the per-step overhead (probe, snapshot, budget, loop control, the refill
-// vote) runs once per group of 8 steps.  They differ only in where their tiles'
-// rows come from (a source): K1's one row and K2's and K5's rows ride the
-// launch's parameter space, K3's lie in device memory.  None of the TPU
-// workarounds is carried: no scratch state, no 64x128 blocks (any H, W; the
-// ragged edge is masked), no prologue pipelining, no byte-lane packing (K5's
-// tiles are simply the tiles of one persistent launch).  K6 and K7 move state
-// through device memory (24 B written per pixel by K6; per lane and round, K7
-// reads 28 B and writes 16 B), which is what the compacted pipeline pays so
-// that K7's warps hold only live lanes.
+// output bytes.  Per-thread early exit alone (K6 and K7 run so: one thread a
+// pixel or lane) lets a sky pixel leave after a few steps and an
+// interior-proven pixel never iterate, but leaves warp divergence on the
+// table: a warp of 32 neighbouring pixels steps until its slowest lane retires
+// (2.35x the needed lane steps on the main path's chunks, PERF.md), and a
+// block holds its SM slot until its last warp ends.  K1-K5 answer with
+// persistent warps that refill retired lanes (below, "The persistent
+// kernels"): a warp's lanes stay on live orbits, and the per-step overhead
+// (probe, snapshot, budget, loop control, the refill vote) runs once per group
+// of 8 steps.  They differ in where their tiles' rows come from (a source:
+// K1's, K4's and K2's and K5's rows ride the launch's parameter space, K3's
+// lie in device memory) and in what a pixel is (a policy: a byte, or K4's
+// nu).  The loop pays for each run it takes, so where a run's pixels need few
+// steps it can cost more than the divergence it removes: K6's phase of at
+// most 256 steps stays on one thread a pixel, which ran faster there on an
+// H100 than the loop did (PERF.md).  None of the TPU workarounds is
+// carried: no scratch state, no 64x128 blocks (any H, W; the ragged edge is
+// masked), no prologue pipelining, no byte-lane packing (K5's tiles are simply
+// the tiles of one persistent launch).  K6 and K7 move state through device
+// memory (24 B written per pixel by K6, so K6 is bound by bytes; per lane and
+// round, K7 reads 28 B and writes 16 B), which is what the compacted pipeline
+// pays so that K7's warps hold only live lanes.
 
 #include <cfloat>
 #include <cmath>
@@ -104,16 +109,17 @@ struct TileParams {
   float disk_lim;        // the kDisk limit
 };
 
-// The smooth epilogue's constants, each rounded once on the host.
+// K4's one tile, and the smooth loop's constants, each rounded once on
+// the host.
 struct SmoothParams {
-  TileParams tile;
+  FusedParams<1> tile;
   int step_limit;    // steps a still-live pixel runs (segment_steps)
   float b2;          // bailout^2
   float two_ln_b;    // 2 ln(bailout)
   float log2_power;  // log2(power); 0 at degree 2 (no division)
 };
 
-// --- The persistent kernels (K1, K2, K3, K5): warps over 8-step groups ---
+// --- The persistent kernels (K1-K5): warps over 8-step groups ---
 //
 // They launch only as many blocks as fit on the card at once.
 // Each warp takes runs of 32 adjacent pixels of one row (see "Work
@@ -122,7 +128,7 @@ struct SmoothParams {
 // lanes on live orbits until no run is left.  A run's proven-interior
 // pixels (and all of a budget of 1 or less) are written straight away
 // and never hold a lane; K2's census scouts the run's other pixels as it
-// is taken.  Lanes step in groups of kCycleStride (dm::step_group), each
+// is taken.  Lanes step in groups of kCycleStride (the policy's), each
 // pixel from its own step 1, so a pixel joins and retires only at a
 // group boundary and the probe falls on its own steps.  When no run is
 // left the block compacts its live orbits into its lowest lanes every
@@ -331,42 +337,106 @@ DM_D bool next_run(unsigned long long* counter, const Runs& runs,
   return __shfl_sync(kFull, got, 0) != 0;
 }
 
-// A lane's pixel: its orbit, the steps run, its tile's budget and
-// epilogue multiplier, its output offset.
-struct Lane {
-  dm::Orbit o;
-  int s, mrd;
-  unsigned long long div;
-  size_t off;
-  bool busy;
+// A pixel policy tells the persistent loop what a pixel is: its Lane
+// (the pixel's state, with the loop's ``off``, its output offset, and
+// ``busy``); put_unstepped(), what the take writes for a pixel that never
+// takes a lane (proven interior, or a budget of 1 or less); start(), a
+// lane's first state; and group(), one group of a busy lane, which stores
+// what a retiring pixel leaves and frees the lane.  kDiv: the loop hands
+// start() the tile's epilogue multiplier.
+
+// The uint8 plane (K1, K2, K3, K5): dm::step_group and the epilogue.
+template <int F, bool MXU>
+struct BytePixels {
+  static constexpr bool kDiv = true;
+  struct Lane {
+    dm::Orbit o;
+    int s, mrd;
+    unsigned long long div;
+    size_t off;
+    bool busy;
+  };
+  uint8_t* __restrict__ out;
+  int clamp, cycle_check, power;
+  // n = dyn (or no budget): count 0, byte 0.
+  DM_D void put_unstepped(size_t i) const { out[i] = 0; }
+  DM_D void start(Lane& l, float gr, float gi, float cr, float ci, int mrd,
+                  unsigned long long div) const {
+    dm::start(l.o, gr, gi, cr, ci);
+    l.s = 0;
+    l.mrd = mrd;
+    l.div = div;
+  }
+  DM_D void group(Lane& l) const {
+    if (dm::step_group<F, MXU>(l.o, l.s, l.mrd - 1, cycle_check != 0,
+                               power)) {
+      l.s += dm::kCycleStride;
+    } else {
+      out[l.off] = epilogue_by(l.o.n, l.mrd, l.div, clamp);
+      l.busy = false;
+    }
+  }
 };
 
-// One group of a lane's orbit, if it holds one; a pixel that retires
-// stores its byte and frees the lane.
-template <int F, bool MXU>
-DM_D void lane_group(uint8_t* __restrict__ out, Lane& l, int clamp,
-                     int cycle_check, int power) {
-  if (!l.busy) return;
-  if (dm::step_group<F, MXU>(l.o, l.s, l.mrd - 1, cycle_check != 0, power)) {
-    l.s += dm::kCycleStride;
-  } else {
-    out[l.off] = epilogue_by(l.o.n, l.mrd, l.div, clamp);
-    l.busy = false;
+// K4's f32 smooth value nu (dm::smooth_group, then the epilogue: 0 in the
+// set, else n + 2 - log2(log|z|^2 / 2 ln b) [/ log2 d]).
+template <int F>
+struct SmoothPixels {
+  static constexpr bool kDiv = false;
+  struct Lane {
+    dm::SmoothOrbit p;
+    int s, dyn;
+    size_t off;
+    bool busy;
+  };
+  float* __restrict__ out;
+  int step_limit;
+  float b2, two_ln_b, log2_power;
+  int cycle_check, power;
+  // In the set, or no budget: 0.
+  DM_D void put_unstepped(size_t i) const { out[i] = 0.0f; }
+  DM_D void start(Lane& l, float gr, float gi, float cr, float ci, int mrd,
+                  unsigned long long) const {
+    dm::start(l.p, gr, gi, cr, ci);
+    l.s = 0;
+    l.dyn = mrd - 1;
   }
-}
+  // smooth_nu's epilogue: nan_to_num (NaN and +inf to the f32 max; a sum
+  // of squares is never -inf), the clip to [b2, max]; logf, log2f and
+  // the correctly rounded division match PyTorch's log, log2 and tensor
+  // division on the card.
+  DM_D float nu(const dm::SmoothOrbit& p, int dyn) const {
+    if (p.n2 >= dyn) return 0.0f;
+    float mag2 = p.mag2;
+    if (isnan(mag2) || isinf(mag2)) mag2 = FLT_MAX;
+    mag2 = fminf(fmaxf(mag2, b2), FLT_MAX);
+    float corr = log2f(__fdiv_rn(logf(mag2), two_ln_b));
+    if (power != 2) corr = __fdiv_rn(corr, log2_power);
+    return dm::fsub(__int2float_rn(p.o.n + 2), corr);
+  }
+  DM_D void group(Lane& l) const {
+    if (dm::smooth_group<F>(
+            l.p, l.s, l.dyn, step_limit, b2, cycle_check != 0, power)) {
+      l.s += dm::kCycleStride;
+    } else {
+      out[l.off] = nu(l.p, l.dyn);
+      l.busy = false;
+    }
+  }
+};
 
-// The persistent loop (see above), over the ``k`` tiles of ``src``.
-// COUNT adds the lane steps the warp issues (32 per step of
-// each group it runs) to *lane_steps with one atomic at exit: the
-// instrumented form that measures what the divergence and the tail
-// cost.
-template <int F, bool MXU, bool COUNT, typename Src>
-DM_D void persistent_escape(uint8_t* __restrict__ out,
-                            int* __restrict__ census, const Src& src, int k,
-                            const Runs& runs, int clamp, int cycle_check,
+// The persistent loop (see above), over the ``k`` tiles of ``src``, each
+// pixel as the policy ``pix`` says.  COUNT adds the lane steps the warp
+// issues (32 per step of each group it runs) to *lane_steps with one
+// atomic at exit: the instrumented form that measures what the
+// divergence and the tail cost.
+template <int F, bool COUNT, typename Pix, typename Src>
+DM_D void persistent_escape(const Pix& pix, int* __restrict__ census,
+                            const Src& src, int k, const Runs& runs,
                             int scout_steps, int power,
                             unsigned long long* counter,
                             unsigned long long* lane_steps) {
+  using Lane = typename Pix::Lane;
   constexpr bool kTable = Src::kTableTiles > 0;
   constexpr int kTab = kTable ? Src::kTableTiles : 1;
   __shared__ Lane s_park[kThreads];  // the end game's orbits in transit
@@ -437,7 +507,7 @@ DM_D void persistent_escape(uint8_t* __restrict__ out,
         run_t = cur.t;
         run_mrd = src.mrd(cur.t);
         if constexpr (!kTable) {
-          run_div = src.div(cur.t);
+          if constexpr (Pix::kDiv) run_div = src.div(cur.t);
           if (src.julia()) {
             run_jr = src.row(cur.t, 4);
             run_ji = src.row(cur.t, 5);
@@ -465,8 +535,7 @@ DM_D void persistent_escape(uint8_t* __restrict__ out,
             atomicAdd(&s_census[cur.t], static_cast<int>(hits));
         }
         const bool inside = run_mrd <= 1 || proven;
-        // A pixel that never iterates has n = dyn, so count 0: byte 0.
-        if (valid && inside) out[run_base + lane] = 0;
+        if (valid && inside) pix.put_unstepped(run_base + lane);
         cand = __ballot_sync(kFull, valid && !inside);
         continue;
       }
@@ -477,10 +546,7 @@ DM_D void persistent_escape(uint8_t* __restrict__ out,
         if (held) {
           const float cr = src.julia() ? julia_c(0) : run_gr;
           const float ci = src.julia() ? julia_c(1) : run_gi;
-          dm::start(l.o, run_gr, run_gi, cr, ci);
-          l.s = 0;
-          l.mrd = run_mrd;
-          l.div = run_mult();
+          pix.start(l, run_gr, run_gi, cr, ci, run_mrd, run_mult());
           l.off = run_base + lane;
           l.busy = true;
         }
@@ -502,10 +568,7 @@ DM_D void persistent_escape(uint8_t* __restrict__ out,
         const float gr = s_gr[warp][rank];
         const float cr = src.julia() ? julia_c(0) : gr;
         const float ci = src.julia() ? julia_c(1) : run_gi;
-        dm::start(l.o, gr, run_gi, cr, ci);
-        l.s = 0;
-        l.mrd = run_mrd;
-        l.div = run_mult();
+        pix.start(l, gr, run_gi, cr, ci, run_mrd, run_mult());
         l.off = run_base + s_from[warp][rank];
         l.busy = true;
       }
@@ -515,7 +578,7 @@ DM_D void persistent_escape(uint8_t* __restrict__ out,
     }
     if (spent) break;
     ++groups;
-    lane_group<F, MXU>(out, l, clamp, cycle_check, power);
+    if (l.busy) pix.group(l);
   }
 
   // The end game: no run is left to the block and no run holds a
@@ -541,7 +604,7 @@ DM_D void persistent_escape(uint8_t* __restrict__ out,
       l.busy = false;
     for (int g = 0; g < kEndGroups && __any_sync(kFull, l.busy); ++g) {
       ++groups;
-      lane_group<F, MXU>(out, l, clamp, cycle_check, power);
+      if (l.busy) pix.group(l);
     }
   }
   // Every warp has left the last round's barrier: the census is whole.
@@ -562,9 +625,9 @@ __global__ void __launch_bounds__(kThreads)
                        unsigned long long* work,
                        unsigned long long* lane_steps) {
   const MegaSource<JULIA, kMaxMegaTiles> src{p};
-  persistent_escape<F, MXU, COUNT>(out, census, src, k, runs, clamp,
-                                   cycle_check, scout_steps, power, work,
-                                   lane_steps);
+  const BytePixels<F, MXU> pix{out, clamp, cycle_check, power};
+  persistent_escape<F, COUNT>(pix, census, src, k, runs, scout_steps, power,
+                              work, lane_steps);
 }
 
 // K1: one tile.
@@ -576,8 +639,9 @@ __global__ void __launch_bounds__(kThreads)
                        unsigned long long* work,
                        unsigned long long* lane_steps) {
   const TileSource src{p, mrd};
-  persistent_escape<F, MXU, COUNT>(out, nullptr, src, 1, runs, clamp,
-                                   cycle_check, 0, power, work, lane_steps);
+  const BytePixels<F, MXU> pix{out, clamp, cycle_check, power};
+  persistent_escape<F, COUNT>(pix, nullptr, src, 1, runs, 0, power, work,
+                              lane_steps);
 }
 
 // K5: the n <= kPackMax states of a supersampled view as the n tiles of
@@ -590,8 +654,9 @@ __global__ void __launch_bounds__(kThreads)
                        unsigned long long* work,
                        unsigned long long* lane_steps) {
   const MegaSource<JULIA, kPackMax> src{p};
-  persistent_escape<F, false, COUNT>(out, nullptr, src, n, runs, clamp,
-                                     cycle_check, 0, power, work, lane_steps);
+  const BytePixels<F, false> pix{out, clamp, cycle_check, power};
+  persistent_escape<F, COUNT>(pix, nullptr, src, n, runs, 0, power, work,
+                              lane_steps);
 }
 
 // K3: k tiles whose rows, budgets and epilogue multipliers lie in device
@@ -607,8 +672,102 @@ __global__ void __launch_bounds__(kThreads)
                         unsigned long long* work,
                         unsigned long long* lane_steps) {
   const BatchSource<JULIA> src{rows, mrds, divs, interior_mode, disk_lim};
-  persistent_escape<F, false, COUNT>(out, nullptr, src, k, runs, clamp,
-                                     cycle_check, 0, power, work, lane_steps);
+  const BytePixels<F, false> pix{out, clamp, cycle_check, power};
+  persistent_escape<F, COUNT>(pix, nullptr, src, k, runs, 0, power, work,
+                              lane_steps);
+}
+
+// K4: one tile's f32 smooth values, its row in parameter space.
+template <int F, bool JULIA, bool COUNT>
+__global__ void __launch_bounds__(kThreads)
+    escape_smooth_kernel(float* __restrict__ out,
+                         const __grid_constant__ SmoothParams p, Runs runs,
+                         int cycle_check, int power, unsigned long long* work,
+                         unsigned long long* lane_steps) {
+  const MegaSource<JULIA, 1> src{p.tile};
+  const SmoothPixels<F> pix{out,        p.step_limit, p.b2,
+                            p.two_ln_b, p.log2_power, cycle_check,
+                            power};
+  persistent_escape<F, COUNT>(pix, nullptr, src, 1, runs, 0, power, work,
+                              lane_steps);
+}
+
+// One pixel of tile t = t0 + blockIdx.z of a batch whose params rows
+// (kRow floats each) and budgets lie in device memory (K6's layout).
+struct BatchPixel {
+  int t, row, col;
+  float gr, gi, cr, ci;
+  int mrd;
+};
+
+DM_D bool batch_pixel(BatchPixel& p, const float* __restrict__ rows,
+                      const int* __restrict__ mrds, int t0, int height,
+                      int width, int julia) {
+  p.t = t0 + static_cast<int>(blockIdx.z);
+  p.col = blockIdx.x * blockDim.x + threadIdx.x;
+  p.row = blockIdx.y * blockDim.y + threadIdx.y;
+  if (p.row >= height || p.col >= width) return false;
+  const float* r = rows + static_cast<size_t>(p.t) * kRow;
+  p.gr = dm::grid(r[0], r[2], p.col);
+  p.gi = dm::grid(r[1], r[3], p.row);
+  p.cr = julia ? r[4] : p.gr;
+  p.ci = julia ? r[5] : p.gi;
+  p.mrd = mrds[p.t];
+  return true;
+}
+
+// K6, phase 1 of the compacted pipeline: K3's pixel for at most
+// min(dyn, phase_budget) steps, the probe off, one thread a pixel (a
+// warp is 32 adjacent pixels of one row).  A proven-interior pixel
+// starts with n = dyn and act = 0; act stays 1 only for a pixel still
+// live whose budget runs past the phase (a tile whose budget fits in
+// the phase is complete).  It stays off the persistent loop: its pixels
+// need few steps (at most the phase's 256), so the loop's cost per run
+// outweighed the divergence it removes (PERF.md).  COUNT adds the
+// lane steps the warp issues (32 per step of its slowest lane) to
+// *lane_steps, as the persistent kernels' instrumented forms do.
+template <int F, bool COUNT>
+__global__ void escape_state_kernel(
+    float* __restrict__ cr_out, float* __restrict__ ci_out,
+    float* __restrict__ zr_out, float* __restrict__ zi_out,
+    int* __restrict__ n_out, int* __restrict__ act_out,
+    const float* __restrict__ rows, const int* __restrict__ mrds, int t0,
+    int height, int width, int julia, int interior_mode, float disk_lim,
+    int power, int phase_budget, unsigned long long* lane_steps) {
+  BatchPixel p;
+  const bool in = batch_pixel(p, rows, mrds, t0, height, width, julia);
+  if (!COUNT && !in) return;
+  int steps = 0;
+  if (in) {
+    const int dyn = p.mrd - 1;
+    dm::Orbit o;
+    dm::start(o, p.gr, p.gi, p.cr, p.ci);
+    bool live = dyn > 0;
+    if (live && dm::proven_interior(interior_mode, p.cr, p.ci, disk_lim)) {
+      o.n = dyn;
+      live = false;
+    }
+    const int cap = dyn < phase_budget ? dyn : phase_budget;
+    int s = 1;
+    for (; live && s <= cap; ++s)
+      live = dm::advance<F>(o, s, dyn, false, power);
+    steps = s - 1;
+    const size_t i =
+        (static_cast<size_t>(p.t) * height + p.row) * width + p.col;
+    cr_out[i] = p.cr;
+    ci_out[i] = p.ci;
+    zr_out[i] = o.zr;
+    zi_out[i] = o.zi;
+    n_out[i] = o.n;
+    act_out[i] = (live && dyn > phase_budget) ? 1 : 0;
+  }
+  if constexpr (COUNT) {
+    // blockDim.x is 32: every thread of the warp reaches this point.
+    const unsigned most =
+        __reduce_max_sync(kFull, static_cast<unsigned>(steps));
+    if (threadIdx.x == 0 && most)
+      atomicAdd(lane_steps, 32ULL * most);
+  }
 }
 
 // Blocks of ``Kernel`` resident on one SM at once (the occupancy API
@@ -668,131 +827,6 @@ __global__ void mxu_probe_kernel(float* __restrict__ out,
   out[3 * plane + i] = mi;
 }
 
-// One pixel of the smooth loop (escape_time.escape_smooth_loop and
-// smooth_nu): n counts the steps inside radius ``bailout`` (z freezes at
-// the first crossing: that z is the payload), the sticky radius-2 count
-// n2 owns the in-set decision, and a pixel still live after
-// ``step_limit`` steps stops there, as the Pallas kernel's whole
-// segments do.  logf/log2f and the correctly rounded division match
-// PyTorch's log, log2 and tensor division on the card.
-template <int F>
-__global__ void escape_smooth_kernel(float* __restrict__ out, int height,
-                                     int width,
-                                     const __grid_constant__ SmoothParams p,
-                                     int mrd, int cycle_check, int power) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.y * blockDim.y + threadIdx.y;
-  if (row >= height || col >= width) return;
-  float* px = out + static_cast<size_t>(row) * width + col;
-  if (mrd <= 1) {
-    *px = 0.0f;
-    return;
-  }
-  const int dyn = mrd - 1;
-  const TileParams& tp = p.tile;
-  float zr = dm::grid(tp.row[0], tp.row[2], col);
-  float zi = dm::grid(tp.row[1], tp.row[3], row);
-  const float cr = tp.julia ? tp.row[4] : zr;
-  const float ci = tp.julia ? tp.row[5] : zi;
-  float zr2 = dm::fmul(zr, zr), zi2 = dm::fmul(zi, zi);
-  float szr = zr, szi = zi;
-  const bool inside =
-      dm::proven_interior(tp.interior_mode, cr, ci, tp.disk_lim);
-  int n = 0, n2 = inside ? dyn : 0;
-  bool live = !inside, in2 = !inside;
-  for (int s = 1; live && s <= p.step_limit; ++s) {
-    dm::update<F>(zr, zi, zr2, zi2, cr, ci, power);
-    const float m2 = dm::fadd(zr2, zi2);
-    if (m2 < p.b2)
-      ++n;
-    else
-      live = false;
-    in2 = in2 && m2 < 4.0f;
-    if (cycle_check && in2 && (s % dm::kCycleStride) == 0 && zr == szr &&
-        zi == szi) {
-      in2 = false;
-      live = false;
-      n2 += dyn;
-    }
-    if (in2) ++n2;
-    if (cycle_check && dm::snapshot_step(s)) {
-      szr = zr;
-      szi = zi;
-    }
-  }
-  if (n2 >= dyn) {
-    *px = 0.0f;
-    return;
-  }
-  // nan_to_num (NaN and +inf to the f32 max; a sum of squares is never
-  // -inf), then clip to [b2, max].
-  float mag2 = dm::fadd(zr2, zi2);
-  if (isnan(mag2) || isinf(mag2)) mag2 = FLT_MAX;
-  mag2 = fminf(fmaxf(mag2, p.b2), FLT_MAX);
-  float corr = log2f(__fdiv_rn(logf(mag2), p.two_ln_b));
-  if (power != 2) corr = __fdiv_rn(corr, p.log2_power);
-  *px = dm::fsub(__int2float_rn(n + 2), corr);
-}
-
-// One pixel of tile t = t0 + blockIdx.z of a batch whose params rows
-// (kRow floats each) and budgets lie in device memory (K6's layout).
-struct BatchPixel {
-  int t, row, col;
-  float gr, gi, cr, ci;
-  int mrd;
-};
-
-DM_D bool batch_pixel(BatchPixel& p, const float* __restrict__ rows,
-                      const int* __restrict__ mrds, int t0, int height,
-                      int width, int julia) {
-  p.t = t0 + static_cast<int>(blockIdx.z);
-  p.col = blockIdx.x * blockDim.x + threadIdx.x;
-  p.row = blockIdx.y * blockDim.y + threadIdx.y;
-  if (p.row >= height || p.col >= width) return false;
-  const float* r = rows + static_cast<size_t>(p.t) * kRow;
-  p.gr = dm::grid(r[0], r[2], p.col);
-  p.gi = dm::grid(r[1], r[3], p.row);
-  p.cr = julia ? r[4] : p.gr;
-  p.ci = julia ? r[5] : p.gi;
-  p.mrd = mrds[p.t];
-  return true;
-}
-
-// Phase 1 of the compacted pipeline: K3's pixel for at most
-// min(dyn, phase_budget) steps, the probe off.  A proven-interior pixel
-// starts with n = dyn and act = 0; act stays 1 only for a pixel still
-// live whose budget runs past the phase (a tile whose budget fits in
-// the phase is complete).
-template <int F>
-__global__ void escape_state_kernel(
-    float* __restrict__ cr_out, float* __restrict__ ci_out,
-    float* __restrict__ zr_out, float* __restrict__ zi_out,
-    int* __restrict__ n_out, int* __restrict__ act_out,
-    const float* __restrict__ rows, const int* __restrict__ mrds, int t0,
-    int height, int width, int julia, int interior_mode, float disk_lim,
-    int power, int phase_budget) {
-  BatchPixel p;
-  if (!batch_pixel(p, rows, mrds, t0, height, width, julia)) return;
-  const int dyn = p.mrd - 1;
-  dm::Orbit o;
-  dm::start(o, p.gr, p.gi, p.cr, p.ci);
-  bool live = dyn > 0;
-  if (live && dm::proven_interior(interior_mode, p.cr, p.ci, disk_lim)) {
-    o.n = dyn;
-    live = false;
-  }
-  const int cap = dyn < phase_budget ? dyn : phase_budget;
-  for (int s = 1; live && s <= cap; ++s)
-    live = dm::advance<F>(o, s, dyn, false, power);
-  const size_t i = (static_cast<size_t>(p.t) * height + p.row) * width + p.col;
-  cr_out[i] = p.cr;
-  ci_out[i] = p.ci;
-  zr_out[i] = o.zr;
-  zi_out[i] = o.zi;
-  n_out[i] = o.n;
-  act_out[i] = (live && dyn > phase_budget) ? 1 : 0;
-}
-
 // One resume round over ``lanes`` lanes, in place: a live lane runs
 // steps it0 .. min(it0 + seg - 1, dyn) while it stays inside radius 2,
 // its squares recomputed from z (the bits update() cached).  A lane
@@ -832,6 +866,9 @@ __global__ void escape_resume_kernel(float* __restrict__ zr,
   act[i] = (live && last < d) ? 1 : 0;
 }
 
+// The grid of the kernels that run one thread a pixel (K6, K8's parity
+// probe): blocks of kBlockX x kBlockY over a height x width plane, k
+// planes deep.
 dim3 grid_for(int height, int width, int k) {
   return dim3((width + kBlockX - 1) / kBlockX,
               (height + kBlockY - 1) / kBlockY, k);
@@ -847,7 +884,7 @@ TileParams tile_params(const float* row, int julia, int interior_mode,
   return p;
 }
 
-// Tiles per launch of a batched kernel: the grid's z extent.
+// Tiles per launch of K6: the grid's z extent.
 constexpr int kMaxGridZ = 65535;
 
 // Launches ``launch(t0, tiles)`` over [0, k) in slices of kMaxGridZ
@@ -1030,16 +1067,17 @@ int dm_escape_mega(void* out, void* census, const void* params,
 
 // Blocks per SM of a persistent kernel, as the launches size their
 // grids (the occupancy API on the current device; 0 if it fails):
-// ``kernel`` 0 K1, 1 K2 (with ``julia``), 2 K3, 3 K5 (each with
-// ``julia``), in the form of ``family``/``mxu`` (K1 and K2 only).
+// ``kernel`` 0 K1, 1 K2 (with ``julia``), 2 K3, 3 K5, 4 K4 (each
+// with ``julia``), in the form of ``family``/``mxu`` (K1 and K2 only).
 int dm_persistent_blocks_per_sm(int kernel, int family, int mxu, int julia) {
   if (kernel >= 2) {
     int n = 0;
     by_family(family, julia, [&](auto f, auto j) {
       constexpr int F = decltype(f)::value;
       constexpr bool J = decltype(j)::value;
-      n = kernel == 2 ? blocks_per_sm<escape_batch_kernel<F, J, false>>()
-                      : blocks_per_sm<escape_pack_kernel<F, J, false>>();
+      n = kernel == 2   ? blocks_per_sm<escape_batch_kernel<F, J, false>>()
+          : kernel == 3 ? blocks_per_sm<escape_pack_kernel<F, J, false>>()
+                        : blocks_per_sm<escape_smooth_kernel<F, J, false>>();
     });
     return n;
   }
@@ -1117,31 +1155,40 @@ int dm_escape_pack(void* out, int n, int height, int width,
 }
 
 // K4: one (height, width) f32 plane of nu into ``out``.  ``row`` is a
-// HOST pointer to 6 floats, as for K1.
+// HOST pointer to 6 floats, as for K1; ``step_limit`` a multiple of the
+// group length where pixels step (mrd > 1: smooth_step_limit's multiple
+// of 64, so a group never straddles it).  ``work`` and ``lane_steps`` as
+// for K1.
 int dm_escape_smooth(void* out, int height, int width, const float* row,
                      int julia, int mrd, int step_limit, float b2,
                      float two_ln_b, float log2_power, int interior_mode,
                      float disk_lim, int cycle_check, int family, int power,
-                     void* stream) {
+                     void* work, void* lane_steps, void* stream) {
+  if (mrd > 1 && step_limit % dm::kCycleStride != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (height <= 0 || width <= 0) return 0;
   SmoothParams p = {};
-  p.tile = tile_params(row, julia, interior_mode, disk_lim);
+  for (int c = 0; c < kRow; ++c) p.tile.row[0][c] = row[c];
+  p.tile.mrd[0] = mrd;
+  p.tile.julia = julia;
+  p.tile.interior_mode = interior_mode;
+  p.tile.disk_lim = disk_lim;
   p.step_limit = step_limit;
   p.b2 = b2;
   p.two_ln_b = two_ln_b;
   p.log2_power = log2_power;
-  const dim3 g = grid_for(height, width, 1), b(kBlockX, kBlockY);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Runs runs = make_runs(1, height, width);
   float* o = static_cast<float*>(out);
-  if (family == dm::kShip)
-    escape_smooth_kernel<dm::kShip><<<g, b, 0, s>>>(o, height, width, p,
-                                                    mrd, cycle_check, power);
-  else if (family == dm::kMultibrot)
-    escape_smooth_kernel<dm::kMultibrot><<<g, b, 0, s>>>(
-        o, height, width, p, mrd, cycle_check, power);
-  else
-    escape_smooth_kernel<dm::kQuadratic><<<g, b, 0, s>>>(
-        o, height, width, p, mrd, cycle_check, power);
+  auto* w = static_cast<unsigned long long*>(work);
+  auto* ls = static_cast<unsigned long long*>(lane_steps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  by_family(family, julia, [&](auto f, auto j) {
+    constexpr int F = decltype(f)::value;
+    constexpr bool J = decltype(j)::value;
+    launch_persistent<escape_smooth_kernel<F, J, false>,
+                      escape_smooth_kernel<F, J, true>>(
+        runs, ls, s, o, p, runs, cycle_check, power, w, ls);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1178,12 +1225,12 @@ int dm_escape_batch(void* out, const void* rows, const void* mrds,
 
 // K6: the six (k, height, width) state planes c_re, c_im, z_re, z_im
 // (f32) and n, act (int32).  ``rows``/``mrds`` are DEVICE pointers, as
-// for K3.
+// for K3.  ``lane_steps`` as for K1.
 int dm_escape_state(void* cr, void* ci, void* zr, void* zi, void* n,
                     void* act, const void* rows, const void* mrds, int k,
                     int height, int width, int julia, int interior_mode,
                     float disk_lim, int family, int power, int phase_budget,
-                    void* stream) {
+                    void* lane_steps, void* stream) {
   if (k < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (k == 0 || height <= 0 || width <= 0) return 0;
   float* const planes[4] = {static_cast<float*>(cr), static_cast<float*>(ci),
@@ -1192,21 +1239,31 @@ int dm_escape_state(void* cr, void* ci, void* zr, void* zi, void* n,
   int* const ap = static_cast<int*>(act);
   const float* r = static_cast<const float*>(rows);
   const int* m = static_cast<const int*>(mrds);
+  auto* ls = static_cast<unsigned long long*>(lane_steps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 b(kBlockX, kBlockY);
   return over_tiles(k, [&](int t0, int cnt) {
     const dim3 g = grid_for(height, width, cnt);
-#define DM_STATE(F)                                                         \
-  escape_state_kernel<F><<<g, b, 0, s>>>(                                   \
-      planes[0], planes[1], planes[2], planes[3], np, ap, r, m, t0, height, \
-      width, julia, interior_mode, disk_lim, power, phase_budget)
+    auto go = [&](auto f, auto count) {
+      constexpr int F = decltype(f)::value;
+      constexpr bool C = decltype(count)::value;
+      escape_state_kernel<F, C><<<g, b, 0, s>>>(
+          planes[0], planes[1], planes[2], planes[3], np, ap, r, m, t0,
+          height, width, julia, interior_mode, disk_lim, power, phase_budget,
+          ls);
+    };
+    auto by_count = [&](auto f) {
+      if (ls)
+        go(f, std::true_type{});
+      else
+        go(f, std::false_type{});
+    };
     if (family == dm::kShip)
-      DM_STATE(dm::kShip);
+      by_count(std::integral_constant<int, dm::kShip>{});
     else if (family == dm::kMultibrot)
-      DM_STATE(dm::kMultibrot);
+      by_count(std::integral_constant<int, dm::kMultibrot>{});
     else
-      DM_STATE(dm::kQuadratic);
-#undef DM_STATE
+      by_count(std::integral_constant<int, dm::kQuadratic>{});
   });
 }
 

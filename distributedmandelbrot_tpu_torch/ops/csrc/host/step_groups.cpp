@@ -1,16 +1,19 @@
-// Host build of escape.cuh's per-lane loop, for the CPU tests
+// Host build of escape.cuh's per-lane loops, for the CPU tests
 // (tests/test_torch_step_groups.py): the same header nvcc compiles,
 // with __device__ dropped, each pixel a warp of one lane, and the _rn
 // intrinsics as plain f32 operations (build with -ffp-contract=off, so nothing is contracted
 // into an FMA, as --fmad=false keeps it on the card).  Each pixel runs
-// alone through dm::step_group, the 8-step groups K1 and K2 run, in the
-// kernels' order: grid, interior test, groups until the orbit retires,
-// epilogue.
+// alone through the 8-step groups its kernel runs, in the kernels'
+// order: grid, interior test, groups until the orbit retires, what the
+// retiring lane stores: dm::step_group and the byte epilogue (K1, K2,
+// K3, K5) and dm::smooth_group (K4; its state, since the card's logf
+// and log2f are not the host's).
 //
 //   g++ -O2 -ffp-contract=off -shared -fPIC -I host -I . \
 //       host/step_groups.cpp -o libdm_host.so
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #define __device__
 #define __forceinline__ inline
@@ -72,6 +75,50 @@ void tile(const float* row, int julia, int mrd, int clamp, int interior_mode,
     }
 }
 
+// One pixel of K4's loop: n, n2 and mag2 as the retiring lane leaves
+// them (what the epilogue reads), and how it retired: 0 never stepped
+// (proven interior, or no budget), 1 the bailout, 2 the step limit, 3
+// the probe, 4 in the set by n2.
+template <int F>
+void smooth_pixel(const float* row, int julia, int mrd, int step_limit,
+                  float b2, int interior_mode, float disk_lim,
+                  int cycle_check, int power, int r, int c, int* n_out,
+                  int* n2_out, float* mag2_out, int* exit_out) {
+  const float gr = dm::grid(row[0], row[2], c);
+  const float gi = dm::grid(row[1], row[3], r);
+  const float cr = julia ? row[4] : gr;
+  const float ci = julia ? row[5] : gi;
+  const int dyn = mrd - 1;
+  *n_out = 0;
+  *n2_out = dyn;
+  *mag2_out = 0.0f;
+  *exit_out = 0;
+  if (mrd <= 1 || dm::proven_interior(interior_mode, cr, ci, disk_lim))
+    return;
+  dm::SmoothOrbit p;
+  dm::start(p, gr, gi, cr, ci);
+  int s = 0;
+  while (dm::smooth_group<F>(p, s, dyn, step_limit, b2, cycle_check != 0,
+                            power))
+    s += dm::kCycleStride;
+  const int end = s + dm::kCycleStride;
+  *n_out = p.o.n;
+  *n2_out = p.n2;
+  *mag2_out = p.mag2;
+  *exit_out = p.n2 > end ? 3 : p.n2 >= dyn ? 4 : p.o.n < end ? 1 : 2;
+}
+
+// Calls ``fn`` with family F as a compile-time constant.
+template <typename Fn>
+void by_family(int family, Fn&& fn) {
+  if (family == dm::kShip)
+    fn(std::integral_constant<int, dm::kShip>{});
+  else if (family == dm::kMultibrot)
+    fn(std::integral_constant<int, dm::kMultibrot>{});
+  else
+    fn(std::integral_constant<int, dm::kQuadratic>{});
+}
+
 }  // namespace
 
 extern "C" {
@@ -128,6 +175,25 @@ long dm_host_census(const float* row, int julia, int interior_mode,
       hits += hit ? 1 : 0;
     }
   return hits;
+}
+
+// One (height, width) tile of K4's loop: n, n2, mag2 and the exit,
+// row-major.
+void dm_host_smooth(const float* row, int julia, int mrd, int step_limit,
+                    float b2, int interior_mode, float disk_lim,
+                    int cycle_check, int family, int power,
+                    int height, int width, int* n, int* n2, float* mag2,
+                    int* exits) {
+  by_family(family, [&](auto f) {
+    constexpr int F = decltype(f)::value;
+    for (int r = 0; r < height; ++r)
+      for (int c = 0; c < width; ++c) {
+        const long i = static_cast<long>(r) * width + c;
+        smooth_pixel<F>(
+            row, julia, mrd, step_limit, b2, interior_mode, disk_lim,
+            cycle_check, power, r, c, n + i, n2 + i, mag2 + i, exits + i);
+      }
+  });
 }
 
 }  // extern "C"

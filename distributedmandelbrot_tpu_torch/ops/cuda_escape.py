@@ -41,11 +41,11 @@ other than Mandelbrot, are counted under names of their own
 so ``escape_tile`` and ``escape_mega`` count the cached-squares form and,
 for K2, Mandelbrot only.
 
-K1, K2, K3 and K5 run persistent warps that refill retired lanes,
-stepping in groups of 8 (``escape_kernels.cu``): each launch takes its
-own run counter, zeroed on its stream, and its grid from the occupancy
-API; each has an instrumented form (``lane_steps``) that counts the lane
-steps its warps issue.
+K1-K5 run persistent warps that refill retired lanes, stepping in
+groups of 8 (``escape_kernels.cu``): each launch takes its own run
+counter, zeroed on its stream, and its grid from the occupancy API; each
+has an instrumented form (``lane_steps``) that counts the lane steps its
+warps issue, as K6 (one thread a pixel) has.
 
 A wrapper given CUDA tensors' device launches its kernel (or raises); it
 takes the plain version only for the CPU, the counterpart of the
@@ -484,7 +484,9 @@ def smooth_step_limit(max_iter: int, bailout: float) -> int:
     """Steps a pixel still live at the end of K4 has run: the Pallas
     kernel runs whole segments of ``u = min(DEFAULT_UNROLL,
     bucket_cap(max_iter) - 1)`` steps while within ``max_iter - 1 +
-    extra`` (escape_time.segment_steps)."""
+    extra`` (escape_time.segment_steps).  For a budget that steps
+    (max_iter > 1) the cap is at least 256, so u is 64 and the limit a
+    multiple of K4's 8-step group."""
     u = max(1, min(DEFAULT_UNROLL, max(1, bucket_cap(max_iter) - 1)))
     return escape_time.segment_steps(
         max_iter - 1 + escape_time.smooth_extra_steps(bailout), u)
@@ -530,9 +532,9 @@ def _cuda_device(device) -> torch.device:
 
 
 def _work_counter(dev: torch.device) -> torch.Tensor:
-    """K1's or K2's own run counter, zeroed on the current stream: two
-    launches in flight, as the two shards of the ring ``[cuda:0,
-    cuda:0]`` are, never share one, and no host sync."""
+    """A persistent launch's own run counter, zeroed on the current
+    stream: two launches in flight, as the two shards of the ring
+    ``[cuda:0, cuda:0]`` are, never share one, and no host sync."""
     return torch.zeros((1,), dtype=torch.int64, device=dev)
 
 
@@ -549,15 +551,16 @@ def _lane_steps_ptr(lane_steps: torch.Tensor | None,
 
 # The persistent kernels, as dm_persistent_blocks_per_sm numbers them.
 _PERSISTENT = {KERNEL_TILE: 0, KERNEL_MEGA: 1, KERNEL_BATCH: 2,
-               KERNEL_PACK: 3}
+               KERNEL_PACK: 3, KERNEL_SMOOTH: 4}
 
 
 def persistent_occupancy(kernel: str, *, power: int = 2,
                          burning: bool = False, use_mxu: bool = False,
                          julia: bool = False, device="cuda") -> dict:
     """A persistent kernel's grid on ``device`` (``kernel``: K1
-    ``escape_tile``, K2 ``escape_mega``, K3 ``escape_batch`` or K5
-    ``escape_pack``; ``use_mxu`` for K1 and K2 only): blocks and warps per
+    ``escape_tile``, K2 ``escape_mega``, K3 ``escape_batch``, K5
+    ``escape_pack`` or K4 ``escape_smooth``; ``use_mxu`` for K1 and K2
+    only): blocks and warps per
     SM (the occupancy API, as the launches size their grids) and the
     threads per block."""
     from distributedmandelbrot_tpu_torch.ops import _build
@@ -784,11 +787,13 @@ def compute_tile_smooth_cuda(spec: TileSpec, max_iter: int, *,
                              interior_check: bool = True,
                              cycle_check: bool | None = None,
                              julia_c: complex | None = None, power: int = 2,
-                             burning: bool = False,
-                             device="cuda") -> torch.Tensor:
+                             burning: bool = False, device="cuda",
+                             lane_steps: torch.Tensor | None = None
+                             ) -> torch.Tensor:
     """K4: one tile -> (height, width) f32 smooth values on ``device``
     (0 = in the set), every mode of K1; the launch is enqueued on the
-    device's current stream (no sync)."""
+    device's current stream (no sync).  ``lane_steps`` launches the
+    instrumented form (:func:`compute_tile_row_cuda`)."""
     julia = julia_c is not None
     _check_dispatch_mode(power, burning, julia)
     _guard_budget(max_iter)
@@ -817,13 +822,15 @@ def compute_tile_smooth_cuda(spec: TileSpec, max_iter: int, *,
     with torch.cuda.device(dev):
         out = torch.empty((spec.height, spec.width), dtype=torch.float32,
                           device=dev)
+        work = _work_counter(dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.dm_escape_smooth(
             ctypes.c_void_p(out.data_ptr()), spec.height, spec.width,
             ctypes.c_void_p(row6.ctypes.data), int(julia), int(max_iter),
             smooth_step_limit(max_iter, bailout), b2, two_ln_b, log2_power,
             interior_mode, disk_lim, int(cycle), family, int(power),
-            ctypes.c_void_p(stream))
+            ctypes.c_void_p(work.data_ptr()),
+            _lane_steps_ptr(lane_steps, dev), ctypes.c_void_p(stream))
     _check_rc(lib, rc, KERNEL_SMOOTH)
     _count_launch(KERNEL_SMOOTH)
     return out

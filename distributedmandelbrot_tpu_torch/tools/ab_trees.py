@@ -30,24 +30,32 @@ Each run, on ``cuda:0``, times:
   lighter pairs of the profile (``LIGHT``); K3 on the level-10 batch
   (3,5), (3,4), (2,4), (2,5) at max_iter 5000 and on the light batch
   (4,1,1), (4,1,2), (4,2,1), (4,2,2) at 256; K5 at n = 4 on the
-  supersample windows of (10, 3, 5) at 1024: the median of 50 launches
-  each by CUDA events (20 for K3's heavy batch).
+  supersample windows of (10, 3, 5) at 1024; K4 on (10, 3, 5) at 1024
+  and on the light (4, 1, 1) at 256; K6 (phase 1 of the compacted
+  pipeline) on the level-10 batch at 1000 and on the level-4 batch at 700
+  (inside the compacted route's budgets 513-1023): the median of 50
+  launches each by CUDA events (20 for K3's and K6's heavy batches).
 
 It prints one JSON line per run, the card's name and power limit, and a
-last JSON line with each tree's medians over its runs and, for each
-pair of adjacent runs of the two trees, the change's ratio to the
-parent.  It needs a CUDA card and exits 1 without one.
+last JSON line with each tree's medians over its runs, for each pair of
+adjacent runs of the two trees the change's ratio to the parent, and
+whether each instantiation of K1, K2, K3 and K5 compiled to the same
+SASS in both trees (``cuobjdump -sass`` of each tree's build, the
+instructions compared with their operands).  It needs a CUDA card and
+exits 1 without one.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 CHANGE = Path(__file__).resolve().parents[2]
 ORDER = ("parent", "change", "change", "parent") * 3
@@ -62,8 +70,11 @@ K3_HEAVY = ([(10, 3, 5), (10, 3, 4), (10, 2, 4), (10, 2, 5)], 5000)
 K3_LIGHT = ([(4, 1, 1), (4, 1, 2), (4, 2, 1), (4, 2, 2)], 256)
 # The supersampled render's subpixel offsets (cli._SS_OFFSETS).
 SS4 = ((-0.25, -0.25), (0.25, -0.25), (-0.25, 0.25), (0.25, 0.25))
+# K4's chunks and K6's batches: heavy and light.
+K4 = {"k4_ms": ((10, 3, 5), 1024), "k4_light_ms": ((4, 1, 1), 256)}
+K6 = {"k6_ms": (K3_HEAVY[0], 1000, 20), "k6_light_ms": (K3_LIGHT[0], 700, 50)}
 TIMED = ("drain_chunks_per_s_median", "k2_ms", "k1_ms", "k2_julia_ms",
-         *LIGHT, "k3_ms", "k3_light_ms", "k5_ms",
+         *LIGHT, "k3_ms", "k3_light_ms", "k5_ms", *K4, *K6,
          "mesh_drain_chunks_per_s")
 
 
@@ -99,6 +110,28 @@ def pair_ratios(runs: list[dict]) -> list[dict]:
         if {a["tree"], b["tree"]} == {"parent", "change"}:
             p, c = (a, b) if a["tree"] == "parent" else (b, a)
             out.append({key: c[key] / p[key] for key in TIMED})
+    return out
+
+
+def byte_kernel_sass(library: str) -> dict:
+    """The SASS instructions of each instantiation of K1, K2, K3 and K5 in
+    the kernel library at ``library``, by demangled name."""
+    sys.path.insert(0, str(CHANGE))
+    import chip_smoke as cs
+    listing = cs.sass_listing(SimpleNamespace(
+        library_path=lambda: Path(library)))
+    out, cur = {}, None
+    for line in (listing or "").splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = cs.kernel_name(m.group(1))
+            cur = out.setdefault(name, []) if name.startswith((
+                "escape_tile", "escape_mega", "escape_batch",
+                "escape_pack")) else None
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", line)
+        if cur is not None and m:
+            cur.append(m.group(1).strip())
     return out
 
 
@@ -168,23 +201,35 @@ def child(tree: Path, drains: int) -> dict:
         pair = [TileSpec.for_chunk(*a), TileSpec.for_chunk(*b)]
         light[key] = cuda_ms(torch, lambda: ce.compute_tiles_mega_cuda(
             pair, [mi, mi], device=dev))
-    k3 = {}
+    timed = {}
     for key, (chunks, mi), reps in (("k3_ms", K3_HEAVY, 20),
                                     ("k3_light_ms", K3_LIGHT, 50)):
         rows = np.asarray([ce._params_row(TileSpec.for_chunk(*c))
                            for c in chunks], np.float32)
-        k3[key] = cuda_ms(torch, lambda: ce.compute_tiles_batch_cuda(
+        timed[key] = cuda_ms(torch, lambda: ce.compute_tiles_batch_cuda(
             rows, [mi] * len(chunks), height=4096, width=4096, device=dev),
             reps=reps)
     win = [cs.shifted(specs[0], dx, dy) for dx, dy in SS4]
     k5_ms = cuda_ms(torch, lambda: ce.compute_tiles_packed_cuda(
         win, [1024] * 4, device=dev))
+    for key, (chunk, mi) in K4.items():
+        spec = TileSpec.for_chunk(*chunk)
+        timed[key] = cuda_ms(torch, lambda: ce.compute_tile_smooth_cuda(
+            spec, mi, device=dev))
+    from distributedmandelbrot_tpu_torch.ops import compact_escape as cx
+    for key, (chunks, mi, reps) in K6.items():
+        rows = np.asarray([ce._params_row(TileSpec.for_chunk(*c))
+                           for c in chunks], np.float32)
+        timed[key] = cuda_ms(torch, lambda: cx.escape_state_cuda(
+            rows, [mi] * len(chunks), height=4096, width=4096, device=dev),
+            reps=reps)
     _, grants, _, _ = cs.MESH_DRAINS[0]
     mesh_work = [Workload(*g) for g in grants]
     cs.drain_mesh(wk, parallel, mesh_work)
     _, _, _, mesh_wall = cs.drain_mesh(wk, parallel, mesh_work)
     n = len(workloads)
-    return {"build_s": build_s, "drain_walls_s": walls,
+    return {"build_s": build_s, "library": str(_build.library_path()),
+            "drain_walls_s": walls,
             "drain_chunks_per_s": [n / w for w in walls],
             "drain_chunks_per_s_median": statistics.median(n / w
                                                            for w in walls),
@@ -193,7 +238,7 @@ def child(tree: Path, drains: int) -> dict:
             "device_busy_share": profile["device_busy_share"],
             "device_ms_by_kind": profile["device_ms_by_kind"],
             "k2_ms": k2_ms, "k1_ms": k1_ms, "k2_julia_ms": k2_julia_ms,
-            **light, **k3, "k5_ms": k5_ms,
+            **light, **timed, "k5_ms": k5_ms,
             "mesh_drain_s": mesh_wall,
             "mesh_drain_chunks_per_s": len(mesh_work) / mesh_wall}
 
@@ -238,8 +283,14 @@ def main(argv: list[str]) -> int:
         mine = [r for r in runs if r["tree"] == label]
         summary[label] = {key: median_or_not([r[key] for r in mine])
                           for key in TIMED + ("device_busy_share",)}
+    sass = {label: byte_kernel_sass(next(r["library"] for r in runs
+                                         if r["tree"] == label))
+            for label in trees}
     out = {"order": ORDER, "card": card.strip(), "medians": summary,
-           "pairs": pair_ratios(runs)}
+           "pairs": pair_ratios(runs),
+           "byte_kernel_sass_equal": {
+               name: sass["parent"].get(name) == code
+               for name, code in sorted(sass["change"].items())}}
     if "--out" in args:
         Path(args["--out"]).write_text(json.dumps({"runs": runs, **out},
                                                   indent=1))

@@ -746,3 +746,119 @@ def test_a_129_tile_fused_batch_splits_without_demotion(cuda, ring):
         rows, mrds, kw = ce.mega_dispatch_plan(specs, mis)
         ptiles, pcensus = ce.escape_mega_plain(rows, mrds, device=cuda, **kw)
         assert torch.equal(ftiles, ptiles) and torch.equal(fscout, pcensus)
+
+
+# --- K4 on the persistent loop, and K6 ------------------------------------
+
+SMOOTH_BUDGETS = [*range(1, 10), 17, 1500]
+
+
+def _smooth_windows():
+    """7x3 and 64^2 boundary windows, and a 64^2 window whose pixel (0, 0)
+    is c = -2 (an orbit on the radius-2 circle: it stops at the step
+    limit)."""
+    return [TileSpec(-0.8, 0.1, 0.2, 0.1, width=7, height=3),
+            TileSpec(-0.8, 0.1, 0.2, 0.1, width=64, height=64),
+            TileSpec(-2.0, 0.0, 0.5, 0.5, width=64, height=64)]
+
+
+@pytest.mark.parametrize("mode", sorted(K3_MODES))
+def test_k4_small_and_ragged_tiles_every_budget(cuda, mode):
+    """K4 in every mode on the smooth windows at budgets 1-9, 17 and
+    1500, the probe as the budget's policy says and armed, the two
+    launches of each budget in flight at once on two streams: bit for
+    bit its plain version."""
+    kw = K3_MODES[mode]
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    for spec in _smooth_windows():
+        row = ce._params_row(spec, kw.get("julia_c"))
+        for mi in SMOOTH_BUDGETS:
+            cycles = (ce.escape_time.resolve_cycle_check(None, mi), True)
+            torch.cuda.synchronize()
+            got = []
+            for st, cyc in zip(streams, cycles):
+                with torch.cuda.stream(st):
+                    got.append(ce.compute_tile_smooth_cuda(
+                        spec, mi, cycle_check=cyc, device=cuda, **kw))
+            torch.cuda.synchronize()
+            for g, cyc in zip(got, cycles):
+                want = ce.escape_smooth_plain(
+                    row, mi, spec.height, spec.width, cycle_check=cyc,
+                    device=cuda, **_mode_args(kw))
+                assert torch.equal(_bits(g), _bits(want)), (spec, mi, cyc)
+
+
+def _state_vs_plain(rows, mis, h, w, kw, dev, phase):
+    from distributedmandelbrot_tpu_torch.ops import compact_escape as cx
+    got = cx.escape_state_cuda(rows, mis, height=h, width=w, device=dev,
+                               phase_budget=phase, **_mode_args(kw))
+    want = cx.escape_state_plain(rows, mis, height=h, width=w, device=dev,
+                                 phase_budget=phase, **_mode_args(kw))
+    for g, w_ in zip(got, want):
+        assert _bits_equal(g, w_), phase
+    return got
+
+
+@pytest.mark.parametrize("mode", sorted(K3_MODES))
+def test_k6_stress_300_tiles(cuda, mode):
+    """K6 at k = 300 tiles of 64^2 with budgets 1-1000 (1-9 included),
+    at the pipeline's phase of 256 steps and at 61: its six planes bit
+    for bit its plain version's."""
+    specs, mis = stress_batch(k=300, top=1000)
+    rows = _batch_rows(specs, K3_MODES[mode])
+    for phase in (256, 61):
+        _state_vs_plain(rows, mis, 64, 64, K3_MODES[mode], cuda, phase)
+
+
+def test_k6_past_one_grid_z_slice(cuda):
+    """K6 at k = 65,537 tiles of 4x32 in one call, which launches its
+    grid in slices of 65,535 tiles: tile t repeats distinct tile t % 7
+    (budgets 1-1000)."""
+    from distributedmandelbrot_tpu_torch.ops import compact_escape as cx
+    base = [TileSpec(-0.75 + 0.01 * i, 0.1 - 0.003 * i, 0.02 * (i + 1),
+                     0.01, width=32, height=4) for i in range(7)]
+    base_mis = [1, 2, 9, 17, 257, 300, 1000]
+    rows = _batch_rows(base, {})
+    idx = np.arange(65_537) % 7
+    ce.reset_launch_counts()
+    got = cx.escape_state_cuda(rows[idx], [base_mis[i] for i in idx],
+                               height=4, width=32, device=cuda)
+    assert ce.launch_counts()[ce.KERNEL_STATE] == 1
+    want = cx.escape_state_plain(rows, base_mis, height=4, width=32,
+                                 device=cuda)
+    pick = torch.from_numpy(idx).to(cuda)
+    for g, w in zip(got, want):
+        assert _bits_equal(g, w[pick])
+
+
+def test_k4_and_k6_instrumented_forms(cuda):
+    """K4's and K6's instrumented forms: the same values, and at least
+    the lane steps the pixels need (K4's in-set pixels need at most the
+    budget), K4's in whole groups of 8 steps x 32 lanes, K6's in steps of
+    32 lanes."""
+    from distributedmandelbrot_tpu_torch.ops import compact_escape as cx
+    spec = TileSpec.for_chunk(4, 1, 2, definition=256)
+    steps = torch.zeros((1,), dtype=torch.int64, device=cuda)
+    got = ce.compute_tile_smooth_cuda(spec, 1024, device=cuda,
+                                      lane_steps=steps)
+    want, need = ce.escape_smooth_plain(
+        ce._params_row(spec), 1024, 256, 256, cycle_check=True, device=cuda,
+        return_steps=True)
+    assert torch.equal(_bits(got), _bits(want))
+    need = torch.where(want == 0, need.clamp(max=1023), need)
+    issued = int(steps.item())
+    assert issued >= int(need.sum()) and issued % 256 == 0
+    specs = [spec, TileSpec.for_chunk(4, 1, 1, definition=256)]
+    rows = _batch_rows(specs, {})
+    steps.zero_()
+    got = cx.escape_state_cuda(rows, [1000, 1000], height=256, width=256,
+                               device=cuda, lane_steps=steps)
+    want = cx.escape_state_plain(rows, [1000, 1000], height=256, width=256,
+                                 device=cuda)
+    assert all(_bits_equal(g, w) for g, w in zip(got, want))
+    _, k3_steps = ce.escape_batch_plain(rows, [1000, 1000], height=256,
+                                        width=256, device=cuda,
+                                        return_steps=True)
+    issued = int(steps.item())
+    assert issued >= int(k3_steps.clamp(max=256).sum())
+    assert issued % 32 == 0

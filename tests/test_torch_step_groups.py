@@ -1,6 +1,7 @@
-"""The per-lane loop of K1 and K2 (``dm::step_group`` in
-``ops/csrc/escape.cuh``: eight steps a group, the cycle probe and the
-budget once per group) on the CPU, bitwise against the plain versions.
+"""The per-lane loops of the persistent kernels on the CPU, bitwise
+against the plain versions: ``dm::step_group`` (K1, K2, K3, K5: eight
+steps a group, the cycle probe and the budget once per group),
+and ``dm::smooth_group`` (K4), both in ``ops/csrc/escape.cuh``.
 
 The header is compiled by the host C++ compiler through
 ``ops/csrc/host/step_groups.cpp`` (``__device__`` dropped, the ``_rn``
@@ -8,7 +9,8 @@ intrinsics as plain f32 operations, ``-ffp-contract=off``); nvcc builds
 the same header unchanged for the card.  Each pixel runs alone; n, the
 steps it ran and its byte must equal the plain version's, in every mode
 and the matrix form (K8), at budgets around the group length and deep
-ones with the probe armed.  Skips where no C++ compiler is found."""
+ones with the probe armed; K4's state and smooth value likewise.
+Skips where no C++ compiler is found."""
 
 import ctypes
 import shutil
@@ -60,6 +62,9 @@ def host_lib(tmp_path_factory):
     lib.dm_host_tile.restype = i
     lib.dm_host_census.argtypes = [vp, i, i, f, i, i, i, i, i]
     lib.dm_host_census.restype = ctypes.c_long
+    lib.dm_host_smooth.argtypes = [vp, i, i, i, f, i, f, i, i, i, i, i,
+                                   vp, vp, vp, vp]
+    lib.dm_host_smooth.restype = None
     return lib
 
 
@@ -161,3 +166,113 @@ def test_the_scout_census_equals_the_plain_census(host_lib, mode):
                                      c_imag=ci, power=power,
                                      burning=burning)
         assert got == want, view
+
+
+# --- K4: dm::smooth_group ---------------------------------------------------
+
+BAILOUT = 256.0
+SMOOTH_BUDGETS = [*range(2, 10), 17, 300, 1500]
+SMOOTH_MODES = ("mandelbrot", "julia", "multibrot3", "ship")
+# c = -2 exactly at pixel (0, 0): an orbit on the radius-2 circle that
+# never reaches the bailout, so it stops at the step limit.
+TIP = (-1.75, 0.25, 0.5)
+
+
+def _smooth_views(mode):
+    views = MODES[mode][1][:2]
+    return views + [TIP] if mode == "mandelbrot" else views
+
+
+def _host_smooth(lib, row, mrd, kw, cycle):
+    julia = len(row) == 6
+    power = kw.get("power", 2)
+    family, interior_mode, disk_lim = ce._mode_args(
+        power, kw.get("burning", False), julia, True)
+    n = np.zeros((SIDE, SIDE), np.int32)
+    n2 = np.zeros((SIDE, SIDE), np.int32)
+    mag2 = np.zeros((SIDE, SIDE), np.float32)
+    exits = np.zeros((SIDE, SIDE), np.int32)
+    lib.dm_host_smooth(ce._row6(row).ctypes.data, int(julia), mrd,
+                       ce.smooth_step_limit(mrd, BAILOUT),
+                       float(np.float32(BAILOUT * BAILOUT)), interior_mode,
+                       disk_lim, int(cycle), family, power,
+                       SIDE, SIDE, n.ctypes.data, n2.ctypes.data,
+                       mag2.ctypes.data, exits.ctypes.data)
+    return n, n2, mag2, exits
+
+
+def _nu(n, n2, mag2, dyn, power):
+    """escape_time.smooth_nu's operations with |z|^2 given: what K4's
+    epilogue computes from the state its lane leaves."""
+    f32 = torch.float32
+    big = torch.finfo(f32).max
+    mag2 = torch.nan_to_num(torch.from_numpy(mag2), nan=big, posinf=big)
+    mag2 = torch.minimum(torch.maximum(mag2, torch.tensor(BAILOUT * BAILOUT,
+                                                          dtype=f32)),
+                         torch.tensor(big, dtype=f32))
+    corr = torch.log2(torch.log(mag2)
+                      / torch.tensor(2.0 * np.log(BAILOUT), dtype=f32))
+    if power != 2:
+        corr = corr / torch.tensor(np.log2(power), dtype=f32)
+    nu = torch.from_numpy(n + 2).to(f32) - corr
+    return torch.where(torch.from_numpy(n2 >= dyn), torch.zeros((), dtype=f32),
+                       nu)
+
+
+def _bits(a):
+    return np.asarray(a, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("cycle", [False, True])
+@pytest.mark.parametrize("mrd", SMOOTH_BUDGETS)
+@pytest.mark.parametrize("mode", SMOOTH_MODES)
+def test_smooth_groups_equal_the_plain_loop(host_lib, mode, mrd, cycle):
+    """K4's group: the in-set decision, n and |z|^2 of the plain
+    loop's state, and the smooth value of escape_smooth_plain, bit for
+    bit."""
+    kw = MODES[mode][0]
+    power, burning = kw.get("power", 2), kw.get("burning", False)
+    dyn = mrd - 1
+    for view in _smooth_views(mode):
+        row = np.asarray(ce._params_row(_spec(*view), kw.get("julia_c")),
+                         np.float32)
+        zr0, zi0, cr, ci, julia = ce._kernel_orbit_inputs(row, SIDE, SIDE,
+                                                          "cpu")
+        interior = (None if julia else
+                    escape_time.family_interior(cr, ci, power, burning))
+        pn, pn2, pzr, pzi = (t.numpy() for t in escape_time.escape_smooth_loop(
+            zr0, zi0, cr, ci, total_steps=dyn,
+            step_limit=ce.smooth_step_limit(mrd, BAILOUT), bailout=BAILOUT,
+            interior=interior, cycle_check=cycle, power=power,
+            burning=burning))
+        want = ce.escape_smooth_plain(row, mrd, SIDE, SIDE, bailout=BAILOUT,
+                                      cycle_check=cycle, power=power,
+                                      burning=burning, device="cpu")
+        out = pn2 < dyn
+        n, n2, mag2, _ = _host_smooth(host_lib, row, mrd, kw, cycle)
+        assert np.array_equal(n2 < dyn, out), view
+        assert np.array_equal(n[out], pn[out]), view
+        assert np.array_equal(_bits(mag2[out]),
+                              _bits((pzr * pzr + pzi * pzi)[out])), view
+        assert np.array_equal(_bits(_nu(n, n2, mag2, dyn, power)),
+                              _bits(want)), view
+
+
+def test_the_smooth_step_limit_is_whole_groups():
+    """K4's groups never straddle the step limit: it is a multiple of 64
+    at every budget (the kernel's entry refuses any other)."""
+    for mrd in [*range(2, 300), 1023, 1024, 1025, 4096, 50_000]:
+        assert ce.smooth_step_limit(mrd, BAILOUT) % 64 == 0, mrd
+
+
+def test_the_smooth_group_exercises_every_exit(host_lib):
+    """The windows above reach every exit of K4's group: the bailout, the
+    step limit, the probe, in the set by n2."""
+    seen = set()
+    for view, mrd, cycle in ((TIP, 300, False), ((-0.2, 0.7, 0.4), 1500,
+                                                 True)):
+        row = np.asarray(ce._params_row(_spec(*view)), np.float32)
+        seen |= set(np.unique(_host_smooth(host_lib, row, mrd, {},
+                                           cycle)[3]).tolist())
+    assert {1, 2, 3, 4} <= seen, seen
+
