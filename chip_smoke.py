@@ -38,7 +38,13 @@ JSON line; any failure raises and the script exits non-zero.
    and armed, two launches at once on two streams; K6 (one thread a
    pixel) at k = 300 tiles of 64^2 with budgets 1-1000 in every mode at
    phases 256 and 61, and at k = 65,537 tiles of 4x32 (two launches of
-   its grid's tile slices).  Fused batches past one K2
+   its grid's tile slices); K7 (one thread a lane of a list) on the
+   live lanes of 300 tiles of 32^2 (budgets 1-1000) from steps 257 and
+   62, rounds of 1, 7 and 256 steps and to the end, in every mode,
+   packed and over an index list (int64, int32), two launches at once on
+   two streams; the compacted pipeline (one K7 launch over the live
+   lanes' indices) against K3, after phases of 256 and 64 steps.  Fused
+   batches past one K2
    launch's 128 tiles: 129 level-12 chunks at 64^2 through
    ``CudaBackend.dispatch_many`` on cuda:0 and on the ring ``[cuda:0,
    cuda:0]`` (two K2 launches, no demotion, per tile against K1), and
@@ -91,13 +97,16 @@ JSON line; any failure raises and the script exits non-zero.
    and the bytes it must move over the memory rate); K1 per mode, K5
    beside four K1 launches on the same windows, and the compacted
    pipeline's wall time beside K3's on one 4-chunk batch with the warp
-   lane-steps each issues over the steps the pixels need; K8 in K2
+   lane-steps each issues over the steps the pixels need and its device
+   time split by operation under torch.profiler; K7 on the whole resume
+   as the pipeline launches it (and its flat form on one round of 256
+   steps, a form off the path); K8 in K2
    beside K2 in the same run, with the static f32 instructions of each
    persistent kernel's instantiation (``cuobjdump -sass``), and K2 in
    each mode.  For K1, K2 and their modes, K3 (also on a light batch of
-   four level-4 chunks at 256), K4 (also on chunk (4,1,1) at 256), K5
-   and K6 (also on the light batch at 700) also the lane steps the warps
-   issue (measured by the instrumented form, beside the modelled
+   four level-4 chunks at 256), K4 (also on chunk (4,1,1) at 256), K5,
+   K6 (also on the light batch at 700) and K7 also the lane steps the
+   warps issue (measured by the instrumented form, beside the modelled
    ``f32_warp_steps`` of a one-pixel-a-thread loop), registers,
    occupancy and the SASS of the inner step group.
 
@@ -700,7 +709,78 @@ def check_refill_stress(ce, TileSpec, check) -> None:
               "the plain census (two streams at once)")
     check_k3_k5_stress(ce, TileSpec, check)
     check_k4_k6_stress(ce, TileSpec, check)
+    check_k7_stress(ce, TileSpec, check)
 
+
+# K7's stress rounds: from it0 (after a phase of it0 - 1 steps, so the
+# lanes' groups fall off and on multiples of 8) for these many steps,
+# None running to the deepest budget.
+RESUME_IT0 = (257, 62)
+RESUME_SEGS = (1, 7, 256, None)
+
+
+def check_k7_stress(ce, TileSpec, check) -> None:
+    """K7 over lists of lanes, bitwise against its plain version
+    (z as bits, n, act): the live lanes of 300 tiles of 32^2 with budgets
+    1-1000 (1-9 included) after phases of 256 and 61 steps, in every
+    mode, rounds of 1, 7 and 256 steps and to the end, each packed (the
+    flat form) and over an index list into K6's planes (int64, and int32
+    for the rounds to the end); the list's halves as two launches at once
+    on two streams."""
+    from distributedmandelbrot_tpu_torch.ops import compact_escape as cx
+    dev = torch.device("cuda", 0)
+    specs, mis = stress_batch(TileSpec, k=300, side=32, top=STATE_TOP)
+    dyn = torch.from_numpy(np.repeat(np.asarray(mis, np.int32) - 1,
+                                     32 * 32)).to(dev)
+    for mode, kw in MODES.items():
+        rows = np.asarray([ce._params_row(sp, kw.get("julia_c"))
+                           for sp in specs], np.float32)
+        fam = mode_args(kw)
+        for it0 in RESUME_IT0:
+            planes = [t.reshape(-1).contiguous() for t in
+                      cx.escape_state_cuda(rows, mis, height=32, width=32,
+                                           phase_budget=it0 - 1, device=dev,
+                                           **fam)]
+            live = torch.nonzero(planes[5]).squeeze(1)
+            packed = [t[live].contiguous() for t in planes]
+            for seg in RESUME_SEGS:
+                seg = seg or max(mis) - it0
+                what = f"({mode}, it0 {it0}, seg {seg}"
+                want = cx.escape_resume_plain(it0, seg, dyn[live], *packed,
+                                              **fam)
+                got = cx.escape_resume_cuda(it0, seg, dyn[live],
+                                            *(t.clone() for t in packed),
+                                            **fam)
+                for g, w in zip(got, want):
+                    check("escape_resume", g, w, f"plain {what}, packed)")
+                lists = [live] + ([live.to(torch.int32)]
+                                  if seg == max(mis) - it0 else [])
+                for idx in lists:
+                    got = cx.escape_resume_cuda(
+                        it0, seg, dyn, *(t.clone() for t in planes),
+                        idx=idx, **fam)
+                    for g, w in zip(got, want):
+                        check("escape_resume", g[live], w,
+                              f"plain {what}, {idx.dtype} list)")
+            fresh = [t.clone() for t in planes]
+            half = live.numel() // 2
+            streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+            torch.cuda.synchronize()
+            for part, st in zip((live[:half], live[half:]), streams):
+                with torch.cuda.stream(st):
+                    cx.escape_resume_cuda(it0, max(mis), dyn, *fresh,
+                                          idx=part, **fam)
+            torch.cuda.synchronize()
+            want = cx.escape_resume_plain(it0, max(mis), dyn, *planes,
+                                          idx=live, **fam)
+            for g, w in zip(fresh[2:], want):
+                check("escape_resume", g, w,
+                      f"plain ({mode}, it0 {it0}, two streams at once)")
+
+
+# The compacted pipeline's phases in kernel_vs_plain: the policy's, and
+# the reference's overflow case's (more live lanes than its capacity).
+PIPELINE_PHASES = (256, 64)
 
 # K4's stress budgets; K6's 300 tiles' top budget and phases.
 SMOOTH_BUDGETS = (*range(1, 10), 17, 1500)
@@ -902,23 +982,23 @@ def check_mesh_kernels(ce, TileSpec, views, check) -> int:
             check("escape_resume", g, w_, f"plain ({mode})")
         k3 = ce.compute_tiles_batch_cuda(rows, mis, height=128, width=128,
                                          device=dev, **fam)
-        for extra in ({}, {"cap_lanes": 4096}):
+        for phase in PIPELINE_PHASES:
             out = cx.compact_escape_batch(rows, mis, k=4, height=128,
                                           width=128, max_iter=max(mis),
-                                          device=dev, **fam, **extra)
-            check("escape_resume", out, k3, f"the pipeline vs K3 ({mode}, "
-                 f"{extra or 'no overflow'})")
-    # The pipeline at 4096^2 on the seahorse valley's edge: the capacity
-    # of the policy, and one small enough to overflow.
+                                          phase_budget=phase, device=dev,
+                                          **fam)
+            check("escape_resume", out, k3,
+                  f"the pipeline vs K3 ({mode}, phase {phase})")
+    # The pipeline at 4096^2 on the seahorse valley's edge.
     rows = np.asarray([ce._params_row(sp) for sp in deep[:2]], np.float32)
     k3 = ce.compute_tiles_batch_cuda(rows, [1000, 1000], height=4096,
                                      width=4096, device=dev)
-    for extra in ({}, {"cap_lanes": 1 << 20}):
+    for phase in PIPELINE_PHASES:
         out = cx.compact_escape_batch(rows, [1000, 1000], k=2, height=4096,
-                                      width=4096, max_iter=1000, device=dev,
-                                      **extra)
-        check("escape_resume", out, k3, f"the 4096^2 pipeline vs K3 "
-             f"({extra or 'no overflow'})")
+                                      width=4096, max_iter=1000,
+                                      phase_budget=phase, device=dev)
+        check("escape_resume", out, k3,
+              f"the 4096^2 pipeline vs K3 (phase {phase})")
     check_fused_over_one_launch(ce, TileSpec, check)
 
 
@@ -1132,6 +1212,131 @@ def phase_main_path_profile(wk, workloads) -> None:
           "device_busy_ms": busy_ms if seen else "not measured",
           "device_busy_share": busy_ms / 1e3 / wall if seen
           else "not measured"})
+
+
+# The compacted pipeline's device kernels by operation, matched on the
+# kernel names the profiler reports (first match wins): K6, K7; the pack
+# (torch.nonzero's count and select; in the parent's rounds also the
+# cumsum, the scatter by position and the arange); the gathers and
+# scatters by index (none in one launch; in the parent's rounds t[orig]
+# and n[orig] = ...); fills (zeroed counters); copies (the rows and
+# budgets up, the live count down); every other elementwise kernel is
+# the epilogue's.
+SPLIT_CLASSES = (
+    ("k6", r"escape_state_kernel"),
+    ("k7", r"escape_resume_kernel"),
+    ("pack", r"[Ss]can|[Ss]elect|[Cc]ompact|nonzero|flag_kernel|"
+             r"write_indices|DeviceReduce|_scatter_gather|with_index"),
+    ("gathers_and_scatters", r"index_elementwise|index_put|indexSelect|"
+                             r"index_select|gather"),
+    ("fills", r"FillFunctor|fill_kernel"),
+    ("host_to_device", r"HtoD|Memcpy HtoD"),
+    ("device_to_host", r"DtoH|Memcpy DtoH"),
+    ("epilogue", r"elementwise|Functor|copy_kernel|where|reduce"),
+)
+
+
+# The profiler range around the call that compact_split measures.
+SPLIT_MARK = "dm_split_call"
+# Seconds the split's own process may take.
+SPLIT_TIMEOUT_S = 300
+
+
+def run_split() -> int:
+    """``--split``: compact_split of the compacted pipeline on EDGE4 at
+    1000, as one JSON line (a process of its own: in one that profiled
+    before, the profiler missed the first device events of every range
+    on an H100)."""
+    from distributedmandelbrot_tpu_torch.core.geometry import TileSpec
+    from distributedmandelbrot_tpu_torch.ops import compact_escape as cx
+    from distributedmandelbrot_tpu_torch.ops import cuda_escape as ce
+    dev = torch.device("cuda", 0)
+    rows = np.asarray([ce._params_row(TileSpec.for_chunk(10, i, j))
+                       for i, j in EDGE4], np.float32)
+
+    emit(compact_split(lambda: cx.compact_escape_batch(
+        rows, [1000] * len(rows), k=len(rows), height=4096, width=4096,
+        max_iter=1000, device=dev)))
+    return 0
+
+
+def split_in_child() -> dict:
+    """run_split in a fresh process of this script."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--split"], capture_output=True, text=True,
+                          timeout=SPLIT_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"the split's process failed:\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def compact_split(fn, tries: int = 3) -> dict:
+    """One call of ``fn`` (a compacted pipeline on cuda:0, warmed up)
+    under torch.profiler: its wall time (host clock, ended by a
+    synchronize), the card's busy time (the union of its kernel and
+    copy intervals), device ms by SPLIT_CLASSES, the device-to-host
+    copies (the host reads of live counts), and the wall time the card
+    sat idle (the host's launches and reads).  Kernels no class matches
+    are listed under ``other``.  A profile that saw no K6 (a profile
+    can miss the first device events of its range) is taken again, up
+    to ``tries`` times; if none saw it, no split is reported ("not
+    measured")."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function(SPLIT_MARK):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        events = prof.events()
+        mark = next(e.time_range.start for e in events
+                    if e.name == SPLIT_MARK)
+        # The mark's own span on the device timeline is no kernel.
+        kernels = [e for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.time_range.start >= mark and e.name != SPLIT_MARK]
+        if any("escape_state_kernel" in e.name for e in kernels):
+            break
+    else:
+        return {"wall_ms": wall, "device_ms": "not measured",
+                "profiles_taken": tries,
+                "reason": "no profile saw the K6 launch"}
+    by_class = {name: 0.0 for name, _ in SPLIT_CLASSES}
+    other: dict = {}
+    spans = []
+    reads = 0
+    for evt in kernels:
+        start, end = evt.time_range.start, evt.time_range.end
+        spans.append((start, end))
+        ms = (end - start) / 1e3
+        for name, pattern in SPLIT_CLASSES:
+            if re.search(pattern, evt.name):
+                by_class[name] += ms
+                reads += name == "device_to_host"
+                break
+        else:
+            other[evt.name[:80]] = other.get(evt.name[:80], 0.0) + ms
+    busy, last = 0.0, None
+    for start, end in sorted(spans):
+        if last is None or start > last:
+            busy += (end - start) / 1e3
+            last = end
+        elif end > last:
+            busy += (end - last) / 1e3
+            last = end
+    if not spans:
+        return {"wall_ms": wall, "device_ms": "not measured"}
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_ms": wall - busy, "device_ms": by_class,
+            "device_to_host_copies": reads, "other": other,
+            "profiles_taken": attempt,
+            "timing": "one call under torch.profiler (its wall is inflated "
+                      "by the profiler); device ms by the kernels' names"}
 
 
 # (name, render flags, kernel): one 4096^2 view per mode of the render
@@ -1660,9 +1865,9 @@ def warp_steps(steps) -> int:
 def issued_lane_steps(launch) -> int:
     """Lane steps a kernel's instrumented form issues: ``launch`` gets a
     zeroed (1,) int64 counter on the card, to which each warp of a
-    persistent kernel adds 8 x 32 per group it runs, and each warp of K6
-    32 per step of its slowest lane (the counting form is launched
-    only here)."""
+    persistent kernel adds 8 x 32 per group it runs, each warp of K6
+    32 per step of its slowest lane, and each warp of K7 8 x 32 per group
+    of its slowest lane (the counting form is launched only here)."""
     counter = torch.zeros((1,), dtype=torch.int64, device="cuda")
     launch(counter)
     torch.cuda.synchronize()
@@ -1691,6 +1896,9 @@ PERSISTENT_FORMS = {
 
 # K6's uncounted form, escape_state_kernel<F, COUNT>: one thread a pixel.
 K6_FORM = "escape_state_kernel<0,0>"
+# K7's uncounted form, escape_resume_kernel<F, COUNT>: one thread a lane
+# of a list, in 8-step groups.
+K7_FORM = "escape_resume_kernel<0,0>"
 
 
 def persistent_fields(ce, ptxas: dict, groups, form: str, issued: int,
@@ -1777,31 +1985,17 @@ def time_k1_modes(ce, TileSpec, dev, ptxas, groups) -> dict:
     return out
 
 
-def compact_warp_steps(steps, phase: int, seg: int, cap: int):
+def compact_warp_steps(steps, phase: int):
     """Warp lane-steps of the compacted pipeline for these per-pixel
     steps: K6 runs every pixel for at most ``phase`` steps in the tile
-    layout; K7's rounds run the live lanes packed in pixel order (warps
-    of 32 consecutive lanes, re-packed after each round), the lanes past
-    ``cap`` in place in the tile layout.  Returns (K6, K7) lane-steps."""
+    layout; K7 runs the live lanes in pixel order, in one launch (warps
+    of 32 consecutive lanes, each until its slowest lane ends).  Returns
+    (K6, K7) lane-steps."""
     s = steps.reshape(-1).to(torch.int64)
     k6 = warp_steps(s.clamp(max=phase))
-    live = torch.nonzero(s > phase).squeeze(1)
-    packed, over = s[live[:cap]], live[cap:]
-    k7, it0 = 0, phase + 1
-    while packed.numel() or over.numel():
-        end = it0 + seg - 1
-        if packed.numel():
-            run = (packed.clamp(max=end) - it0 + 1).clamp(min=0)
-            run = torch.nn.functional.pad(run, (0, -run.numel() % 32))
-            k7 += int(run.reshape(-1, 32).max(dim=1).values.sum()) * 32
-            packed = packed[packed > end]
-        if over.numel():
-            run = torch.zeros_like(s)
-            run[over] = (s[over].clamp(max=end) - it0 + 1).clamp(min=0)
-            k7 += warp_steps(run)
-            over = over[s[over] > end]
-        it0 += seg
-    return k6, k7
+    live = s[s > phase] - phase
+    run = torch.nn.functional.pad(live, (0, -live.numel() % 32))
+    return k6, int(run.reshape(-1, 32).max(dim=1).values.sum()) * 32
 
 
 # K3's light batch: four level-4 chunks at budget 256 (the probe off),
@@ -1952,9 +2146,7 @@ def time_mesh_kernels(ce, TileSpec, dev, ptxas, groups) -> dict:
         return cx.compact_escape_batch(rows, [mi] * k, k=k, height=4096,
                                        width=4096, max_iter=mi, device=dev)
 
-    cap = cx.compact_capacity(n_pix)
-    k6_lanes, k7_lanes = compact_warp_steps(steps, cx.PHASE1_BUDGET,
-                                            cx.RESUME_SEG, cap)
+    k6_lanes, k7_lanes = compact_warp_steps(steps, cx.PHASE1_BUDGET)
     # K3's warp lane-steps under a one-pixel-a-thread loop (a model),
     # beside what K3 issues (its instrumented form).
     k3_lanes = warp_steps(steps)
@@ -1975,7 +2167,6 @@ def time_mesh_kernels(ce, TileSpec, dev, ptxas, groups) -> dict:
         "k3_lane_steps_issued": k3_issued,
         "k3_issued_over_needed": k3_issued / needed,
         "compact_lane_steps_over_needed": (k6_lanes + k7_lanes) / needed,
-        "capacity": cap,
         "live_after_phase1": int((steps > cx.PHASE1_BUDGET).sum())}
 
     state = cx.escape_state_cuda(rows, [mi] * k, height=4096, width=4096,
@@ -2003,43 +2194,87 @@ def time_mesh_kernels(ce, TileSpec, dev, ptxas, groups) -> dict:
         "input": finding["input"] + ", phase 1 (256 steps)",
         "light_batch": time_state_light(ce, cx, TileSpec, dev)}
 
-    # K7's first round on the packed live lanes, each timed launch on a
-    # fresh copy (the kernel updates its lanes in place).
+    # K7 as the pipeline launches it (the row): one launch over the live
+    # lanes' indices into K6's planes, steps 257-999; and its flat form
+    # on the first round of 256 steps over the packed live lanes (a form
+    # off the pipeline's path, the table's input before PR 8).  Each
+    # timed launch runs on a fresh copy of what it updates in place.
     cr, ci, zr, zi, n, act = (t.reshape(-1) for t in plain)
-    live = act != 0
-    pos, n_live = cx._positions(live)
-    take = cx._pack(live, pos, min(n_live, cap))
-    dyn = torch.full((take.numel(),), mi - 1, dtype=torch.int32, device=dev)
-    lanes = [t[take].contiguous() for t in (cr, ci, zr, zi, n)]
+    live = torch.nonzero(act).squeeze(1)
+    flat_dyn = torch.full_like(n, mi - 1)
+    dyn = flat_dyn[live]
+    lanes = [t[live].contiguous() for t in (cr, ci, zr, zi, n)]
     lanes.append(torch.ones_like(dyn))
-    want = cx.escape_resume_plain(257, cx.RESUME_SEG, dyn, *lanes)
-    got = cx.escape_resume_cuda(257, cx.RESUME_SEG, dyn,
-                                *(t.clone() for t in lanes))
-    times = []
-    for _ in range(22):
-        fresh = [t.clone() for t in lanes]
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        cx.escape_resume_cuda(257, cx.RESUME_SEG, dyn, *fresh)
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    run = (steps.reshape(-1)[take].to(torch.int64).clamp(max=512) - 256
-           ).clamp(min=0)
-    b_ms, b_by, ops = bound(int(run.sum()), 0,
-                            RESUME_BYTES_PER_LANE * take.numel())
+    whole = {"it0": 257, "seg": mi - 1 - cx.PHASE1_BUDGET, "dyn": flat_dyn,
+             "planes": [cr, ci, zr, zi, n, act], "idx": live, "end": mi - 1,
+             "plain_reps": (1, 0)}
+    first = {"it0": 257, "seg": cx.RESUME_SEG, "dyn": dyn, "planes": lanes,
+             "idx": None, "end": 512, "plain_reps": (3, 1)}
+
+    def k7_call(case, planes=None, **kw):
+        return cx.escape_resume_cuda(case["it0"], case["seg"], case["dyn"],
+                                     *(planes or case["planes"]),
+                                     idx=case["idx"], **kw)
+
+    def fresh(case):
+        return case["planes"][:2] + [t.clone() for t in case["planes"][2:]]
+
+    def k7_times(case, reps=22):
+        times = []
+        for _ in range(reps):
+            planes = fresh(case)
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            k7_call(case, planes)
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+        return statistics.median(times[2:])
+
+    lane_steps = steps.reshape(-1)[live].to(torch.int64)
+    for case in (whole, first):
+        want = cx.escape_resume_plain(case["it0"], case["seg"], case["dyn"],
+                                      *case["planes"], idx=case["idx"])
+        got = k7_call(case, fresh(case))
+        sel = live if case["idx"] is not None else slice(None)
+        need = int((lane_steps.clamp(max=case["end"])
+                    - cx.PHASE1_BUDGET).clamp(min=0).sum())
+        per_lane = RESUME_BYTES_PER_LANE + (8 if case["idx"] is not None
+                                            else 0)
+        b_ms, b_by, ops = bound(need, 0, per_lane * live.numel())
+        issued = issued_lane_steps(lambda c: k7_call(case, fresh(case),
+                                                     lane_steps=c))
+        reps, warmup = case["plain_reps"]
+        case.update({
+            "ms": k7_times(case),
+            "plain_ms": median_ms(lambda: cx.escape_resume_plain(
+                case["it0"], case["seg"], case["dyn"], *case["planes"],
+                idx=case["idx"]), reps=reps, warmup=warmup),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "ops": ops, "f32_steps": need, "lane_steps_issued": issued,
+            "lane_steps_over_needed": issued / need,
+            "bitwise_vs_plain": all(bit_diff(a[sel], b[sel])[0] == 0
+                                    for a, b in zip(got, want))})
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "ops", "f32_steps",
+             "lane_steps_issued", "lane_steps_over_needed",
+             "bitwise_vs_plain")
+    regs = ptxas.get(K7_FORM, {})
     out["escape_resume"] = {
-        "ms": statistics.median(times[2:]),
-        "plain_ms": median_ms(lambda: cx.escape_resume_plain(
-            257, cx.RESUME_SEG, dyn, *lanes), reps=3, warmup=1),
-        "bound_ms": b_ms, "bound_by": b_by, "ops": ops,
-        "bitwise_vs_plain": all(bit_diff(a, b)[0] == 0
-                                for a, b in zip(got, want)),
-        "lanes": take.numel(),
-        "input": finding["input"] + ", the first resume round (steps "
-                 "257-512) over the packed live lanes"}
+        **{k: whole[k] for k in timed},
+        "lanes": live.numel(),
+        "instantiation": K7_FORM, "registers": regs.get("registers"),
+        "spill_stores": regs.get("spill_stores"),
+        "input": finding["input"] + ", steps 257-999 in one launch over "
+                 "the live lanes' indices into K6's planes, as the "
+                 "pipeline launches it",
+        "first_round": {
+            "input": finding["input"] + ", steps 257-512 over the packed "
+                     "live lanes: the flat form, which the pipeline does "
+                     "not launch",
+            **{k: first[k] for k in timed}}}
+    finding["split"] = split_in_child()
     out["compaction_vs_k3"] = finding
     return out
 
@@ -2358,4 +2593,6 @@ if __name__ == "__main__":
         args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
         sys.exit(run_rank(int(args["--rank"]), int(args["--port"]),
                           args["--out"]))
+    if "--split" in sys.argv:
+        sys.exit(run_split())
     sys.exit(main())

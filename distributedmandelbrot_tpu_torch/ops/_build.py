@@ -128,8 +128,9 @@ def load() -> ctypes.CDLL:
             lib.dm_escape_state.argtypes = [vp] * 8 + [i, i, i, i, i, f, i,
                                                        i, i, vp, vp]
             lib.dm_escape_state.restype = i
-            lib.dm_escape_resume.argtypes = [vp] * 7 + [ctypes.c_longlong,
-                                                        i, i, i, i, vp]
+            ll = ctypes.c_longlong
+            lib.dm_escape_resume.argtypes = [vp] * 8 + [i, ll, i, ll, i, i,
+                                                        vp, vp]
             lib.dm_escape_resume.restype = i
             lib.dm_persistent_blocks_per_sm.argtypes = [i, i, i, i]
             lib.dm_persistent_blocks_per_sm.restype = i

@@ -10,31 +10,29 @@ gathers the stragglers of a whole batch into dense lanes:
    K3's pixel, capped at ``phase_budget`` steps, writes the raw state
    ``(c, z, n, act)`` instead of bytes.  ``act`` is 1 for a pixel still
    live with budget left.
-2. **Compaction and resume rounds** (K7, ``escape_resume``; replaces
-   ``_resume_block_kernel``): the live lanes of every tile are packed
-   into a buffer of capacity C (a cumsum of ``act``, then a scatter by
-   position), and K7 continues them in rounds of ``seg_steps`` steps,
-   each lane with its own c and budget.  Between rounds the buffer is
-   re-compacted, so its live prefix shrinks as lanes retire, and every
-   lane's count is scattered back by its original pixel index.
-3. **Overflow**: lanes past capacity resume in place over the original
-   layout (K7 on the whole flat state; dead lanes leave at once).
-4. **Epilogue**: the uint8 bytes from the counts, per lane.
+2. **Resume** (K7, ``escape_resume``; replaces ``_resume_block_kernel``):
+   one launch over the indices of the live lanes (``torch.nonzero`` of
+   ``act``) runs each lane from step ``phase_budget + 1`` to its own
+   budget, with its own c, reading and writing its state where it lies
+   in K6's planes.  The reference packs the survivors into a buffer of
+   the compact capacity, resumes them in rounds of ``RESUME_SEG`` steps
+   re-compacted between rounds, and resumes the lanes past capacity in
+   place: a TPU lane cannot leave its block early.  K7 runs one thread a
+   lane with per-thread exit, and the live lanes of a warp are
+   neighbours whose orbits run alike, so the list needs no buffer, no
+   capacity and no shrinking between rounds.
+3. **Epilogue**: the uint8 bytes from the counts, per lane.
 
-The glue (cumsum, scatter, gather, epilogue) is torch on the batch's
-device: the reference did it in XLA, outside any Pallas kernel.  The
-round loop reads the live count on the host to size each round: once
-after phase 1 and once after each compact round but the last (the
-overflow rounds read nothing).  In the policy's band (budgets 513-1023,
-phase 1 = 256 steps, rounds of 256) that is at most three reads per
-batch.
+The glue (nonzero, epilogue) is torch on the batch's device: the
+reference did it in XLA, outside any Pallas kernel.  The live count is
+read on the host once, after phase 1 (``torch.nonzero``).
 
-**Identity.**  K6 then K7 rounds equal K3 bitwise, overflow included: a
-resumed lane recomputes its squares from z with the same correctly
-rounded multiply that cached them and continues the same step sequence,
-and per-pixel exit makes every seam exact.  The reference's TPU-layout
-guards (unroll-aligned phases, a 128-lane width, block-divisible
-extents) have no counterpart here.
+**Identity.**  K6 then K7 equal K3 bitwise, and K7 in rounds of any
+length equals K7 in one: a resumed lane recomputes its squares from z
+with the same correctly rounded multiply that cached them and continues
+the same step sequence, and per-pixel exit makes every seam exact.
+The reference's TPU-layout guards (unroll-aligned phases, a 128-lane
+width, block-divisible extents) have no counterpart here.
 
 On the CPU the same glue runs K6's and K7's plain versions
 (:func:`escape_state_plain`, :func:`escape_resume_plain`).
@@ -55,11 +53,12 @@ from distributedmandelbrot_tpu_torch.ops import escape_time
 # reference's PHASE1_BUDGET).
 PHASE1_BUDGET = 256
 
-# Steps per resume round (the reference's RESUME_SEG).
+# The reference's policy constants, held equal to its own by the tests:
+# steps per resume round (RESUME_SEG), and the compact buffer's capacity
+# as a fraction of the batch's pixels (the denominator), aligned up to
+# its (32, 128) block grid.  The port's pipeline has no buffer and runs
+# no rounds.
 RESUME_SEG = 256
-
-# Compact-buffer capacity as a fraction of the batch's pixels (the
-# denominator), aligned up to the reference's (32, 128) block grid.
 COMPACT_CAPACITY_FRAC = 4
 
 # The reference's compact-buffer geometry, kept as numbers: they size
@@ -72,8 +71,8 @@ _PLAIN_COMPACT_EVERY = 16
 
 
 def compact_capacity(n_pixels: int) -> int:
-    """The compact buffer's capacity for a batch: ``n_pixels / 4``,
-    aligned up to a whole (32, 128) block grid."""
+    """The reference's compact-buffer capacity for a batch: ``n_pixels /
+    4``, aligned up to a whole (32, 128) block grid."""
     granule = _RESUME_BLOCK_H * _LANE
     want = max(granule, n_pixels // COMPACT_CAPACITY_FRAC)
     return -(-want // granule) * granule
@@ -181,11 +180,22 @@ def escape_state_plain(rows, mrd_rows, *, height: int, width: int,
 
 
 def escape_resume_plain(it0: int, seg: int, dyn, cr, ci, zr, zi, n, act, *,
-                        power: int = 2, burning: bool = False):
-    """K7's plain version: one resume round over flat lanes -> new
-    ``(z_re, z_im, n, act)``: each live lane runs steps ``it0 .. min(it0
-    + seg - 1, dyn)``, and keeps ``act`` = 1 only if still live with
-    budget left."""
+                        idx: torch.Tensor | None = None, power: int = 2,
+                        burning: bool = False):
+    """K7's plain version: one resume round -> new ``(z_re, z_im, n,
+    act)``: each live lane runs steps ``it0 .. min(it0 + seg - 1, dyn)``,
+    and keeps ``act`` = 1 only if still live with budget left.  The lanes
+    are the flat tensors' elements, or with ``idx`` (unique indices) the
+    elements it lists; the others are returned as they were."""
+    if idx is not None:
+        sel = idx.to(torch.int64)
+        round_ = escape_resume_plain(
+            it0, seg, dyn[sel], cr[sel], ci[sel], zr[sel], zi[sel], n[sel],
+            act[sel], power=power, burning=burning)
+        out = [t.clone() for t in (zr, zi, n, act)]
+        for t, v in zip(out, round_):
+            t[sel] = v
+        return tuple(out)
     zr, zi, n = zr.clone(), zi.clone(), n.clone()
     live = act != 0
     _advance(zr, zi, cr, ci, n, dyn, live, it0, it0 + seg - 1, power=power,
@@ -240,16 +250,22 @@ def escape_state_cuda(rows, mrd_rows, *, height: int, width: int,
 
 
 def escape_resume_cuda(it0: int, seg: int, dyn, cr, ci, zr, zi, n, act, *,
-                       power: int = 2, burning: bool = False):
+                       idx: torch.Tensor | None = None, power: int = 2,
+                       burning: bool = False,
+                       lane_steps: torch.Tensor | None = None):
     """K7: one resume round over flat lane tensors (f32 ``cr, ci, zr,
     zi``; int32 ``dyn, n, act``, all on one device) -> ``(zr, zi, n,
-    act)``.  On the card the kernel updates the four in place (the
-    compacted pipeline owns them) on the device's current stream; on
-    the CPU the plain version returns new tensors."""
+    act)``.  ``idx`` (int64 or int32, unique) lists the lanes by their
+    place in those tensors, which are read and written there; without
+    it every element is a lane.  On the card the kernel updates the four
+    in place (the compacted pipeline owns them) on the device's current
+    stream; on the CPU the plain version returns new tensors.
+    ``lane_steps`` launches the instrumented form, which adds the lane
+    steps its warps issue."""
     dev = zr.device
     if dev.type != "cuda":
         return escape_resume_plain(it0, seg, dyn, cr, ci, zr, zi, n, act,
-                                   power=power, burning=burning)
+                                   idx=idx, power=power, burning=burning)
     for t, dt in ((zr, torch.float32), (zi, torch.float32),
                   (cr, torch.float32), (ci, torch.float32),
                   (n, torch.int32), (act, torch.int32), (dyn, torch.int32)):
@@ -258,6 +274,14 @@ def escape_resume_cuda(it0: int, seg: int, dyn, cr, ci, zr, zi, n, act, *,
             raise ValueError("resume lanes must be contiguous, equal-length "
                              "f32 (c, z) and int32 (n, act, dyn) tensors on "
                              "one device")
+    if idx is not None and (idx.dtype not in (torch.int64, torch.int32)
+                            or idx.device != dev or idx.dim() != 1
+                            or not idx.is_contiguous()):
+        raise ValueError("idx must be a contiguous 1-D int64 or int32 tensor "
+                         "on the lanes' device")
+    lanes = zr.numel() if idx is None else idx.numel()
+    if lanes == 0:
+        return zr, zi, n, act
     from distributedmandelbrot_tpu_torch.ops import _build
     lib = _build.load()
     family = ce._mode_args(power, burning, False, False)[0]
@@ -266,8 +290,10 @@ def escape_resume_cuda(it0: int, seg: int, dyn, cr, ci, zr, zi, n, act, *,
         rc = lib.dm_escape_resume(
             *(ctypes.c_void_p(t.data_ptr()) for t in (zr, zi, n, act, cr, ci,
                                                        dyn)),
-            zr.numel(), int(it0), int(seg), family, int(power),
-            ctypes.c_void_p(stream))
+            ctypes.c_void_p(None if idx is None else idx.data_ptr()),
+            0 if idx is None else idx.element_size(), lanes, int(it0),
+            int(seg), family, int(power),
+            ce._lane_steps_ptr(lane_steps, dev), ctypes.c_void_p(stream))
     ce._check_rc(lib, rc, ce.KERNEL_RESUME)
     ce._count_launch(ce.KERNEL_RESUME)
     return zr, zi, n, act
@@ -276,42 +302,22 @@ def escape_resume_cuda(it0: int, seg: int, dyn, cr, ci, zr, zi, n, act, *,
 # --- the pipeline --------------------------------------------------------
 
 
-def _positions(mask: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """``(pos, count)``: each set lane's position among the set lanes
-    (a cumsum) and their count, read on the host."""
-    pos = torch.cumsum(mask, 0, dtype=torch.int32) - 1
-    return pos, (int(pos[-1]) + 1 if pos.numel() else 0)
-
-
-def _pack(mask: torch.Tensor, pos: torch.Tensor, count: int) -> torch.Tensor:
-    """The indices of the first ``count`` set lanes, in order: each set
-    lane with ``pos < count`` scattered to its position (the rest to a
-    spill slot past the end)."""
-    slot = torch.where(mask & (pos < count), pos,
-                       torch.full_like(pos, count)).to(torch.int64)
-    src = torch.arange(mask.numel(), dtype=torch.int64, device=mask.device)
-    return torch.empty(count + 1, dtype=torch.int64,
-                       device=mask.device).scatter_(0, slot, src)[:count]
-
-
 def compact_escape_batch(rows, mrd_rows, *, k: int, height: int, width: int,
                          max_iter: int, clamp: bool = False,
                          interior_check: bool = True,
                          cycle_check: bool | None = None, power: int = 2,
                          burning: bool = False,
                          phase_budget: int = PHASE1_BUDGET,
-                         seg_steps: int = RESUME_SEG,
-                         cap_lanes: int | None = None,
                          device="cuda") -> torch.Tensor:
     """k tiles (params rows (k, 4|6) f32, budgets (k,) int) -> (k,
     height, width) uint8 on ``device`` through the compacted pipeline,
     bitwise equal to K3 on the same rows.  ``max_iter`` is the batch's
-    deepest budget; ``cap_lanes`` overrides the compact capacity (a
-    small one forces the overflow path).
+    deepest budget.  After K6, one K7 launch over the live lanes'
+    indices runs them to their budgets.
 
     Callers gate on :func:`prefer_compaction`.  The reference's policy
     declines raise :class:`~.cuda_escape.KernelUnsupported`: a
-    probe-class budget (the resume rounds carry no probe) and a budget
+    probe-class budget (the resume kernel carries no probe) and a budget
     that completes inside phase 1."""
     if escape_time.resolve_cycle_check(cycle_check, max_iter):
         raise ce.KernelUnsupported(
@@ -334,40 +340,12 @@ def compact_escape_batch(rows, mrd_rows, *, k: int, height: int, width: int,
     mrds = ce.batch_rows(rows, mrd_rows)[1]
     dyn = torch.from_numpy(mrds - 1).to(dev).repeat_interleave(
         height * width)
-    live = act != 0
-    pos, n_live = _positions(live)
-    cap = compact_capacity(k * height * width) if cap_lanes is None \
-        else cap_lanes
-    kept = min(n_live, cap)
-    step = dict(power=power, burning=burning)
-    if kept:
-        orig = _pack(live, pos, kept)
-        lane = [t[orig] for t in (zr, zi, n, cr, ci, dyn)]
-        lane.append(torch.ones(kept, dtype=torch.int32, device=dev))
-        it0 = phase_budget + 1
-        while True:
-            bzr, bzi, bn, bcr, bci, bdyn, bact = lane
-            bzr, bzi, bn, bact = escape_resume_cuda(
-                it0, seg_steps, bdyn, bcr, bci, bzr, bzi, bn, bact, **step)
-            n[orig] = bn  # final for the lanes that retired this round
-            it0 += seg_steps
-            if it0 > total:
-                break
-            still = bact != 0
-            pos2, cnt = _positions(still)
-            if cnt == 0:
-                break
-            take = _pack(still, pos2, cnt)
-            orig = orig[take]
-            lane = [t[take] for t in (bzr, bzi, bn, bcr, bci, bdyn)]
-            lane.append(torch.ones(cnt, dtype=torch.int32, device=dev))
-    if n_live > kept:
-        # Overflow: the lanes past capacity resume in place over the
-        # original layout, everything else dead.
-        resid = (live & (pos >= cap)).to(torch.int32)
-        for it0 in range(phase_budget + 1, total + 1, seg_steps):
-            zr, zi, n, resid = escape_resume_cuda(
-                it0, seg_steps, dyn, cr, ci, zr, zi, n, resid, **step)
+    # The live lanes' indices (the one host read: their count), then K7
+    # over them, each lane read and written where it lies, run from
+    # phase 1 to its budget.
+    zr, zi, n, act = escape_resume_cuda(
+        phase_budget + 1, total - phase_budget, dyn, cr, ci, zr, zi, n, act,
+        idx=torch.nonzero(act).squeeze(1), power=power, burning=burning)
     counts = torch.where(n >= dyn, 0, n + 1)
     mrd = dyn + 1
     vals = (counts * 256 + (mrd - 1)) // mrd

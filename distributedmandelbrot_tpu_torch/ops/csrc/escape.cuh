@@ -203,6 +203,44 @@ DM_D bool step_group(Orbit& o, int s, int dyn, bool cycle_check, int power) {
   return true;
 }
 
+// One group of the resume loop (K7): steps s + 1 .. min(s +
+// kCycleStride, last) of a lane live after its own step s (any s: the
+// probe is off, so nothing needs s to be a multiple of kCycleStride), in
+// a round that ends at step ``last`` <= dyn.  Each step is the update and
+// the radius-2 compare; a lane that leaves the disk exits the group at
+// once, so z and n stop at its escape step, as the plain loop's do (the
+// warp's other lanes step on without it).  A group that would pass
+// ``last`` runs single steps to it.  Returns 1 while the lane steps on, 0
+// once its round is over with the orbit inside radius 2 (s == last), -1
+// once it left the disk.
+template <int F>
+DM_D int resume_group(Orbit& o, int& s, int last, int power) {
+  const int left = last - s;
+  if (left >= kCycleStride) {
+#pragma unroll
+    for (int k = 1; k <= kCycleStride; ++k) {
+      update<F>(o.zr, o.zi, o.zr2, o.zi2, o.cr, o.ci, power);
+      if (!(fadd(o.zr2, o.zi2) < 4.0f)) {
+        o.n += k - 1;
+        return -1;
+      }
+    }
+    o.n += kCycleStride;
+    s += kCycleStride;
+    return s < last ? 1 : 0;
+  }
+  for (int k = 1; k <= left; ++k) {
+    update<F>(o.zr, o.zi, o.zr2, o.zi2, o.cr, o.ci, power);
+    if (!(fadd(o.zr2, o.zi2) < 4.0f)) {
+      o.n += k - 1;
+      return -1;
+    }
+  }
+  o.n += left;
+  s = last;
+  return 0;
+}
+
 // One orbit of the smooth loop (K4): z, its squares, c and the probe's
 // snapshot in ``o``, where o.n counts the steps inside the bailout; the
 // sticky radius-2 flag and its count n2 (plus dyn once the probe finds a

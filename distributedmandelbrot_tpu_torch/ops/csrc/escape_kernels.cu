@@ -25,8 +25,9 @@
 //   K3's pixel capped at a phase budget, writing the raw per-pixel state
 //   (c, z, n, act) instead of bytes, from K3's rows in device memory.
 // - escape_resume_kernel (K7, compact_escape.py's _resume_block_kernel):
-//   one resume round over a flat buffer of lanes, each carrying its own
-//   c and budget.
+//   one resume round over a list of lanes (indices into K6's planes, or
+//   a flat buffer), each carrying its own c and budget; the compacted
+//   pipeline runs it once, from phase 1 to the budgets.
 //
 // All run the per-pixel functions of escape.cuh, so a fused, packed or
 // batched launch equals single-tile launches bitwise, and K6 then K7
@@ -35,8 +36,9 @@
 // sequence (per-pixel exit makes every seam exact).  K1, K2, K3 and K5
 // step in groups of 8 (dm::step_group), which equals 8 calls of
 // dm::advance on every output; K4 in groups of the smooth loop
-// (dm::smooth_group); tests/test_torch_step_groups.py builds both loops
-// on the host and holds them to the plain versions.
+// (dm::smooth_group); K7 in groups of the resume loop
+// (dm::resume_group, from any step); tests/test_torch_step_groups.py
+// builds these loops on the host and holds them to the plain versions.
 //
 // What bounds them on an H100: operations.  A pixel reads nothing and writes
 // one byte (four for nu); each step is 8 f32 operations at degree 2 (3
@@ -44,8 +46,8 @@
 // abs, degree d costs 6d - 1, K8's matrix form 11 as written: 4 multiplies and
 // 2 adds for the product, 2 adds of c, 2 squares and an add for |z|^2) plus a
 // compare, so a tile costs that times the steps its pixels need, against its
-// output bytes.  Per-thread early exit alone (K6 and K7 run so: one thread a
-// pixel or lane) lets a sky pixel leave after a few steps and an
+// output bytes.  Per-thread early exit alone (K6 runs so: one thread a
+// pixel) lets a sky pixel leave after a few steps and an
 // interior-proven pixel never iterate, but leaves warp divergence on the
 // table: a warp of 32 neighbouring pixels steps until its slowest lane retires
 // (2.35x the needed lane steps on the main path's chunks, PERF.md), and a
@@ -59,13 +61,18 @@
 // nu).  The loop pays for each run it takes, so where a run's pixels need few
 // steps it can cost more than the divergence it removes: K6's phase of at
 // most 256 steps stays on one thread a pixel, which ran faster there on an
-// H100 than the loop did (PERF.md).  None of the TPU workarounds is
+// H100 than the loop did (PERF.md).  K7's lanes are the live orbits of a
+// whole batch in pixel order, neighbours that run alike, so it runs one
+// thread a lane in groups of 8 with per-thread exit, which ran faster than
+// the persistent loop there (PERF.md).  None of the TPU workarounds is
 // carried: no scratch state, no 64x128 blocks (any H, W; the ragged edge is
-// masked), no prologue pipelining, no byte-lane packing (K5's tiles are simply
-// the tiles of one persistent launch).  K6 and K7 move state through device
-// memory (24 B written per pixel by K6, so K6 is bound by bytes; per lane and
-// round, K7 reads 28 B and writes 16 B), which is what the compacted pipeline
-// pays so that K7's warps hold only live lanes.
+// masked), no prologue pipelining, no byte-lane packing (K5's tiles are
+// simply the tiles of one persistent launch), no resume rounds re-compacted
+// between them (one K7 launch runs every live lane to its budget where K6
+// left it).  K6 and K7 move state through device memory (24 B written per
+// pixel by K6, so K6 is bound by bytes; per lane, K7 reads 28 B and its
+// index and writes 16 B), which is what the compacted pipeline pays so that
+// K7's warps hold only live lanes.
 
 #include <cfloat>
 #include <cmath>
@@ -827,43 +834,69 @@ __global__ void mxu_probe_kernel(float* __restrict__ out,
   out[3 * plane + i] = mi;
 }
 
-// One resume round over ``lanes`` lanes, in place: a live lane runs
-// steps it0 .. min(it0 + seg - 1, dyn) while it stays inside radius 2,
-// its squares recomputed from z (the bits update() cached).  A lane
-// leaves act = 1 only if it is still live with budget left.
-template <int F>
-__global__ void escape_resume_kernel(float* __restrict__ zr,
-                                     float* __restrict__ zi,
-                                     int* __restrict__ n,
-                                     int* __restrict__ act,
-                                     const float* __restrict__ cr,
-                                     const float* __restrict__ ci,
-                                     const int* __restrict__ dyn,
-                                     long long lanes, int it0, int seg,
-                                     int power) {
+// K7: one resume round over a list of lanes, one thread a lane: lane i
+// lies at offset idx[i] of the flat state planes (int64 or int32; no
+// list: offset i).  A lane with act != 0 runs dm::resume_group from its
+// step it0 - 1 to min(it0 + seg - 1, dyn): 8-step groups, each step the
+// update and the compare, the lane leaving the group at its escape step
+// (per-thread early exit).  It then writes z, n and act (1 only if still
+// live with budget left) back where it lies.  The list is the live
+// lanes in pixel order, so a warp's 32 lanes are neighbours whose orbits
+// run alike, and the pipeline runs them to their budgets in one launch
+// (a persistent form whose warps refilled retired lanes from the list
+// ran slower on an H100: the lanes need no refill, PERF.md).  COUNT adds
+// the lane steps the warp issues (32 x 8 per group of its slowest lane)
+// to *lane_steps.
+template <int F, bool COUNT>
+__global__ void __launch_bounds__(kThreads)
+    escape_resume_kernel(float* __restrict__ zr, float* __restrict__ zi,
+                         int* __restrict__ n, int* __restrict__ act,
+                         const float* __restrict__ cr,
+                         const float* __restrict__ ci,
+                         const int* __restrict__ dyn,
+                         const long long* __restrict__ idx64,
+                         const int* __restrict__ idx32, long long lanes,
+                         int it0, long long round_end, int power,
+                         unsigned long long* lane_steps) {
   const long long i =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= lanes || !act[i]) return;
-  const int d = dyn[i];
-  dm::Orbit o;
-  o.zr = zr[i];
-  o.zi = zi[i];
-  o.zr2 = dm::fmul(o.zr, o.zr);
-  o.zi2 = dm::fmul(o.zi, o.zi);
-  o.cr = cr[i];
-  o.ci = ci[i];
-  o.szr = o.zr;
-  o.szi = o.zi;
-  o.n = n[i];
-  const long long end = static_cast<long long>(it0) + seg - 1;
-  const int last = end < d ? static_cast<int>(end) : d;
-  bool live = true;
-  for (int s = it0; live && s <= last; ++s)
-    live = dm::advance<F>(o, s, d, false, power);
-  zr[i] = o.zr;
-  zi[i] = o.zi;
-  n[i] = o.n;
-  act[i] = (live && last < d) ? 1 : 0;
+  if (!COUNT && i >= lanes) return;
+  unsigned groups = 0;
+  const long long at = i >= lanes ? 0
+                       : idx64    ? __ldg(idx64 + i)
+                       : idx32    ? __ldg(idx32 + i)
+                                  : i;
+  if (i < lanes && act[at]) {
+    const int d = dyn[at];
+    const int last = round_end < d ? static_cast<int>(round_end) : d;
+    if (last < it0) {
+      act[at] = 0;  // no step left in this round
+    } else {
+      dm::Orbit o;
+      o.zr = zr[at];
+      o.zi = zi[at];
+      o.zr2 = dm::fmul(o.zr, o.zr);
+      o.zi2 = dm::fmul(o.zi, o.zi);
+      o.cr = cr[at];
+      o.ci = ci[at];
+      o.n = n[at];
+      int s = it0 - 1, r;
+      do {
+        r = dm::resume_group<F>(o, s, last, power);
+        ++groups;
+      } while (r > 0);
+      zr[at] = o.zr;
+      zi[at] = o.zi;
+      n[at] = o.n;
+      act[at] = (r == 0 && last < d) ? 1 : 0;
+    }
+  }
+  if constexpr (COUNT) {
+    // Every thread of the block reaches this point.
+    const unsigned most = __reduce_max_sync(kFull, groups);
+    if ((threadIdx.x & 31) == 0 && most)
+      atomicAdd(lane_steps, 32ULL * dm::kCycleStride * most);
+  }
 }
 
 // The grid of the kernels that run one thread a pixel (K6, K8's parity
@@ -1267,31 +1300,38 @@ int dm_escape_state(void* cr, void* ci, void* zr, void* zi, void* n,
   });
 }
 
-// K7: one resume round over ``lanes`` lanes, updating zr, zi, n and act
-// in place (all DEVICE pointers, flat).
+// K7: one resume round, steps it0 .. min(it0 + seg - 1, dyn), over
+// ``lanes`` lanes, updating zr, zi, n and act in place (all DEVICE
+// pointers to flat planes).  ``idx`` (DEVICE, ``idx_bytes`` 8 or 4: int64
+// or int32 plane offsets, unique) lists where lane i lies; null: lane i
+// is at offset i.  ``lane_steps`` as for K1.
 int dm_escape_resume(void* zr, void* zi, void* n, void* act, const void* cr,
-                     const void* ci, const void* dyn, long long lanes,
-                     int it0, int seg, int family, int power, void* stream) {
-  if (lanes < 0 || seg < 1) return static_cast<int>(cudaErrorInvalidValue);
+                     const void* ci, const void* dyn, const void* idx,
+                     int idx_bytes, long long lanes, int it0, long long seg,
+                     int family, int power, void* lane_steps, void* stream) {
+  if (lanes < 0 || seg < 1 || it0 < 1 ||
+      (idx && idx_bytes != 8 && idx_bytes != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (lanes == 0) return 0;
-  constexpr int kThreads = 256;
   const long long blocks = (lanes + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 g(static_cast<unsigned>(blocks)), b(kThreads);
+  const auto* i64 =
+      idx_bytes == 8 ? static_cast<const long long*>(idx) : nullptr;
+  const auto* i32 = idx_bytes == 4 ? static_cast<const int*>(idx) : nullptr;
+  const long long round_end = it0 + seg - 1;
+  auto* ls = static_cast<unsigned long long*>(lane_steps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DM_RESUME(F)                                                        \
-  escape_resume_kernel<F><<<g, b, 0, s>>>(                                  \
-      static_cast<float*>(zr), static_cast<float*>(zi),                     \
-      static_cast<int*>(n), static_cast<int*>(act),                         \
-      static_cast<const float*>(cr), static_cast<const float*>(ci),         \
-      static_cast<const int*>(dyn), lanes, it0, seg, power)
-  if (family == dm::kShip)
-    DM_RESUME(dm::kShip);
-  else if (family == dm::kMultibrot)
-    DM_RESUME(dm::kMultibrot);
-  else
-    DM_RESUME(dm::kQuadratic);
-#undef DM_RESUME
+  by_family(family, 0, [&](auto f, auto) {
+    constexpr int F = decltype(f)::value;
+    auto* kernel = ls ? escape_resume_kernel<F, true>
+                      : escape_resume_kernel<F, false>;
+    kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        static_cast<float*>(zr), static_cast<float*>(zi),
+        static_cast<int*>(n), static_cast<int*>(act),
+        static_cast<const float*>(cr), static_cast<const float*>(ci),
+        static_cast<const int*>(dyn), i64, i32, lanes, it0, round_end, power,
+        ls);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 

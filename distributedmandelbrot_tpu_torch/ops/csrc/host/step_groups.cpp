@@ -7,7 +7,8 @@
 // order: grid, interior test, groups until the orbit retires, what the
 // retiring lane stores: dm::step_group and the byte epilogue (K1, K2,
 // K3, K5) and dm::smooth_group (K4; its state, since the card's logf
-// and log2f are not the host's).
+// and log2f are not the host's).  K7's lanes run dm::resume_group
+// groups from their own step it0 - 1, as escape_resume_kernel's do.
 //
 //   g++ -O2 -ffp-contract=off -shared -fPIC -I host -I . \
 //       host/step_groups.cpp -o libdm_host.so
@@ -193,6 +194,39 @@ void dm_host_smooth(const float* row, int julia, int mrd, int step_limit,
             row, julia, mrd, step_limit, b2, interior_mode, disk_lim,
             cycle_check, power, r, c, n + i, n2 + i, mag2 + i, exits + i);
       }
+  });
+}
+
+// One K7 round over ``lanes`` flat lanes, in place, each lane alone as
+// escape_resume_kernel runs it: a lane with act != 0 and a step left
+// (budget at least it0) runs dm::resume_group groups from its step it0 -
+// 1 to min(it0 + seg - 1, dyn), then stores z, n and act (1 only if
+// still live with budget left); one with no step left gets act 0.
+void dm_host_resume(float* zr, float* zi, int* n, int* act, const float* cr,
+                    const float* ci, const int* dyn, long lanes, int it0,
+                    long long seg, int family, int power) {
+  const long long round_end = it0 + seg - 1;
+  by_family(family, [&](auto f) {
+    constexpr int F = decltype(f)::value;
+    for (long i = 0; i < lanes; ++i) {
+      if (!act[i]) continue;
+      const int d = dyn[i];
+      const int last = round_end < d ? static_cast<int>(round_end) : d;
+      if (last < it0) {
+        act[i] = 0;
+        continue;
+      }
+      dm::Orbit o;
+      dm::start(o, zr[i], zi[i], cr[i], ci[i]);
+      o.n = n[i];
+      int s = it0 - 1, r;
+      while ((r = dm::resume_group<F>(o, s, last, power)) > 0) {
+      }
+      zr[i] = o.zr;
+      zi[i] = o.zi;
+      n[i] = o.n;
+      act[i] = (r == 0 && last < d) ? 1 : 0;
+    }
   });
 }
 

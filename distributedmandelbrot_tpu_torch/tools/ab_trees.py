@@ -2,14 +2,14 @@
 mesh drain and the kernels, each tree in processes of its own.
 
     python3 distributedmandelbrot_tpu_torch/tools/ab_trees.py PARENT_DIR \\
-        [--out FILE] [--drains N]
+        [--out FILE] [--drains N] [--repeat R] [--k7-only]
 
 ``PARENT_DIR`` holds another commit's files (``git archive`` unpacked);
 ``change`` is the checkout that holds this script.  They run in the
-order parent, change, change, parent, three times over, each run a
-fresh process that builds its own kernels, so that a drift of the card
-or the host over the call weighs on both trees alike and shows as a
-spread between a tree's own runs.
+order parent, change, change, parent, three times over
+(``--repeat``), each run a fresh process that builds its own kernels,
+so that a drift of the card or the host over the call weighs on both
+trees alike and shows as a spread between a tree's own runs.
 
 Each run, on ``cuda:0``, times:
 
@@ -34,7 +34,19 @@ Each run, on ``cuda:0``, times:
   and on the light (4, 1, 1) at 256; K6 (phase 1 of the compacted
   pipeline) on the level-10 batch at 1000 and on the level-4 batch at 700
   (inside the compacted route's budgets 513-1023): the median of 50
-  launches each by CUDA events (20 for K3's and K6's heavy batches).
+  launches each by CUDA events (20 for K3's and K6's heavy batches);
+- K7 on the level-10 batch at 1000 after K6: its first round (steps
+  257-512) over the packed live lanes, and the whole resume as that
+  tree's pipeline runs it: one launch over the live lanes' indices
+  (steps 257-999) where the tree's K7 takes an index list, else the sum
+  of the reference's three rounds' launches (re-compaction between them
+  untimed); each launch on a fresh copy of the lanes it updates, the
+  median by CUDA events; and the compacted pipeline's wall time on that
+  batch (host clock, ended by a synchronize; median of 10), with its
+  device time split by operation under torch.profiler (this checkout's
+  ``chip_smoke.compact_split``).
+
+``--k7-only`` times only the last item (about 30 s a run).
 
 It prints one JSON line per run, the card's name and power limit, and a
 last JSON line with each tree's medians over its runs, for each pair of
@@ -73,8 +85,9 @@ SS4 = ((-0.25, -0.25), (0.25, -0.25), (-0.25, 0.25), (0.25, 0.25))
 # K4's chunks and K6's batches: heavy and light.
 K4 = {"k4_ms": ((10, 3, 5), 1024), "k4_light_ms": ((4, 1, 1), 256)}
 K6 = {"k6_ms": (K3_HEAVY[0], 1000, 20), "k6_light_ms": (K3_LIGHT[0], 700, 50)}
+K7_TIMED = ("k7_round1_ms", "k7_resume_ms", "compact_wall_ms")
 TIMED = ("drain_chunks_per_s_median", "k2_ms", "k1_ms", "k2_julia_ms",
-         *LIGHT, "k3_ms", "k3_light_ms", "k5_ms", *K4, *K6,
+         *LIGHT, "k3_ms", "k3_light_ms", "k5_ms", *K4, *K6, *K7_TIMED,
          "mesh_drain_chunks_per_s")
 
 
@@ -102,14 +115,14 @@ def median_or_not(values: list):
     return statistics.median(values)
 
 
-def pair_ratios(runs: list[dict]) -> list[dict]:
+def pair_ratios(runs: list[dict], timed: tuple) -> list[dict]:
     """The change's ratio to the parent in every pair of adjacent runs of
     the two trees."""
     out = []
     for a, b in zip(runs, runs[1:]):
         if {a["tree"], b["tree"]} == {"parent", "change"}:
             p, c = (a, b) if a["tree"] == "parent" else (b, a)
-            out.append({key: c[key] / p[key] for key in TIMED})
+            out.append({key: c[key] / p[key] for key in timed})
     return out
 
 
@@ -135,7 +148,95 @@ def byte_kernel_sass(library: str) -> dict:
     return out
 
 
-def child(tree: Path, drains: int) -> dict:
+def k7_and_pipeline(torch, ce, cx, TileSpec, dev) -> dict:
+    """K7 and the compacted pipeline on K3_HEAVY's batch at 1000 (see
+    the module's docstring), with the tree's own functions."""
+    import importlib.util
+    import inspect
+
+    import numpy as np
+    chunks, mi = K3_HEAVY[0], 1000
+    k = len(chunks)
+    rows = np.asarray([ce._params_row(TileSpec.for_chunk(*c))
+                       for c in chunks], np.float32)
+    cr, ci, zr, zi, n, act = (t.reshape(-1) for t in cx.escape_state_cuda(
+        rows, [mi] * k, height=4096, width=4096, device=dev))
+    live = torch.nonzero(act).squeeze(1)
+    packed = [t[live].contiguous() for t in (cr, ci, zr, zi, n)]
+    packed.append(torch.ones_like(packed[4]))
+    dyn = torch.full_like(packed[4], mi - 1)
+
+    def launch_ms(fn, lanes) -> float:
+        fresh = lanes[:2] + [t.clone() for t in lanes[2:]]
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(fresh)
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
+
+    def median_of(fn, reps):
+        fn()
+        return statistics.median(fn() for _ in range(reps))
+
+    round1 = median_of(lambda: launch_ms(
+        lambda l: cx.escape_resume_cuda(257, 256, dyn, *l), packed), 20)
+
+    def rounds() -> float:
+        lanes, bdyn, total = packed, dyn, 0.0
+        for it0 in range(257, mi, 256):
+            fresh = lanes[:2] + [t.clone() for t in lanes[2:]]
+            total += launch_ms(lambda l: cx.escape_resume_cuda(
+                it0, 256, bdyn, *l), fresh)
+            # launch_ms ran on copies of ``fresh``: run it once more in
+            # place to carry the lanes to the next round.
+            cx.escape_resume_cuda(it0, 256, bdyn, *fresh)
+            keep = torch.nonzero(fresh[5]).squeeze(1)
+            lanes = [t[keep].contiguous() for t in fresh]
+            bdyn = bdyn[keep].contiguous()
+        return total
+
+    one_launch = "idx" in inspect.signature(cx.escape_resume_cuda).parameters
+    bitwise = None
+    if one_launch:
+        flat_dyn = torch.full_like(n, mi - 1)
+        planes = [cr, ci, zr, zi, n, act]
+        resume = median_of(lambda: launch_ms(
+            lambda l: cx.escape_resume_cuda(257, mi - 257, flat_dyn, *l,
+                                            idx=live), planes), 10)
+        got = cx.escape_resume_cuda(
+            257, mi - 257, flat_dyn,
+            *(planes[:2] + [t.clone() for t in planes[2:]]), idx=live)
+        want = cx.escape_resume_plain(257, mi - 257, flat_dyn, *planes,
+                                      idx=live)
+        bitwise = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                      for a, b in zip(got, want))
+    else:
+        resume = median_of(rounds, 10)
+
+    def compact():
+        return cx.compact_escape_batch(rows, [mi] * k, k=k, height=4096,
+                                       width=4096, max_iter=mi, device=dev)
+
+    def wall() -> float:
+        t0 = time.perf_counter()
+        compact()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_change", CHANGE / "chip_smoke.py")
+    change_cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(change_cs)
+    return {"k7_round1_ms": round1, "k7_resume_ms": resume,
+            "k7_resume_bitwise": bitwise,
+            "k7_lanes": live.numel(), "compact_wall_ms": median_of(wall, 10),
+            "compact_split": change_cs.compact_split(compact)}
+
+
+def child(tree: Path, drains: int, k7_only: bool) -> dict:
     """One run of ``tree``: its package and chip_smoke.py, on cuda:0."""
     sys.path.insert(0, str(tree))
     import contextlib
@@ -150,6 +251,7 @@ def child(tree: Path, drains: int) -> dict:
     from distributedmandelbrot_tpu_torch.core.geometry import TileSpec
     from distributedmandelbrot_tpu_torch.core.workload import Workload
     from distributedmandelbrot_tpu_torch.ops import _build
+    from distributedmandelbrot_tpu_torch.ops import compact_escape as cx
     from distributedmandelbrot_tpu_torch.ops import cuda_escape as ce
     for mod in (cs, ce):
         if not Path(mod.__file__).resolve().is_relative_to(tree.resolve()):
@@ -159,6 +261,9 @@ def child(tree: Path, drains: int) -> dict:
     _build.load()
     build_s = time.monotonic() - t0
     dev = torch.device("cuda", 0)
+    if k7_only:
+        return {"build_s": build_s, "library": str(_build.library_path()),
+                **k7_and_pipeline(torch, ce, cx, TileSpec, dev)}
     workloads = ([Workload(4, 256, i, j) for j in range(4) for i in range(4)]
                  + [Workload(10, 1024, i, j) for j in range(10)
                     for i in range(10)])
@@ -216,13 +321,13 @@ def child(tree: Path, drains: int) -> dict:
         spec = TileSpec.for_chunk(*chunk)
         timed[key] = cuda_ms(torch, lambda: ce.compute_tile_smooth_cuda(
             spec, mi, device=dev))
-    from distributedmandelbrot_tpu_torch.ops import compact_escape as cx
     for key, (chunks, mi, reps) in K6.items():
         rows = np.asarray([ce._params_row(TileSpec.for_chunk(*c))
                            for c in chunks], np.float32)
         timed[key] = cuda_ms(torch, lambda: cx.escape_state_cuda(
             rows, [mi] * len(chunks), height=4096, width=4096, device=dev),
             reps=reps)
+    timed.update(k7_and_pipeline(torch, ce, cx, TileSpec, dev))
     _, grants, _, _ = cs.MESH_DRAINS[0]
     mesh_work = [Workload(*g) for g in grants]
     cs.drain_mesh(wk, parallel, mesh_work)
@@ -244,10 +349,13 @@ def child(tree: Path, drains: int) -> dict:
 
 
 def main(argv: list[str]) -> int:
+    k7_only = "--k7-only" in argv
+    argv = [a for a in argv if a != "--k7-only"]
     if "--child" in argv:
         i = argv.index("--child")
         drains = int(argv[argv.index("--drains") + 1])
-        print(json.dumps(child(Path(argv[i + 1]), drains)), flush=True)
+        print(json.dumps(child(Path(argv[i + 1]), drains, k7_only)),
+              flush=True)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -259,14 +367,16 @@ def main(argv: list[str]) -> int:
         print(f"ab_trees: {parent} holds no port package", file=sys.stderr)
         return 2
     drains = args.get("--drains", "5")
+    order = ORDER[:4] * int(args.get("--repeat", "3"))
+    timed = K7_TIMED if k7_only else TIMED + ("device_busy_share",)
     trees = {"parent": parent, "change": CHANGE}
     runs = []
-    for label in ORDER:
+    for label in order:
         env = dict(os.environ, PYTHONPATH=str(trees[label]))
         proc = subprocess.run(
             [sys.executable, __file__, "--child", str(trees[label]),
-             "--drains", drains], env=env, cwd=trees[label],
-            capture_output=True, text=True, timeout=600)
+             "--drains", drains] + ["--k7-only"] * k7_only, env=env,
+            cwd=trees[label], capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
             return 1
@@ -282,12 +392,12 @@ def main(argv: list[str]) -> int:
     for label in trees:
         mine = [r for r in runs if r["tree"] == label]
         summary[label] = {key: median_or_not([r[key] for r in mine])
-                          for key in TIMED + ("device_busy_share",)}
+                          for key in timed}
     sass = {label: byte_kernel_sass(next(r["library"] for r in runs
                                          if r["tree"] == label))
             for label in trees}
-    out = {"order": ORDER, "card": card.strip(), "medians": summary,
-           "pairs": pair_ratios(runs),
+    out = {"order": order, "card": card.strip(), "medians": summary,
+           "pairs": pair_ratios(runs, K7_TIMED if k7_only else TIMED),
            "byte_kernel_sass_equal": {
                name: sass["parent"].get(name) == code
                for name, code in sorted(sass["change"].items())}}

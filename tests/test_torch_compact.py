@@ -1,6 +1,7 @@
 """The compacted two-phase pipeline (``ops/compact_escape.py``: K6, the
-torch glue, K7 rounds, the overflow path) on the CPU, where it runs K6's
-and K7's plain versions through the same glue as on the card:
+torch glue, one K7 launch over the live lanes' indices) on the CPU,
+where it runs K6's and K7's plain versions through the same glue as on
+the card:
 
 - bitwise equal to K3's plain version on every case of the reference's
   ``tests/test_compact.py`` (boundary and mixed budgets, a shallow tile
@@ -8,6 +9,7 @@ and K7's plain versions through the same glue as on the card:
   matrix);
 - the same cases against the JAX ``compact_escape_batch(interpret=
   True)`` at the golden bar (the FMA class of ROADMAP queue 3);
+- K7 over an index list equal to K7 over the lanes it lists;
 - the reference's policy declines, and the TPU-layout guards the port
   drops;
 - ``prefer_compaction`` and ``compact_capacity`` equal to the
@@ -45,8 +47,14 @@ CASES = {
     "multibrot": ([BOUNDARY], [700], {"power": 3}),
     "clamp": ([BOUNDARY], [700], {"clamp": True}),
 }
-# The reference's overflow case: one compact block of capacity.
+# The reference's overflow case: one compact block of capacity, rounds
+# of 64 steps.  The port has no buffer and no rounds: it takes the same
+# phase, and its one K7 launch runs more live lanes than that capacity.
 OVERFLOW = dict(cap_lanes=4096, phase_budget=64, seg_steps=64)
+PORT_OVERFLOW = dict(phase_budget=OVERFLOW["phase_budget"])
+# The Mandelbrot cases whose live lanes after that phase exceed it.
+OVER_CAPACITY = ("boundary_and_mixed_budgets", "clamp",
+                 "shallow_tile_in_deep_batch")
 
 
 def _port_kw(kw):
@@ -70,9 +78,41 @@ def _compacted(rows, mrds, kw, **extra):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_compacted_pipeline_is_bitwise_k3(case, overflow):
     rows, mrds, kw = CASES[case]
-    got = _compacted(rows, mrds, kw, **(OVERFLOW if overflow else {}))
+    got = _compacted(rows, mrds, kw, **(PORT_OVERFLOW if overflow else {}))
     assert got.shape == (len(rows), N, N) and got.dtype == torch.uint8
     assert torch.equal(got, _k3_plain(rows, mrds, kw))
+    if overflow and case in OVER_CAPACITY:
+        # More live lanes than the reference's capacity: its overflow
+        # path, one launch here.
+        state = cx.escape_state_plain(
+            np.asarray(rows, np.float32), mrds, height=N, width=N,
+            phase_budget=OVERFLOW["phase_budget"])
+        assert int((state[5] != 0).sum()) > OVERFLOW["cap_lanes"]
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_resume_over_an_index_list(dtype):
+    """K7 over an index list updates the listed lanes where they lie as
+    a round over those lanes gathered would, and leaves the others as
+    they were (their act included)."""
+    rows = np.asarray([BOUNDARY, FULLVIEW], np.float32)
+    planes = [t.reshape(-1).contiguous() for t in cx.escape_state_plain(
+        rows, [700, 650], height=N, width=N)]
+    cr, ci, zr, zi, n, act = planes
+    dyn = torch.full_like(n, 699)
+    dyn[N * N:] = 649
+    idx = torch.nonzero(act).squeeze(1)[::3].to(dtype)
+    got = cx.escape_resume_cuda(257, 300, dyn, cr, ci, zr, zi, n, act,
+                                idx=idx)
+    sel = idx.to(torch.int64)
+    want = cx.escape_resume_plain(257, 300, dyn[sel], cr[sel], ci[sel],
+                                  zr[sel], zi[sel], n[sel], act[sel])
+    rest = torch.ones_like(act, dtype=torch.bool)
+    rest[sel] = False
+    for g, w, before in zip(got, want, (zr, zi, n, act)):
+        assert torch.equal(g[sel], w)
+        assert torch.equal(g[rest], before[rest])
+    assert (got[3][sel] == 0).any() and (got[3][rest] != 0).any()
 
 
 def _golden(row, mrd, kw):
@@ -116,7 +156,7 @@ def test_against_the_jax_pipeline_at_the_bar(case):
     overflow = case == "overflow"
     rows, mrds, kw = CASES["boundary_and_mixed_budgets" if overflow
                            else case]
-    got = _compacted(rows, mrds, kw, **(OVERFLOW if overflow else {}))
+    got = _compacted(rows, mrds, kw, **(PORT_OVERFLOW if overflow else {}))
     ref = _reference(rows, mrds, kw, overflow)
     assert ref.shape == tuple(got.shape)
     for t, (row, mrd) in enumerate(zip(rows, mrds)):
@@ -142,7 +182,7 @@ def test_policy_declines_and_dropped_layout_guards():
                      np.float32)
     got = cx.compact_escape_batch(odd, [700], k=1, height=100, width=100,
                                   max_iter=700, phase_budget=100,
-                                  seg_steps=77, device="cpu")
+                                  device="cpu")
     want = ce.compute_tiles_batch_cuda(odd, [700], height=100, width=100,
                                        cycle_check=False, device="cpu")
     assert torch.equal(got, want)
@@ -204,7 +244,7 @@ if __name__ == "__main__":
         overflow = case == "overflow"
         rows, mrds, kw = CASES["boundary_and_mixed_budgets" if overflow
                                else case]
-        got = _compacted(rows, mrds, kw, **(OVERFLOW if overflow else {}))
+        got = _compacted(rows, mrds, kw, **(PORT_OVERFLOW if overflow else {}))
         ref = _reference(rows, mrds, kw, overflow)
         for t, (row, mrd) in enumerate(zip(rows, mrds)):
             gold = _golden(row, mrd, kw)

@@ -247,9 +247,11 @@ def test_k3_is_bitwise_its_plain_version_and_k1(cuda, mode):
 
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_k6_k7_and_the_pipeline_are_bitwise(cuda, mode):
-    """K6's six planes (floats as bits) and one K7 round against their
-    plain versions; the compacted pipeline, overflow included, equal to
-    K3."""
+    """K6's six planes (floats as bits) and K7 against their plain
+    versions: one round over the flat lanes, over an index list (int64
+    and int32) into K6's planes, and a round to the end; the compacted
+    pipeline, one K7 launch, equal to K3 (also at the reference's
+    overflow phase of 64 steps)."""
     from distributedmandelbrot_tpu_torch.ops import compact_escape as cx
     kw = dict(MODES[mode])
     jc = kw.pop("julia_c", None)
@@ -267,14 +269,27 @@ def test_k6_k7_and_the_pipeline_are_bitwise(cuda, mode):
     cr, ci, zr, zi, n, act = (t.clone() for t in lanes)
     got = cx.escape_resume_cuda(257, 256, dyn, cr, ci, zr, zi, n, act, **kw)
     assert all(_bits_equal(a, b) for a, b in zip(got, want))
+    live = torch.nonzero(lanes[5]).squeeze(1)
+    for seg in (256, max(mis) - 257):
+        for idx in (live, live.to(torch.int32)):
+            want = cx.escape_resume_plain(257, seg, dyn, *lanes, idx=idx,
+                                          **kw)
+            fresh = [t.clone() for t in lanes]
+            got = cx.escape_resume_cuda(257, seg, dyn, *fresh, idx=idx, **kw)
+            assert all(_bits_equal(a, b) for a, b in zip(got, want)), seg
     k3 = ce.compute_tiles_batch_cuda(rows, mis, height=128, width=128,
                                      device=cuda, **kw)
-    for extra in ({}, {"cap_lanes": 4096, "phase_budget": 64,
-                       "seg_steps": 64}):
+    for phase in (256, 64):
+        ce.reset_launch_counts()
         out = cx.compact_escape_batch(rows, mis, k=5, height=128, width=128,
-                                      max_iter=max(mis), device=cuda,
-                                      **kw, **extra)
-        assert torch.equal(out, k3), extra
+                                      max_iter=max(mis), phase_budget=phase,
+                                      device=cuda, **kw)
+        assert torch.equal(out, k3), phase
+        # One K7 launch where a lane is live after phase 1.
+        live = int((cx.escape_state_plain(
+            rows, mis, height=128, width=128, phase_budget=phase,
+            device=cuda, **kw)[5] != 0).sum())
+        assert ce.launch_counts()[ce.KERNEL_RESUME] == (live > 0), phase
 
 
 def test_a_ring_naming_one_card_twice_equals_one_device(cuda):
@@ -862,3 +877,68 @@ def test_k4_and_k6_instrumented_forms(cuda):
     issued = int(steps.item())
     assert issued >= int(k3_steps.clamp(max=256).sum())
     assert issued % 32 == 0
+
+
+@pytest.mark.parametrize("mode", sorted(K3_MODES))
+def test_k7_stress_rounds_lists_and_streams(cuda, mode):
+    """K7 on the packed live lanes of 300 tiles of 32^2 (budgets 1-1000)
+    from it0 62 and 257, rounds of 1, 7 and 256 steps and to the end,
+    in the flat form and over an index list into K6's planes; and the
+    list's halves as two launches at once on two streams."""
+    from distributedmandelbrot_tpu_torch.ops import compact_escape as cx
+    specs, mis = stress_batch(k=300, side=32, top=1000)
+    rows = _batch_rows(specs, K3_MODES[mode])
+    fam = _mode_args(K3_MODES[mode])
+    dyn = torch.from_numpy(np.repeat(np.asarray(mis, np.int32) - 1,
+                                     32 * 32)).to(cuda)
+    for it0 in (62, 257):
+        planes = [t.reshape(-1).contiguous() for t in cx.escape_state_plain(
+            rows, mis, height=32, width=32, phase_budget=it0 - 1,
+            device=cuda, **fam)]
+        live = torch.nonzero(planes[5]).squeeze(1)
+        packed = [t[live].contiguous() for t in planes]
+        for seg in (1, 7, 256, max(mis) - it0):
+            want = cx.escape_resume_plain(it0, seg, dyn[live], *packed,
+                                          **fam)
+            got = cx.escape_resume_cuda(it0, seg, dyn[live],
+                                        *(t.clone() for t in packed), **fam)
+            assert all(_bits_equal(a, b) for a, b in zip(got, want)), seg
+            fresh = [t.clone() for t in planes]
+            got = cx.escape_resume_cuda(it0, seg, dyn, *fresh, idx=live,
+                                        **fam)
+            assert all(_bits_equal(a[live], b)
+                       for a, b in zip(got, want)), seg
+        fresh = [t.clone() for t in planes]
+        half = live.numel() // 2
+        streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+        torch.cuda.synchronize()
+        for part, st in zip((live[:half], live[half:]), streams):
+            with torch.cuda.stream(st):
+                cx.escape_resume_cuda(it0, max(mis), dyn, *fresh, idx=part,
+                                      **fam)
+        torch.cuda.synchronize()
+        want = cx.escape_resume_plain(it0, max(mis), dyn, *planes, idx=live,
+                                      **fam)
+        assert all(_bits_equal(a, b) for a, b in zip(fresh[2:], want))
+
+
+def test_k7_instrumented_form(cuda):
+    """K7's instrumented form: the same lanes, and at least the lane steps
+    they need, in steps of 32 lanes."""
+    from distributedmandelbrot_tpu_torch.ops import compact_escape as cx
+    specs = [TileSpec.for_chunk(10, 3, 5, definition=256)]
+    rows = _batch_rows(specs, {})
+    planes = [t.reshape(-1).contiguous() for t in cx.escape_state_plain(
+        rows, [1000], height=256, width=256, device=cuda)]
+    dyn = torch.full_like(planes[4], 999)
+    live = torch.nonzero(planes[5]).squeeze(1)
+    steps = torch.zeros((1,), dtype=torch.int64, device=cuda)
+    fresh = [t.clone() for t in planes]
+    got = cx.escape_resume_cuda(257, 743, dyn, *fresh, idx=live,
+                                lane_steps=steps)
+    want = cx.escape_resume_plain(257, 743, dyn, *planes, idx=live)
+    assert all(_bits_equal(a, b) for a, b in zip(got, want))
+    need = int((want[2][live] - planes[4][live]).sum()) + int(
+        (want[2][live] < 999).sum())
+    issued = int(steps.item())
+    assert issued >= need and issued % 32 == 0

@@ -1,7 +1,9 @@
 """The per-lane loops of the persistent kernels on the CPU, bitwise
 against the plain versions: ``dm::step_group`` (K1, K2, K3, K5: eight
 steps a group, the cycle probe and the budget once per group),
-and ``dm::smooth_group`` (K4), both in ``ops/csrc/escape.cuh``.
+``dm::smooth_group`` (K4) and ``dm::resume_group`` (K7: groups from any
+step, single steps to a round end off a group boundary), all in
+``ops/csrc/escape.cuh``.
 
 The header is compiled by the host C++ compiler through
 ``ops/csrc/host/step_groups.cpp`` (``__device__`` dropped, the ``_rn``
@@ -13,6 +15,7 @@ ones with the probe armed; K4's state and smooth value likewise.
 Skips where no C++ compiler is found."""
 
 import ctypes
+import functools
 import shutil
 import subprocess
 from pathlib import Path
@@ -22,6 +25,7 @@ import pytest
 import torch
 
 from distributedmandelbrot_tpu_torch.core.geometry import TileSpec
+from distributedmandelbrot_tpu_torch.ops import compact_escape as cx
 from distributedmandelbrot_tpu_torch.ops import cuda_escape as ce
 from distributedmandelbrot_tpu_torch.ops import escape_time
 
@@ -65,6 +69,9 @@ def host_lib(tmp_path_factory):
     lib.dm_host_smooth.argtypes = [vp, i, i, i, f, i, f, i, i, i, i, i,
                                    vp, vp, vp, vp]
     lib.dm_host_smooth.restype = None
+    lib.dm_host_resume.argtypes = [vp] * 7 + [ctypes.c_long, i,
+                                              ctypes.c_longlong, i, i]
+    lib.dm_host_resume.restype = None
     return lib
 
 
@@ -276,3 +283,62 @@ def test_the_smooth_group_exercises_every_exit(host_lib):
                                            cycle)[3]).tolist())
     assert {1, 2, 3, 4} <= seen, seen
 
+
+
+# --- K7: dm::resume_group ----------------------------------------------------
+
+# Three tiles at these budgets; rounds from it0 (after a phase of it0 - 1
+# steps: 61 and 64 put the lanes' groups off and on multiples of 8) of
+# these lengths, None running to the deepest budget.
+RESUME_BUDGETS = (513, 700, 1023)
+RESUME_IT0 = (62, 65, 257)
+RESUME_SEGS = (1, 7, 8, 64, 256, None)
+
+
+@functools.lru_cache(maxsize=None)
+def _resume_state(mode, it0):
+    """K6's plain planes, flat, of three boundary windows of ``mode`` at
+    RESUME_BUDGETS after a phase of it0 - 1 steps, and the lanes'
+    dyn."""
+    kw, views = MODES[mode]
+    rows = np.asarray([ce._params_row(_spec(*views[t % len(views)]),
+                                      kw.get("julia_c"))
+                       for t in range(len(RESUME_BUDGETS))], np.float32)
+    planes = cx.escape_state_plain(
+        rows, list(RESUME_BUDGETS), height=SIDE, width=SIDE,
+        phase_budget=it0 - 1, power=kw.get("power", 2),
+        burning=kw.get("burning", False))
+    dyn = torch.from_numpy(np.repeat(np.asarray(RESUME_BUDGETS, np.int32) - 1,
+                                     SIDE * SIDE))
+    return tuple(t.reshape(-1).contiguous() for t in planes), dyn
+
+
+@pytest.mark.parametrize("seg", RESUME_SEGS)
+@pytest.mark.parametrize("it0", RESUME_IT0)
+@pytest.mark.parametrize("mode", SMOOTH_MODES)
+def test_resume_groups_equal_the_plain_round(host_lib, mode, it0, seg):
+    """K7's per-lane loop over one round: z (as bits), n and act of
+    escape_resume_plain, at round ends on and off group boundaries and
+    at the budget."""
+    kw = MODES[mode][0]
+    power, burning = kw.get("power", 2), kw.get("burning", False)
+    (cr, ci, zr, zi, n, act), dyn = _resume_state(mode, it0)
+    seg = seg or max(RESUME_BUDGETS) - it0
+    want = cx.escape_resume_plain(it0, seg, dyn, cr, ci, zr, zi, n, act,
+                                  power=power, burning=burning)
+    got = [t.numpy().copy() for t in (zr, zi, n, act)]
+    family = ce._mode_args(power, burning, False, False)[0]
+    host_lib.dm_host_resume(*(a.ctypes.data for a in got),
+                            *(t.numpy().ctypes.data for t in (cr, ci, dyn)),
+                            dyn.numel(), it0, seg, family, power)
+    assert np.array_equal(_bits(got[0]), _bits(want[0].numpy()))
+    assert np.array_equal(_bits(got[1]), _bits(want[1].numpy()))
+    assert np.array_equal(got[2], want[2].numpy())
+    assert np.array_equal(got[3], want[3].numpy())
+    # The round moved lanes: some left the disk, and a round to the end
+    # leaves no lane active.
+    live = act.numpy() != 0
+    assert live.any()
+    assert (got[2][live] > n.numpy()[live]).any()
+    if seg >= max(RESUME_BUDGETS) - it0:
+        assert not got[3].any()
