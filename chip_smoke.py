@@ -49,7 +49,12 @@ JSON line; any failure raises and the script exits non-zero.
    ``CudaBackend.dispatch_many`` on cuda:0 and on the ring ``[cuda:0,
    cuda:0]`` (two K2 launches, no demotion, per tile against K1), and
    300 tiles through ``compute_tiles_mega_sharded`` on the ring (shards
-   of 150, four launches).
+   of 150, four launches).  K9 (``perturb_scan``) and K10
+   (``perturb_scan_smooth``), the perturbation route's delta scans, on
+   every state output: f32 and f64, Mandelbrot (the config-4 view) and
+   Julia at 256^2 and 512^2, K9 with the stagnation stop armed and not,
+   an orbit shorter than the budget, a stagnation stop and a scan of
+   78 segments.
 3. golden: the all-escaping sky chunk bitwise against the numpy golden
    at 4096^2; bulb and seahorse chunks at 512^2 through the backend's
    fused route (proven-interior pixels bitwise, <= 2% off-mask).
@@ -91,7 +96,19 @@ JSON line; any failure raises and the script exits non-zero.
    the gathered result must equal K3 on the whole batch in this
    process, bitwise.  A rank that fails or outlives its timeout fails
    the phase.
-10. kernels: per kernel, its launches on the paths above and its median
+10. deep_path: ``render`` of the deep views (``--deep``): the config-4
+   view (span 1e-10 at -0.77568376995+0.13646737005i, max_iter 50000)
+   integer f32 at 1024^2 and 4096^2 and smooth f64 at 1024^2, and the
+   period-6 bond point's view (span 1e-15, max_iter 20000, where the
+   probe turns BLA on) at 1024^2, each twice (cold, then with the
+   reference cached): seconds split into the reference search, the BLA
+   probe and table, the scans, the glitch repairs and the rest
+   (colormap, PNG), K9/K10 launches, glitched and repaired pixels.  Each
+   must launch its scan kernel (the bond view: take BLA) and no escape
+   kernel, and write the PNG of the same route on the plain scans byte
+   for byte; the config-4 view's sampled pixels equal the exact
+   fixed-point counts (at most 1 of 12 off, the JAX package's bar).
+11. kernels: per kernel, its launches on the paths above and its median
    time by CUDA events at 4096^2 beside the plain version's and the
    bound (the larger of its f32 operations over the non-FMA f32 rate
    and the bytes it must move over the memory rate); K1 per mode, K5
@@ -108,7 +125,17 @@ JSON line; any failure raises and the script exits non-zero.
    K6 (also on the light batch at 700) and K7 also the lane steps the
    warps issue (measured by the instrumented form, beside the modelled
    ``f32_warp_steps`` of a one-pixel-a-thread loop), registers,
-   occupancy and the SASS of the inner step group.
+   occupancy and the SASS of the inner step group.  K9 on the config-4
+   view at 4096^2 (16 row chunks, as the route launches them) and
+   1024^2, K10 on its smooth f64 view at 1024^2, beside their plain
+   versions and their bound (the lane-steps the view needs x 20
+   operations over the f32 or f64 rate), with registers.
+
+``python3 chip_smoke.py --deep [--out PATH]`` runs the deep route alone
+in a process of its own (about a minute): the build, ``deep_path``
+twice (pass 1 is the process's first render, pass 2 a later one), K9
+and K10 against their plain versions and their times; ``--out`` writes
+the JSON lines to PATH.
 
 The second-to-last line is ``nvidia-smi``'s name and power limit, the
 last ``{"ok": true, "device": {...}}``.
@@ -231,10 +258,13 @@ def max_abs_err(a, b):
 
 def bit_diff(a, b) -> tuple[int, int]:
     """(elements that differ, largest difference): in units in the last
-    place for f32 (the bits compared as integers), in values otherwise."""
+    place for f32 and f64 (the bits compared as integers), in values
+    otherwise."""
     if a.dtype == torch.float32:
         d = (a.view(torch.int32).to(torch.int64)
              - b.view(torch.int32).to(torch.int64)).abs()
+    elif a.dtype == torch.float64:
+        d = (a.view(torch.int64) != b.view(torch.int64)).to(torch.int64)
     else:
         d = (a.to(torch.int64) - b.to(torch.int64)).abs()
     return int((d != 0).sum()), int(d.max()) if d.numel() else 0
@@ -331,11 +361,12 @@ class GrantSource:
 def kernel_name(mangled: str) -> str:
     """``escape_mega_kernel<0,1>`` from its mangled name: a length
     prefix, the name, then ``I<L[ib]n E...>E`` template arguments."""
-    m = re.search(r"\d((?:escape_[a-z]+|mxu_probe)_kernel)"
-                  r"(?:I((?:L[ib]\d+E)+)E)?", mangled)
+    m = re.search(r"\d((?:escape_[a-z]+|mxu_probe|perturb_[a-z]+)_kernel)"
+                  r"(?:I([fd]?)((?:L[ib]\d+E)+)E)?", mangled)
     if not m:
         return mangled
-    args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
+    args = ([{"f": "float", "d": "double"}[m.group(2)]] if m.group(2)
+            else []) + re.findall(r"L[ib](\d+)E", m.group(3) or "")
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
@@ -440,6 +471,26 @@ def phase_device(build):
     return name, count, smi
 
 
+def bitwise_checker(err: dict):
+    """``check(name, got, want, what)``, which raises unless ``got`` equals
+    ``want`` bit for bit and keeps each kernel's largest difference in
+    ``err``, and a count of its cases."""
+    cases = [0]
+
+    def check(name, got, want, what):
+        cases[0] += 1
+        err[name] = max(err[name], max_abs_err(got, want))
+        n, d = bit_diff(got, want)
+        if n:
+            unit = ("ulps" if got.dtype == torch.float32 else
+                    "differing f64s" if got.dtype == torch.float64 else
+                    "values")
+            raise AssertionError(f"{name} differs from {what} on {n} "
+                                 f"pixels (max {d} {unit})")
+
+    return check, lambda: cases[0]
+
+
 def phase_kernel_vs_plain(ce, TileSpec):
     """Every kernel launch here is held bitwise against its plain version
     on the same device."""
@@ -453,18 +504,9 @@ def phase_kernel_vs_plain(ce, TileSpec):
     err = {"escape_tile": 0, "escape_mega": 0, "escape_smooth": 0.0,
            "escape_pack": 0, "escape_batch": 0, "escape_state": 0.0,
            "escape_resume": 0.0, "escape_tile_mxu": 0, "escape_mega_mxu": 0,
-           **{f"escape_mega_{m}": 0 for m in MEGA_MODES}}
-    cases = 0
-
-    def check(name, got, want, what):
-        nonlocal cases
-        cases += 1
-        err[name] = max(err[name], max_abs_err(got, want))
-        n, d = bit_diff(got, want)
-        if n:
-            unit = "ulps" if got.dtype == torch.float32 else "values"
-            raise AssertionError(f"{name} differs from {what} on {n} "
-                                 f"pixels (max {d} {unit})")
+           **{f"escape_mega_{m}": 0 for m in MEGA_MODES},
+           "perturb_scan": 0, "perturb_scan_smooth": 0.0}
+    check, cases = bitwise_checker(err)
 
     for group in (views, chunks):
         for mi in (256, 1024, 2000):
@@ -535,8 +577,9 @@ def phase_kernel_vs_plain(ce, TileSpec):
     check_mesh_kernels(ce, TileSpec, views, check)
     check_mxu_and_mega_modes(ce, TileSpec, views, chunks, check)
     check_refill_stress(ce, TileSpec, check)
+    check_perturb_kernels(check)
     torch.cuda.synchronize()
-    emit({"phase": "kernel_vs_plain", "ok": True, "cases": cases,
+    emit({"phase": "kernel_vs_plain", "ok": True, "cases": cases(),
           "bitwise": True, "max_abs_err": err})
     return err
 
@@ -1060,6 +1103,371 @@ def check_fused_over_one_launch(ce, TileSpec, check) -> None:
     check("escape_mega", fscout, pcensus, "the plain census (300 tiles)")
 
 
+# --- the perturbation route (K9, K10) ----------------------------------------
+
+PERTURB_SOURCE = "distributedmandelbrot_tpu_torch/ops/csrc/perturb_kernels.cu"
+# No Pallas kernel: the JAX package's scans are lax.scans (XLA).
+PERTURB_REPLACES = {
+    "perturb_scan": "distributedmandelbrot_tpu/ops/perturbation.py:438",
+    "perturb_scan_smooth":
+        "distributedmandelbrot_tpu/ops/perturbation.py:1132",
+}
+NO_PALLAS = ("no Pallas counterpart: the JAX package computes this scan as "
+             "a lax.scan under _segmented_orbit_scan (perturbation.py:342)")
+NO_PERTURB_LIBRARY = ("no single PyTorch call computes a delta-orbit scan; "
+                      "the plain version is a loop of elementwise ops")
+# Uncontracted operations per lane-step of K9/K10 (perturb_kernels.cu),
+# the per-lane work of the function: 20 with the dc term (Mandelbrot), 18
+# without (Julia); 2Z and tol |Z|^2 depend on the orbit entry alone and
+# are computed once per entry.  f64's rate: half of the published 34
+# TFLOP/s, which counts an FMA as two.
+PERTURB_OPS_PER_STEP = {True: 20, False: 18}
+F64_OPS_PER_S = 34e12 / 2
+# A lane's outputs: K9 n (4 B) and three masks (1 B each); K10 n, n2
+# (4 B each), the frozen value (two of the dtype) and three masks.
+K9_OUT_BYTES = 7
+CONFIG4 = ("-0.77568376995", "0.13646737005")
+BOND = ("0.375", "0.2165063509461096616909307926882340458678500")
+JULIA_DEEP = (("0.1", "0.2"), 1e-6, 3000, ("-0.8", "0.156"))
+MINIBROT3 = ("-1.7548776662466927", "0.0")
+
+
+def deep_inputs(pt, center, span, side, max_iter, dtype, dev, julia_c=None,
+                orbit_len=None):
+    """A view's reference orbit (the route's search) and its deltas as
+    the route feeds the scans: the orbit on the card in f64, the row and
+    column vectors broadcast."""
+    spec = pt.DeepTileSpec(*center, span, width=side, height=side)
+    need = int(-np.log2(spec.step)) + 64
+    bits = max(pt.DEFAULT_PREC_BITS, -(-need // 128) * 128)
+    za, zb = pt._to_fixed(center[0], bits), pt._to_fixed(center[1], bits)
+    ca, cb = ((za, zb) if julia_c is None else
+              (pt._to_fixed(julia_c[0], bits), pt._to_fixed(julia_c[1], bits)))
+    z_re, z_im, _, o_re, o_im = pt._find_reference(
+        za, zb, ca, cb, span, max_iter, bits, add_dc=julia_c is None,
+        device=str(dev))
+    if orbit_len is not None:
+        z_re, z_im = z_re[:orbit_len], z_im[:orbit_len]
+    col = (np.arange(side) - (side - 1) / 2) * spec.step
+    row = torch.as_tensor((col - o_re).astype(dtype), device=dev)
+    colv = torch.as_tensor((col - o_im).astype(dtype), device=dev)
+    return (torch.as_tensor(z_re, device=dev),
+            torch.as_tensor(z_im, device=dev),
+            row[None, :].expand(side, side), colv[:, None].expand(side, side),
+            julia_c is None)
+
+
+def check_perturb_kernels(check) -> None:
+    """K9 and K10 against their plain versions on the card, bitwise on
+    every state output: f32 and f64, Mandelbrot (the config-4 view) and
+    Julia, 256^2 and 512^2, K9 with the stagnation stop armed and not;
+    an orbit shorter than the budget (300 entries: one whole segment and
+    a ragged tail); a stagnation stop (the period-3 minibrot at 16^2,
+    budget 20000, its in-set lanes suspect); and many segments with more
+    lanes live than the stop's cap (the minibrot at 256^2, f32)."""
+    from distributedmandelbrot_tpu_torch.ops import cuda_perturb as cp
+    from distributedmandelbrot_tpu_torch.ops import perturbation as pt
+    dev = torch.device("cuda", 0)
+
+    def both(label, inputs, stagnations=(True, False), smooth=True):
+        zr, zi, dre, dim, add_dc = inputs
+        for stag in stagnations:
+            got = cp.perturb_state_cuda(zr, zi, dre, dim, add_dc=add_dc,
+                                        stagnation=stag)
+            state = cp.perturb_state_plain(zr, zi, dre, dim, add_dc=add_dc,
+                                           stagnation=stag)
+            for g, w in zip(got, state):
+                check("perturb_scan", g, w,
+                      f"plain ({label}, stagnation {stag})")
+        if smooth:
+            got = cp.perturb_smooth_state_cuda(zr, zi, dre, dim,
+                                               bailout=256.0, add_dc=add_dc)
+            want = cp.perturb_smooth_state_plain(zr, zi, dre, dim,
+                                                 bailout=256.0,
+                                                 add_dc=add_dc)
+            for g, w in zip(got, want):
+                check("perturb_scan_smooth", g, w, f"plain ({label})")
+        return state
+
+    for dtype in (np.float32, np.float64):
+        for side in (256, 512):
+            both(f"config-4, {side}^2, {dtype.__name__}",
+                 deep_inputs(pt, CONFIG4, 1e-10, side, 50000, dtype, dev))
+            center, span, mi, jc = JULIA_DEEP
+            both(f"Julia, {side}^2, {dtype.__name__}",
+                 deep_inputs(pt, center, span, side, mi, dtype, dev, jc))
+        both(f"orbit of 300 < budget, {dtype.__name__}",
+             deep_inputs(pt, CONFIG4, 1e-10, 256, 50000, dtype, dev,
+                         orbit_len=300))
+        state = both(f"stagnation stop, {dtype.__name__}",
+                     deep_inputs(pt, MINIBROT3, 5e-2, 16, 20000, dtype, dev),
+                     stagnations=(True,))
+        if not int(state[3].sum()):
+            raise AssertionError("the stagnation case flagged no lane")
+    both("minibrot 256^2, 78 segments, f32",
+         deep_inputs(pt, MINIBROT3, 5e-2, 256, 20000, np.float32, dev),
+         stagnations=(True,))
+
+
+# (name, render flags): the config-4 view (BASELINE config 4, a
+# Misiurewicz window: an early-escaping reference) integer in f32 at
+# 1024^2 and 4096^2 and smooth in f64 at 1024^2, and the period-6 bond
+# point's view, where every pixel runs the whole budget and the probe
+# turns BLA on.
+DEEP_RENDERS = [
+    ("config4_1024", ["--deep", f"--center={CONFIG4[0]},{CONFIG4[1]}",
+                      "--span", "1e-10", "--max-iter", "50000",
+                      "--definition", "1024"]),
+    ("config4_1024_smooth_f64", ["--deep",
+                                 f"--center={CONFIG4[0]},{CONFIG4[1]}",
+                                 "--span", "1e-10", "--max-iter", "50000",
+                                 "--definition", "1024", "--smooth",
+                                 "--dtype", "f64"]),
+    ("config4_4096", ["--deep", f"--center={CONFIG4[0]},{CONFIG4[1]}",
+                      "--span", "1e-10", "--max-iter", "50000",
+                      "--definition", "4096"]),
+    ("bond_1024", ["--deep", f"--center={BOND[0]},{BOND[1]}", "--span",
+                   "1e-15", "--max-iter", "20000", "--definition", "1024"]),
+]
+DEEP_PHASES = ("reference", "bla_probe", "bla_table", "scan",
+               "repair_secondary", "repair_exact")
+
+
+def clear_deep_caches(pt) -> None:
+    """Forget every cached reference search, orbit, device orbit, BLA
+    decision and table: the next render of a view starts cold."""
+    from distributedmandelbrot_tpu_torch.ops import bla
+    for cached in (pt._find_reference, pt._orbit_cached,
+                   pt._orbit_cached_giant):
+        cached.cache_clear()
+    pt._DEVICE_ORBIT_CACHE.clear()
+    pt._AUTO_BLA_CACHE.clear()
+    bla._TABLE_CACHE.clear()
+
+
+class ScanTimer:
+    """CUDA events around every K9/K10 wrapper call while installed (the
+    wrappers are looked up on ``cuda_perturb`` at each call)."""
+
+    def __init__(self, cp):
+        self.cp, self.pairs = cp, []
+        self.real = (cp.perturb_state_cuda, cp.perturb_smooth_state_cuda)
+
+    def _timed(self, fn):
+        def call(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+        return call
+
+    def __enter__(self):
+        self.cp.perturb_state_cuda = self._timed(self.real[0])
+        self.cp.perturb_smooth_state_cuda = self._timed(self.real[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.cp.perturb_state_cuda, self.cp.perturb_smooth_state_cuda = \
+            self.real
+
+    def take_ms(self) -> float:
+        torch.cuda.synchronize()
+        total = sum(a.elapsed_time(b) for a, b in self.pairs)
+        self.pairs.clear()
+        return total
+
+
+def deep_render(cli, pt, cp, ce, flags, out, timer=None) -> dict:
+    """One deep render through ``cli.main``, its counts set to 0 just
+    before: host-clock seconds split by the route's phases (colormap,
+    PNG and the rest by difference), the K9/K10 calls' time by CUDA
+    events (``timer``), their launches, glitched and exactly repaired
+    pixels."""
+    torch.cuda.synchronize()
+    ce.reset_launch_counts()
+    cp.reset_launch_counts()
+    pt.reset_phase_seconds()
+    t0 = time.monotonic()
+    rc = cli.main(["render", *flags, "--out", out, "-q"])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    phases = pt.phase_seconds()
+    split = {k: phases.get(k, 0.0) for k in DEEP_PHASES}
+    split["colormap_png_and_rest"] = wall - sum(split.values())
+    escape = {k: v for k, v in ce.launch_counts().items() if v}
+    return {"rc": rc, "seconds": wall, "split_s": split,
+            "scan_kernels_device_ms": timer.take_ms() if timer else None,
+            "launches": cp.launch_counts(), "escape_launches": escape,
+            "glitched": int(phases.get("glitched", 0)),
+            "exact_repaired": int(phases.get("exact_repaired", 0)),
+            "bla": "bla_table" in phases}
+
+
+def sampled_exact(pt, center, span, side, max_iter, counts, seed=1) -> int:
+    """Sampled pixels (12) whose count differs from the exact fixed-point
+    count: the JAX package's own bar is at most 1."""
+    spec = pt.DeepTileSpec(*center, span, width=side, height=side)
+    need = int(-np.log2(spec.step)) + 64
+    bits = max(pt.DEFAULT_PREC_BITS, -(-need // 128) * 128)
+    za, zb = pt._to_fixed(center[0], bits), pt._to_fixed(center[1], bits)
+    rng = np.random.default_rng(seed)
+    rs, cs = rng.integers(side, size=12), rng.integers(side, size=12)
+    pts = [(za + pt._to_fixed(float((c - (side - 1) / 2) * spec.step), bits),
+            zb + pt._to_fixed(float((r - (side - 1) / 2) * spec.step), bits))
+           for r, c in zip(rs, cs)]
+    exact = pt._escape_counts_exact_batch(pts, max_iter, bits, None)
+    return int((counts[rs, cs] != exact).sum())
+
+
+def phase_deep_path(cli, ce):
+    """The deep views through ``render``: each launches K9 (integer) or
+    K10 (smooth) and never the plain scans on the card, writes the PNG
+    of the same route with the plain scans byte for byte, and the
+    config-4 view's sampled pixels equal the exact fixed-point counts;
+    the bond view takes BLA.  Each view runs twice: cold (every cache of
+    the route emptied first: the reference search and orbit computed)
+    and warm (cached, as a re-render)."""
+    from distributedmandelbrot_tpu_torch.ops import cuda_perturb as cp
+    from distributedmandelbrot_tpu_torch.ops import perturbation as pt
+    launches = {"perturb_scan": 0, "perturb_scan_smooth": 0}
+    views = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, flags in DEEP_RENDERS:
+            out = os.path.join(tmp, f"{name}.png")
+            clear_deep_caches(pt)
+            with ScanTimer(cp) as timer:
+                cold = deep_render(cli, pt, cp, ce, flags, out, timer)
+                warm = deep_render(cli, pt, cp, ce, flags, out, timer)
+            for k, v in cold["launches"].items():
+                launches[k] += v
+            with open(out, "rb") as fh:
+                got = fh.read()
+            smooth = "--smooth" in flags
+            kernel = "perturb_scan_smooth" if smooth else "perturb_scan"
+            # The same route with the plain scans on the card.
+            real = (cp.perturb_state_cuda, cp.perturb_smooth_state_cuda)
+            cp.perturb_state_cuda = cp.perturb_state_plain
+            cp.perturb_smooth_state_cuda = cp.perturb_smooth_state_plain
+            try:
+                plain_out = os.path.join(tmp, f"{name}_plain.png")
+                plain = deep_render(cli, pt, cp, ce, flags, plain_out)
+            finally:
+                cp.perturb_state_cuda, cp.perturb_smooth_state_cuda = real
+            with open(plain_out, "rb") as fh:
+                png_equal = fh.read() == got
+            ok = (cold["rc"] == warm["rc"] == 0 and not cold["escape_launches"]
+                  and png_equal and sum(plain["launches"].values()) == 0)
+            if name.startswith("bond"):
+                ok = ok and cold["bla"]
+            else:
+                ok = ok and cold["launches"][kernel] > 0
+            views[name] = {"cold": cold, "warm": warm,
+                           "png_equal_plain": png_equal,
+                           "plain_route_seconds": plain["seconds"]}
+            if not ok:
+                raise AssertionError(f"deep view {name}: {views[name]}")
+        counts, flagged = pt.compute_counts_perturb(
+            pt.DeepTileSpec(*CONFIG4, 1e-10, width=1024, height=1024), 50000)
+        off = sampled_exact(pt, CONFIG4, 1e-10, 1024, 50000, counts)
+        if off > 1:
+            raise AssertionError(f"config-4: {off} of 12 sampled pixels "
+                                 "differ from the exact counts")
+        bond_counts, _ = pt.compute_counts_perturb(
+            pt.DeepTileSpec(*BOND, 1e-15, width=1024, height=1024), 20000)
+        if bond_counts.any():
+            raise AssertionError("the bond view left the set under BLA")
+    record = {"phase": "deep_path", "ok": True, "views": views,
+              "launches": launches, "config4_sampled_off_exact": off,
+          "timing": "host clock around cli.main, ended by "
+                    "torch.cuda.synchronize(); split_s by the route's "
+                    "phases, the scans' share each to its fetch; "
+                    "scan_kernels_device_ms: CUDA events around each "
+                    "K9/K10 wrapper call (the K9 host loop's reads of its "
+                    "segment counts included)"}
+    emit(record)
+    return record
+
+
+def perturb_needed_steps(n, active, orbit_len: int) -> int:
+    """Lane-steps these inputs need (the plain version's per-lane work
+    to its last test): a lane that escaped ran its n passed tests and
+    the one it failed; a lane still live ran the whole orbit."""
+    steps = torch.where(active, torch.full_like(n, orbit_len), n + 1)
+    return int(steps.to(torch.int64).sum())
+
+
+def time_perturb_kernels(ptxas) -> list:
+    """K9 on the config-4 view at 4096^2 as the route launches it (16
+    row chunks of 256 rows, f32, the stagnation stop armed) and on one
+    1024^2 chunk; K10 on the smooth f64 view at 1024^2 (2 chunks of 512
+    rows).  CUDA events around all of a view's chunks; the plain
+    versions on the same chunks once; bound = the lane-steps these
+    inputs need x 20 operations over the rate of the dtype, against the
+    outputs' bytes."""
+    from distributedmandelbrot_tpu_torch.ops import cuda_perturb as cp
+    from distributedmandelbrot_tpu_torch.ops import perturbation as pt
+    dev = torch.device("cuda", 0)
+
+    def chunks(side, rows, dtype):
+        zr, zi, dre, dim, _ = deep_inputs(pt, CONFIG4, 1e-10, side, 50000,
+                                          dtype, dev)
+        return zr, zi, [(dre[r:r + rows], dim[r:r + rows])
+                        for r in range(0, side, rows)]
+
+    def regs(name, dtype):
+        t = "<float" if dtype == np.float32 else "<double"
+        return {k: v.get("registers") for k, v in ptxas.items()
+                if k.startswith(name) and t in k}
+
+    rows = []
+    for name, side, rows_per, dtype, smooth in (
+            ("perturb_scan", 4096, 256, np.float32, False),
+            ("perturb_scan", 1024, 1024, np.float32, False),
+            ("perturb_scan_smooth", 1024, 512, np.float64, True)):
+        zr, zi, parts = chunks(side, rows_per, dtype)
+        if smooth:
+            run = lambda fn: [fn(zr, zi, a, b, bailout=256.0)  # noqa: E731
+                              for a, b in parts]
+            kern, plain = (cp.perturb_smooth_state_cuda,
+                           cp.perturb_smooth_state_plain)
+        else:
+            run = lambda fn: [fn(zr, zi, a, b)  # noqa: E731
+                              for a, b in parts]
+            kern, plain = cp.perturb_state_cuda, cp.perturb_state_plain
+        ms = median_ms(lambda: run(kern), reps=20)
+        plain_ms = median_ms(lambda: run(plain), reps=1, warmup=0)
+        got, want = run(kern), run(plain)
+        bitwise = all(torch.equal(g, w) for gs, ws in zip(got, want)
+                      for g, w in zip(gs, ws))
+        if smooth:
+            needed = sum(perturb_needed_steps(w[0], w[4], zr.shape[0])
+                         for w in want)
+            out_bytes = side * side * (8 + 2 * 8 + 3)
+        else:
+            needed = sum(perturb_needed_steps(w[0], w[1], zr.shape[0])
+                         for w in want)
+            out_bytes = side * side * K9_OUT_BYTES
+        rate = F32_OPS_PER_S if dtype == np.float32 else F64_OPS_PER_S
+        ops = needed * PERTURB_OPS_PER_STEP[True]
+        t_ops, t_bytes = ops / rate, out_bytes / HBM_BYTES_PER_S
+        rows.append({
+            "name": name, "side": side, "dtype": np.dtype(dtype).name,
+            "ms": ms, "plain_ms": plain_ms, "bitwise_vs_plain": bitwise,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "lane_steps_needed": needed, "ops": ops,
+            "orbit_len": int(zr.shape[0]), "chunks": len(parts),
+            "registers": regs(name.replace("perturb_scan_smooth",
+                                           "perturb_smooth"), dtype)})
+        if not bitwise:
+            raise AssertionError(f"{name} at {side}^2 differs from its "
+                                 "plain version")
+    return rows
+
+
 def phase_golden(wk, TileSpec, escape_time, Workload):
     sky = Workload(4, 256, 3, 3)
     full = wk.CudaBackend(definition=4096)
@@ -1257,6 +1665,49 @@ def run_split() -> int:
     emit(compact_split(lambda: cx.compact_escape_batch(
         rows, [1000] * len(rows), k=len(rows), height=4096, width=4096,
         max_iter=1000, device=dev)))
+    return 0
+
+
+def run_deep(argv: list[str]) -> int:
+    """``--deep [--out PATH]``: the deep route alone, in a process of its
+    own.  Builds the kernels and the native library and starts CUDA
+    first (each timed), so that pass 1 of ``deep_path`` is each view's
+    first render in the process past its start-up and pass 2 a later
+    one; then holds K9 and K10 bitwise against their plain versions and
+    times them."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    from distributedmandelbrot_tpu_torch import cli
+    from distributedmandelbrot_tpu_torch.native import bindings
+    from distributedmandelbrot_tpu_torch.ops import _build
+    from distributedmandelbrot_tpu_torch.ops import cuda_escape as ce
+    phase_device(_build)
+    t0 = time.monotonic()
+    native = bindings.native_supported()
+    native_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    torch.zeros(1, device="cuda:0")
+    torch.cuda.synchronize()
+    records = [{"card": nvidia_smi_line(), "native_library": native,
+                "native_library_s": native_s,
+                "cuda_start_s": time.monotonic() - t0}]
+    for n in (1, 2):
+        records.append({"pass": n, **phase_deep_path(cli, ce)})
+    err = {"perturb_scan": 0, "perturb_scan_smooth": 0.0}
+    check, cases = bitwise_checker(err)
+    check_perturb_kernels(check)
+    records.append({"phase": "kernel_vs_plain", "ok": True,
+                    "cases": cases(), "max_abs_err": err})
+    ptxas = {kernel_name(r["kernel"]): r for r in _build.ptxas_report()}
+    records.append({"phase": "perturb_kernels",
+                    "timed": time_perturb_kernels(ptxas)})
+    for record in records[-2:]:
+        emit(record)
+    if "--out" in argv:
+        with open(argv[argv.index("--out") + 1], "w") as fh:
+            json.dump(records, fh, indent=1)
+    print(records[0]["card"], flush=True)
     return 0
 
 
@@ -2544,7 +2995,31 @@ def phase_kernels(ce, TileSpec, launches, err, build):
             row["k2_cached_ms_same_run"] = k2_ms
             row["sass_f32_ops"] = sass
         kernels.append(row)
-    return kernels
+    return kernels + perturb_rows(err, launches, ptxas)
+
+
+def perturb_rows(err: dict, launches: dict, ptxas: dict) -> list:
+    """The kernels line's rows of K9 and K10."""
+    timed = time_perturb_kernels(ptxas)
+    rows = []
+    for name in ("perturb_scan", "perturb_scan_smooth"):
+        main, *more = [t for t in timed if t["name"] == name]
+        inputs = {4096: "the config-4 view at 4096^2, f32, 16 row chunks "
+                        "of 256 as the route launches them",
+                  1024: "the config-4 view at 1024^2"}
+        by_path = {path: counts.get(name, 0)
+                   for path, counts in launches.items()}
+        rows.append({
+            **main, "route": "cuda", "source": PERTURB_SOURCE,
+            "replaces": PERTURB_REPLACES[name], "replaces_note": NO_PALLAS,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": err[name], "library_ms": None,
+            "library_reason": NO_PERTURB_LIBRARY,
+            "input": (inputs[main["side"]] if name == "perturb_scan" else
+                      "the config-4 view at 1024^2, smooth, f64, 2 row "
+                      "chunks of 512"),
+            "other_inputs": more})
+    return rows
 
 
 def main() -> int:
@@ -2572,11 +3047,13 @@ def main() -> int:
     mesh_launches = phase_mesh_path(wk, ce, parallel, TileSpec, Workload)
     mxu_launches = phase_mxu_path(wk, ce, names, TileSpec, Workload)
     multihost_launches = phase_multihost(ce, TileSpec)
+    deep_launches = phase_deep_path(cli, ce)["launches"]
     kernels = phase_kernels(ce, TileSpec, {"main_path": main_launches,
                                            "render_path": render_launches,
                                            "mesh_path": mesh_launches,
                                            "mxu_path": mxu_launches,
-                                           "multihost": multihost_launches},
+                                           "multihost": multihost_launches,
+                                           "deep_path": deep_launches},
                             err, _build)
     emit({"phase": "kernels", "ok": True,
           "seconds_total": time.monotonic() - t_start,
@@ -2595,4 +3072,6 @@ if __name__ == "__main__":
                           args["--out"]))
     if "--split" in sys.argv:
         sys.exit(run_split())
+    if "--deep" in sys.argv:
+        sys.exit(run_deep(sys.argv))
     sys.exit(main())

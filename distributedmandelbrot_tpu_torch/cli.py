@@ -5,9 +5,9 @@
 
 ``worker`` takes the flags of ``dmtpu worker`` of the JAX package, with
 ``--backend`` choosing among the port's backends (auto, cuda, torch,
-numpy, mesh) and ``--device``/``--dtype`` beside it.  ``--backend mesh``
-computes each lease batch sharded over every local GPU, ``--kernel
-auto|cuda|torch`` picking its compute (the reference's
+numpy, native, mesh) and ``--device``/``--dtype`` beside it.
+``--backend mesh`` computes each lease batch sharded over every local
+GPU, ``--kernel auto|cuda|torch`` picking its compute (the reference's
 ``auto|pallas|xla``); ``--multihost`` runs the group-spanning worker
 over ``torch.distributed`` ranks (``--mh-coordinator``,
 ``--mh-processes``, ``--mh-process-id``).  ``--device cpu`` runs either
@@ -15,12 +15,16 @@ on the CPU (the kernels' plain versions).  ``--ring``,
 ``--exporter-port`` and ``--profile`` come with the slices that port
 what they drive.
 
-``render`` is ``dmtpu render``'s direct route: Mandelbrot, Julia,
-Multibrot and Burning Ship views, integer or smooth, supersampled or
-not, on the CUDA kernels (``--device cuda``, the default) or their plain
-versions (``--device cpu``).  ``--no-kernel`` (``--no-pallas`` there)
-takes the torch loops on the host-linspace grid.  The perturbation
-deep-zoom route is not ported yet: a view that needs it is refused.
+``render`` is ``dmtpu render``: Mandelbrot, Julia, Multibrot and
+Burning Ship views, integer or smooth, supersampled or not, on the CUDA
+kernels (``--device cuda``, the default) or their plain versions
+(``--device cpu``).  ``--no-kernel`` (``--no-pallas`` there) takes the
+torch loops on the host-linspace grid for the direct route.  Mandelbrot
+and Julia views below a span of 1e-12, f32 views too fine for f32
+coordinates, and ``--deep`` render by perturbation
+(``ops/perturbation.py``: the delta scans K9 and K10 on the card),
+with the bilinear approximation (``--bla``, ``--no-bla``; by default
+a probe decides).
 """
 
 from __future__ import annotations
@@ -63,6 +67,8 @@ def _make_backend(name: str, dtype: str | None, device: str,
     from distributedmandelbrot_tpu_torch import worker as wk
     if name == "numpy":
         return wk.NumpyBackend()
+    if name == "native":
+        return wk.NativeBackend()
     if name == "torch":
         return wk.TorchBackend(dtype=_NP_DTYPES[dtype or "f32"],
                                device=device)
@@ -89,10 +95,13 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int,
                    default=proto.DEFAULT_DISTRIBUTER_PORT)
     p.add_argument("--backend",
-                   choices=["auto", "cuda", "torch", "numpy", "mesh"],
+                   choices=["auto", "cuda", "torch", "numpy", "native",
+                            "mesh"],
                    default="auto",
                    help="auto = the CUDA kernels (raises without a GPU); "
-                        "mesh = each batch sharded over every local GPU")
+                        "native = the C++ CPU loop (bit-exact, g++ builds "
+                        "it on first use); mesh = each batch sharded over "
+                        "every local GPU")
     p.add_argument("--device", default="cuda",
                    help="torch device of the cuda/torch/mesh backends and "
                         "--multihost (default cuda: every local GPU for "
@@ -252,11 +261,6 @@ def cmd_worker(argv: Sequence[str]) -> int:
 # renders through perturbation.
 DEEP_SPAN_THRESHOLD = 1e-12
 
-_DEEP_NOT_PORTED = (
-    "the perturbation deep-zoom route (--deep, --bla, spans below {:g}, "
-    "and f32 views too fine for f32 coordinates) is not ported yet "
-    "(ROADMAP queue 1, item 11); render this view with "
-    "distributedmandelbrot_tpu")
 
 # Mean-zero subpixel offsets (in pixel-pitch units): the sample cloud
 # stays centered on the nominal pixel position, so supersampling never
@@ -352,6 +356,31 @@ def _join_negative_values(argv: Sequence[str], flags: Sequence[str]) -> list:
     return out
 
 
+def _resolve_bla(args: argparse.Namespace) -> bool | None:
+    """--bla / --no-bla -> the perturbation layer's tri-state: force on,
+    force off, or (neither) the per-orbit auto-probe
+    (ops.perturbation._auto_bla)."""
+    if getattr(args, "bla", False):
+        return True
+    if getattr(args, "no_bla", False):
+        return False
+    return None
+
+
+def _warn_if_deep_all_inset(plane, max_iter: int, span: float) -> None:
+    """A deep view where EVERY pixel classifies in-set (value 0) is
+    almost always an under-budgeted render, not a discovery: escape
+    depths grow with zoom, so say so instead of writing a flat image
+    with no hint.  (Shallow interior views are legitimately all-in-set,
+    hence deep-path only.)"""
+    if not np.any(np.asarray(plane)):
+        logger.warning(
+            "deep view at span %g: no pixel escaped within max_iter=%d — "
+            "the output is a uniform in-set tile.  Deep zooms need "
+            "budgets that grow with depth; retry with a larger "
+            "--max-iter.", span, max_iter)
+
+
 def _auto_deep(span: float, cx: float, cy: float, definition: int,
                np_dtype) -> bool:
     """Whether the reference renders a Mandelbrot/Julia view by
@@ -402,8 +431,9 @@ def _render_supersampled(c_re: str, c_im: str, span: float, definition: int,
 
     Integer f32 direct views compute all samples in one K5 launch
     (``compute_tiles_packed_cuda``), each plane equal to K1 on its
-    sample; every other route (smooth, ``--no-kernel``, a declined pack)
-    renders the samples one by one — the same output, linear cost."""
+    sample; every other route (smooth, deep, ``--no-kernel``, a declined
+    pack) renders the samples one by one — the same output, linear
+    cost."""
     from distributedmandelbrot_tpu_torch.core.geometry import TileSpec
     from distributedmandelbrot_tpu_torch.viewer import value_to_rgba
 
@@ -452,7 +482,8 @@ def _render_view(c_re: str, c_im: str, span: float, definition: int,
                  julia_c: tuple[str, str] | None = None,
                  family: tuple[int, bool] | None = None,
                  no_kernel: bool = False, normalize: bool = False,
-                 supersample: int = 1) -> np.ndarray:
+                 supersample: int = 1, bla: bool | None = None
+                 ) -> np.ndarray:
     """One view -> float RGBA (Mandelbrot, or Julia when ``julia_c`` is
     set, or a Multibrot/Burning-Ship view when ``family=(power,
     burning)``), on ``device``.
@@ -461,8 +492,10 @@ def _render_view(c_re: str, c_im: str, span: float, definition: int,
     view a kernel declines, an f64 view, or ``no_kernel`` takes the
     torch loops on the host-linspace grid (the kernels generate theirs
     as ``start + index * step`` in f32, up to one ulp away, so the two
-    can differ on chaotic boundary pixels).  A view the reference
-    renders by perturbation raises SystemExit."""
+    can differ on chaotic boundary pixels).  A Mandelbrot or Julia view
+    that :func:`_resolve_deep` routes to perturbation renders through
+    ``ops/perturbation.py`` (center strings at full precision; ``bla``
+    the BLA tri-state), its scans on ``device``."""
     from distributedmandelbrot_tpu_torch.core.geometry import TileSpec
     from distributedmandelbrot_tpu_torch.ops import escape_time, families
     from distributedmandelbrot_tpu_torch.viewer import (smooth_to_rgba,
@@ -474,7 +507,8 @@ def _render_view(c_re: str, c_im: str, span: float, definition: int,
             render_kwargs=dict(smooth=smooth, np_dtype=np_dtype,
                                colormap=colormap, device=device, deep=deep,
                                julia_c=julia_c, family=family,
-                               no_kernel=no_kernel, normalize=normalize))
+                               no_kernel=no_kernel, normalize=normalize,
+                               bla=bla))
 
     kernel_first = (lambda *a, **k: None) if no_kernel else _kernel_first
     on_kernel = np_dtype == np.float32
@@ -505,7 +539,29 @@ def _render_view(c_re: str, c_im: str, span: float, definition: int,
                              colormap=colormap)
 
     if _resolve_deep(deep, span, cx, cy, definition, np_dtype, family):
-        raise SystemExit(_DEEP_NOT_PORTED.format(DEEP_SPAN_THRESHOLD))
+        import torch
+
+        from distributedmandelbrot_tpu_torch.ops import perturbation
+        # Center strings pass through verbatim: their precision is not
+        # bounded by float64.
+        dspec = perturbation.DeepTileSpec(c_re, c_im, span, width=definition,
+                                          height=definition)
+        if smooth:
+            nu, _ = perturbation.compute_smooth_perturb(
+                dspec, max_iter, dtype=np_dtype, julia_c=julia_c, bla=bla,
+                device=device)
+            _warn_if_deep_all_inset(nu, max_iter, span)
+            return smooth_to_rgba(nu, max_iter, colormap=colormap,
+                                  normalize=normalize)
+        counts, _ = perturbation.compute_counts_perturb(
+            dspec, max_iter, dtype=np_dtype, julia_c=julia_c, bla=bla,
+            device=device)
+        # Warn on the raw counts: the uint8 encoding wraps the top band
+        # of the budget to 0.
+        _warn_if_deep_all_inset(counts, max_iter, span)
+        values = escape_time.scale_counts_to_uint8(
+            torch.from_numpy(counts), max_iter=max_iter).numpy()
+        return value_to_rgba(values, colormap=colormap)
     jc = (complex(float(julia_c[0]), float(julia_c[1]))
           if julia_c is not None else None)
     if smooth:
@@ -580,11 +636,21 @@ def cmd_render(argv: Sequence[str]) -> int:
                              "the f64 quality path, the torch loop; "
                              "--dtype f32 selects the smooth kernel)")
     parser.add_argument("--deep", action="store_true",
-                        help="perturbation deep zoom: not ported yet "
-                             "(refused)")
+                        help="perturbation deep zoom: center taken at "
+                             "arbitrary decimal precision, valid at any "
+                             "span (auto-selected below 1e-12)")
     parser.add_argument("--bla", action="store_true",
-                        help="bilinear approximation for deep renders: "
-                             "not ported yet (refused)")
+                        help="force the bilinear-approximation fast path "
+                             "for deep renders, integer or --smooth "
+                             "(ops/bla.py): skips orbit segments where "
+                             "the delta recurrence is effectively linear. "
+                             "Approximate by contract: escapes inside a "
+                             "skipped segment are detected at its end.  "
+                             "Default (neither flag): a probe enables BLA "
+                             "where it wins")
+    parser.add_argument("--no-bla", action="store_true",
+                        help="force the exact delta scan (disable the "
+                             "BLA auto-probe)")
     parser.add_argument("--dtype", choices=["f32", "f64"], default=None,
                         help="arithmetic width; default: f64 for --smooth, "
                              "f32 otherwise.  f32 runs the kernels")
@@ -602,7 +668,9 @@ def cmd_render(argv: Sequence[str]) -> int:
                         help="take the torch loops on the host-linspace "
                              "grid instead of the kernels, whose f32 grid "
                              "(start + i*step) can differ from it at the "
-                             "last ulp; reproduces host-grid renders")
+                             "last ulp; reproduces host-grid renders "
+                             "(direct views; deep views always scan on "
+                             "their delta kernels)")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu runs the "
                              "kernels' plain versions)")
@@ -639,15 +707,20 @@ def cmd_render(argv: Sequence[str]) -> int:
     deep = _resolve_deep(True if args.deep else None, args.span,
                          float(c_re), float(c_im), args.definition,
                          np_dtype, family)
-    if deep or args.bla:
-        raise SystemExit(_DEEP_NOT_PORTED.format(DEEP_SPAN_THRESHOLD))
+    if args.bla and args.no_bla:
+        raise SystemExit("--bla and --no-bla are mutually exclusive")
+    if args.bla and not deep:
+        raise SystemExit("--bla applies to perturbation deep renders "
+                         "(--deep, or a view the auto-selector routes "
+                         "to perturbation); this view renders on the "
+                         "direct kernels, which have no orbit to skip")
     rgba = _render_view(c_re, c_im, args.span, args.definition,
                         args.max_iter, smooth=args.smooth, np_dtype=np_dtype,
                         colormap=args.colormap,
                         device=_render_device(args.device), deep=deep,
                         julia_c=julia_c, family=family,
                         no_kernel=args.no_kernel, normalize=args.normalize,
-                        supersample=args.supersample)
+                        supersample=args.supersample, bla=_resolve_bla(args))
     _save_png(args.out, rgba)
     return 0
 

@@ -24,8 +24,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("escape_kernels.cu",)
-HEADERS = ("escape.cuh",)
+SOURCES = ("escape_kernels.cu", "perturb_kernels.cu")
+HEADERS = ("escape.cuh", "perturb.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
 # --fmad=false keeps nvcc from contracting any mul+add the sources did
@@ -132,6 +132,15 @@ def load() -> ctypes.CDLL:
             lib.dm_escape_resume.argtypes = [vp] * 8 + [i, ll, i, ll, i, i,
                                                         vp, vp]
             lib.dm_escape_resume.restype = i
+            d = ctypes.c_double
+            dc = [vp, ll, ll, vp, ll, ll]
+            lib.dm_perturb_scan.argtypes = [i, i, vp, vp, *dc, i, i, vp, vp,
+                                            vp, vp, ll, ll, i, i, vp, vp]
+            lib.dm_perturb_scan.restype = i
+            lib.dm_perturb_scan_smooth.argtypes = [i, i, vp, vp, *dc, i, i, d,
+                                                   d, vp, vp, vp, vp, vp, vp,
+                                                   vp, ll, ll, i, vp]
+            lib.dm_perturb_scan_smooth.restype = i
             lib.dm_persistent_blocks_per_sm.argtypes = [i, i, i, i]
             lib.dm_persistent_blocks_per_sm.restype = i
             lib.dm_persistent_block_threads.argtypes = []

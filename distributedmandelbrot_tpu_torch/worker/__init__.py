@@ -3,6 +3,7 @@
 from distributedmandelbrot_tpu_torch.worker.backends import (ComputeBackend,
                                                              CudaBackend,
                                                              MegaTileHandle,
+                                                             NativeBackend,
                                                              NumpyBackend,
                                                              TileHandle,
                                                              TorchBackend,
@@ -12,6 +13,7 @@ from distributedmandelbrot_tpu_torch.worker.pipeline import (PipelineExecutor,
                                                              as_dispatcher)
 from distributedmandelbrot_tpu_torch.worker.worker import Worker
 
-__all__ = ["ComputeBackend", "CudaBackend", "MegaTileHandle", "NumpyBackend",
+__all__ = ["ComputeBackend", "CudaBackend", "MegaTileHandle",
+           "NativeBackend", "NumpyBackend",
            "TileHandle", "TorchBackend", "auto_backend", "DistributerClient",
            "Worker", "PipelineExecutor", "as_dispatcher"]

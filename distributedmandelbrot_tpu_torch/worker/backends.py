@@ -6,6 +6,8 @@ order`` — has three implementations here, the port of the JAX package's
 
 - :class:`NumpyBackend` — the bit-exact golden path (slow; parity anchor),
   carried as it is;
+- :class:`NativeBackend` — the same golden semantics in C++ on the CPU
+  (``native/``), multithreaded, carried as it is;
 - :class:`TorchBackend` — the torch escape loop on one device, f32 fast
   or f64 bit-exact (the counterpart of ``JaxBackend``);
 - :class:`CudaBackend` — the throughput path: the fused megakernel (K2)
@@ -86,6 +88,32 @@ class NumpyBackend:
             counts = ref_ops.escape_counts(cr, ci, w.max_iter)
             out.append(ref_ops.scale_counts_to_uint8(counts, w.max_iter)
                        .ravel())
+        return out
+
+
+class NativeBackend:
+    """C++ CPU compute: bit-identical to the golden, with per-pixel early
+    exit and multithreading — the fast parity-anchor path (the reference's
+    'CPU Calc path' equivalent, BASELINE.md config 1)."""
+
+    def __init__(self, definition: int = CHUNK_WIDTH,
+                 n_threads: int = 0, clamp: bool = False) -> None:
+        from distributedmandelbrot_tpu_torch import native as native_mod
+        if not native_mod.native_supported():
+            raise RuntimeError(
+                "native library unavailable (no g++? DMTPU_NATIVE=0?)")
+        self._native = native_mod
+        self.definition = definition
+        self.n_threads = n_threads
+        self.clamp = clamp
+
+    def compute_batch(self, workloads: Sequence[Workload]) -> list[np.ndarray]:
+        out = []
+        for w in workloads:
+            cr, ci = _spec_for(w, self.definition).grid_flat()
+            out.append(self._native.escape_pixels(
+                cr, ci, w.max_iter, clamp=self.clamp,
+                n_threads=self.n_threads))
         return out
 
 

@@ -942,3 +942,78 @@ def test_k7_instrumented_form(cuda):
         (want[2][live] < 999).sum())
     issued = int(steps.item())
     assert issued >= need and issued % 32 == 0
+
+
+# --- K9, K10: the perturbation scans ---------------------------------------
+
+DEEP_VIEWS = {
+    "config4": (("-0.77568376995", "0.13646737005"), 1e-10, 50000, None),
+    "minibrot": (("-1.7548776662466927", "0.0"), 5e-2, 20000, None),
+    "stagnation": (("-1.7548776662466927", "0.0"), 5e-2, 20000, None),
+    "julia": (("0.1", "0.2"), 1e-6, 3000, ("-0.8", "0.156")),
+}
+
+
+def _deep_inputs(name, side, dtype, cuda):
+    from distributedmandelbrot_tpu_torch.ops import perturbation as pt
+    center, span, mi, jc = DEEP_VIEWS[name]
+    if name == "stagnation":
+        side = 16  # few enough in-set lanes for the stop to fire
+    spec = pt.DeepTileSpec(*center, span, width=side, height=side)
+    need = int(-np.log2(spec.step)) + 64
+    bits = max(pt.DEFAULT_PREC_BITS, -(-need // 128) * 128)
+    za, zb = pt._to_fixed(center[0], bits), pt._to_fixed(center[1], bits)
+    ca, cb = ((za, zb) if jc is None else
+              (pt._to_fixed(jc[0], bits), pt._to_fixed(jc[1], bits)))
+    z_re, z_im, _, o_re, o_im = pt._find_reference(
+        za, zb, ca, cb, span, mi, bits, add_dc=jc is None,
+        device=str(cuda))
+    dre, dim = spec.delta_grids(np.float64)
+    row = torch.as_tensor((dre[0] - o_re).astype(dtype), device=cuda)
+    col = torch.as_tensor((dim[:, 0] - o_im).astype(dtype), device=cuda)
+    return (torch.as_tensor(z_re, device=cuda),
+            torch.as_tensor(z_im, device=cuda),
+            row[None, :].expand(side, side), col[:, None].expand(side, side),
+            jc is None)
+
+
+@pytest.mark.parametrize("stagnation", [True, False])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("name", sorted(DEEP_VIEWS))
+def test_k9_k10_are_bitwise_their_plain_versions(cuda, name, dtype,
+                                                 stagnation):
+    from distributedmandelbrot_tpu_torch.ops import cuda_perturb as cp
+    zr, zi, dre, dim, add_dc = _deep_inputs(name, 256, dtype, cuda)
+    cp.reset_launch_counts()
+    got = cp.perturb_state_cuda(zr, zi, dre, dim, add_dc=add_dc,
+                                stagnation=stagnation)
+    want = cp.perturb_state_plain(zr, zi, dre, dim, add_dc=add_dc,
+                                  stagnation=stagnation)
+    for label, g, w in zip(("n", "active", "glitched", "suspect"), got,
+                           want):
+        assert torch.equal(g, w), label
+    if name == "stagnation" and stagnation:
+        assert int(want[3].sum()) > 0
+    assert cp.launch_counts()["perturb_scan"] >= 1
+    got = cp.perturb_smooth_state_cuda(zr, zi, dre, dim, bailout=256.0,
+                                       add_dc=add_dc)
+    want = cp.perturb_smooth_state_plain(zr, zi, dre, dim, bailout=256.0,
+                                         add_dc=add_dc)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert cp.launch_counts()["perturb_scan_smooth"] == 1
+
+
+def test_deep_render_runs_on_k9_and_k10(cuda, tmp_path):
+    """``render`` of the config-4 view, integer and smooth, launches K9
+    and K10 (the route never takes the plain scans on the card)."""
+    from distributedmandelbrot_tpu_torch import cli
+    from distributedmandelbrot_tpu_torch.ops import cuda_perturb as cp
+    base = ["render", "--deep", "--center=-0.77568376995,0.13646737005",
+            "--span", "1e-10", "--max-iter", "50000", "--definition", "256",
+            "--out", str(tmp_path / "d.png"), "-q"]
+    cp.reset_launch_counts()
+    assert cli.main(base) == 0
+    assert cp.launch_counts()["perturb_scan"] > 0
+    assert cli.main([*base, "--smooth", "--dtype", "f64"]) == 0
+    assert cp.launch_counts()["perturb_scan_smooth"] > 0

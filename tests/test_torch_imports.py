@@ -36,7 +36,7 @@ CARRIED = [
     "obs/events.py", "obs/metrics.py", "obs/flight.py", "obs/spans.py",
     "utils/metrics.py", "utils/faults.py", "net/framing.py",
     "net/protocol.py", "worker/client.py", "worker/pipeline.py",
-    "worker/worker.py",
+    "worker/worker.py", "native/__init__.py", "native/bindings.py",
 ]
 
 
@@ -61,7 +61,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "ops.mixed_precision", "parallel",
                 "parallel.mesh", "parallel.sharding", "parallel.backend",
                 "parallel.multihost", "serve.render", "viewer.render",
-                "worker.backends", "worker.pipeline", "cli", "__main__"):
+                "worker.backends", "worker.pipeline", "cli", "__main__",
+                "ops.perturbation", "ops.cuda_perturb", "ops.bla", "native",
+                "native.bindings", "native.build"):
         assert f"distributedmandelbrot_tpu_torch.{mod}" in report["modules"]
 
 
@@ -71,13 +73,15 @@ from distributedmandelbrot_tpu_torch import cli
 out = sys.argv[1]
 for flags in ([], ["--fractal", "julia", "--smooth", "--dtype", "f32"],
               ["--fractal", "ship", "--supersample", "4"],
-              ["--fractal", "multibrot", "--smooth"]):
+              ["--fractal", "multibrot", "--smooth"],
+              ["--deep", "--center=-0.77568377,0.13646737", "--span", "1e-10"],
+              ["--fractal", "julia", "--span", "1e-13", "--smooth"]):
     assert cli.main(["render", *flags, "--definition", "64", "--max-iter",
                      "200", "--device", "cpu", "--out", out, "-q"]) == 0
 loaded = sorted(
     n for n in sys.modules
     if n.split(".")[0] in ("jax", "distributedmandelbrot_tpu", "matplotlib",
-                           "PIL"))
+                           "PIL", "sympy"))
 print(json.dumps({"forbidden": loaded}))
 """
 
@@ -85,7 +89,8 @@ print(json.dumps({"forbidden": loaded}))
 def test_render_needs_neither_jax_nor_matplotlib(tmp_path):
     """A CPU render of every kind, in a fresh interpreter, loads no
     module of JAX, the JAX package, matplotlib or PIL (the machine with
-    the card has none of the last two)."""
+    the card has none of the last two), nor sympy (which
+    ``torch.broadcast_shapes`` imports: seconds of a first render)."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = tmp_path / "view.png"
     proc = subprocess.run([sys.executable, "-c", _RENDER, str(out)],

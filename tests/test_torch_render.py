@@ -483,20 +483,107 @@ def test_a_declined_view_is_counted_and_takes_the_torch_loop(tmp_path):
     assert cli.kernel_declines() == {"compute_tile_family_cuda": 1}
 
 
-@pytest.mark.parametrize("flags", [
-    ["--deep"], ["--bla"], ["--span", "1e-13"],
-    ["--center=-0.7436,0.1318", "--span", "1e-8", "--definition", "1024"],
-    ["--center=-0.7436,0.1318", "--span", "1e-8", "--definition", "1024",
-     "--dtype", "f32", "--smooth"],
-], ids=["deep", "bla", "sub_threshold_span", "f32_unresolvable",
-        "f32_unresolvable_smooth"])
-def test_deep_routing_is_refused(tmp_path, flags):
-    """Views the reference renders by perturbation are refused, naming
-    the ROADMAP item that ports that route; none renders banded."""
-    with pytest.raises(SystemExit, match="item 11"):
-        cli.main(["render", *flags, "--device", "cpu",
-                  "--out", str(tmp_path / "x.png")])
-    assert not (tmp_path / "x.png").exists()
+# Views the direct route cannot draw, each as render flags and the JAX
+# package's _render_view arguments: (center, span, max_iter, keywords).
+# SH is the seahorse valley's Misiurewicz point, boundary at every depth
+# (there f32 deltas at a span of 1e-13 miss the exact count on about a
+# fifth of the pixels, in both packages; the sub-threshold view is f64).
+SH_RE = "-0.743643887037158704752191506114774"
+SH_IM = "0.131825904205311970493132056385139"
+DEEP_RENDERS = {
+    "deep": (["--deep"], ("-0.5", "0.0"), 3.0, 256, dict(deep=True)),
+    "bla": (["--deep", "--bla", "--max-iter", "400"], ("-0.5", "0.0"), 3.0,
+            400, dict(deep=True, bla=True)),
+    "sub_threshold_span": (
+        [f"--center={SH_RE},{SH_IM}", "--span", "1e-13", "--max-iter",
+         "6000", "--dtype", "f64"], (SH_RE, SH_IM), 1e-13, 6000,
+        dict(np_dtype=np.float64)),
+    "f32_unresolvable": (
+        [f"--center={SH_RE},{SH_IM}", "--span", "1e-8", "--max-iter",
+         "3000"], (SH_RE, SH_IM), 1e-8, 3000, dict()),
+    "f32_unresolvable_smooth": (
+        [f"--center={SH_RE},{SH_IM}", "--span", "1e-8", "--max-iter",
+         "3000", "--dtype", "f32", "--smooth"], (SH_RE, SH_IM), 1e-8, 3000,
+        dict(smooth=True)),
+}
+
+
+@pytest.fixture
+def _jax_fixed_point_in_python(monkeypatch):
+    """The JAX package's fixed-point functions on their pure-Python path
+    (exact, the same results): its native build is left to its own
+    tests."""
+    from distributedmandelbrot_tpu.ops import perturbation as ref_pt
+    monkeypatch.setattr(ref_pt, "_native_fixed", lambda *a, **k: False)
+
+
+@pytest.mark.parametrize("case", list(DEEP_RENDERS))
+def test_deep_routing_is_refused(tmp_path, _jax_fixed_point_in_python, case):
+    """Views the direct route would refuse or band (``--deep``, ``--bla``,
+    a span below 1e-12, f32 views too fine for f32 coordinates) render
+    by perturbation at 64^2, held to the JAX package's ``_render_view``
+    on the same view.  Integer views: the share of pixels whose color
+    differs from the exact fixed-point counts' colors is at most the JAX
+    render's own plus 0.5 percentage points, and at most 1 of 12 sampled
+    pixels differs from it.  The smooth view: against the JAX package's
+    f64 deep render, the port's share of differing colors at most the
+    JAX f32 render's plus 0.5 percentage points."""
+    from distributedmandelbrot_tpu_torch.ops import perturbation as pt
+    flags, center, span, mi, kw = DEEP_RENDERS[case]
+    out = tmp_path / "deep.png"
+    assert cli.main(["render", *flags, "--definition", "64", "--device",
+                     "cpu", "--out", str(out), "-q"]) == 0
+    got = np.asarray(Image.open(out))
+    ref_kw = dict(smooth=False, np_dtype=np.float32, colormap="jet",
+                  deep=None, julia_c=None, family=None, no_pallas=False,
+                  normalize=False, supersample=1, bla=None)
+    ref_kw.update(kw)
+
+    def ref(**over):
+        return srender.imsave_bytes(np.asarray(ref_cli._render_view(
+            *center, span, 64, mi, **{**ref_kw, **over})))
+
+    want = ref()
+    assert got.shape == want.shape == (64, 64, 4)
+    if kw.get("smooth"):
+        anchor = ref(np_dtype=np.float64)
+    else:
+        spec = pt.DeepTileSpec(*center, span, width=64, height=64)
+        need = int(-np.log2(spec.step)) + 64
+        bits = max(pt.DEFAULT_PREC_BITS, -(-need // 128) * 128)
+        za, zb = pt._to_fixed(center[0], bits), pt._to_fixed(center[1], bits)
+        pts = [(za + pt._to_fixed(float((c - 31.5) * spec.step), bits),
+                zb + pt._to_fixed(float((r - 31.5) * spec.step), bits))
+               for r in range(64) for c in range(64)]
+        exact = pt._escape_counts_exact_batch(pts, mi, bits, None)
+        values = et.scale_counts_to_uint8(torch.from_numpy(exact),
+                                          max_iter=mi).numpy()
+        anchor = srender.imsave_bytes(srender.value_to_rgba(
+            values.reshape(64, 64)))
+        rng = np.random.default_rng(1)
+        off = sum(bool((got[r, c] != anchor[r, c]).any())
+                  for r, c in zip(rng.integers(64, size=12),
+                                  rng.integers(64, size=12)))
+        assert off <= 1, off
+    ours, theirs = _differ(got, anchor), _differ(want, anchor)
+    print(f"{case}: port {ours:.4%}, JAX {theirs:.4%} off the anchor; "
+          f"{_differ(got, want):.4%} between them")
+    assert ours <= theirs + 0.005, (case, ours, theirs)
+
+
+def test_bla_flags_are_validated(tmp_path):
+    """``--bla`` applies to deep views only and excludes ``--no-bla``;
+    the tri-state reaches the route as the reference resolves it."""
+    out = str(tmp_path / "x.png")
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        cli.main(["render", "--deep", "--bla", "--no-bla", "--device", "cpu",
+                  "--out", out])
+    with pytest.raises(SystemExit, match="perturbation deep renders"):
+        cli.main(["render", "--bla", "--device", "cpu", "--out", out])
+    import argparse
+    for bla, no_bla in ((False, False), (True, False), (False, True)):
+        args = argparse.Namespace(bla=bla, no_bla=no_bla)
+        assert cli._resolve_bla(args) == ref_cli._resolve_bla(args)
 
 
 def test_refusals_and_validation(tmp_path, monkeypatch):
@@ -534,3 +621,27 @@ def test_dtype_defaults_follow_the_reference():
                         args, center=(-0.74, 0.13), can_perturb=perturb) \
                         == ref_cli._resolve_dtype(args, center=(-0.74, 0.13),
                                                   can_perturb=perturb)
+
+
+@pytest.mark.parametrize("deep", [False, True])
+@pytest.mark.parametrize("span", [3.0, 1e-7, 1e-13])
+def test_deep_routing_and_dtype_follow_the_reference(deep, span):
+    """``_resolve_deep`` and ``_resolve_dtype`` decide as the JAX
+    package's do for deep flags, sub-threshold spans and f32-unresolvable
+    views, for the core fractals and a family."""
+    import argparse
+    for smooth in (False, True):
+        for dtype in (None, "f32", "f64"):
+            args = argparse.Namespace(span=span, smooth=smooth, dtype=dtype,
+                                      definition=1024, deep=deep)
+            for perturb in (False, True):
+                got = cli._resolve_dtype(args, center=(-0.74, 0.13),
+                                         can_perturb=perturb)
+                assert got == ref_cli._resolve_dtype(
+                    args, center=(-0.74, 0.13), can_perturb=perturb)
+                for family in (None, (3, False)):
+                    assert cli._resolve_deep(
+                        True if deep else None, span, -0.74, 0.13, 1024,
+                        got, family) == ref_cli._resolve_deep(
+                        True if deep else None, span, -0.74, 0.13, 1024,
+                        got, family)
