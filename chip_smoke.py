@@ -108,7 +108,32 @@ JSON line; any failure raises and the script exits non-zero.
    kernel, and write the PNG of the same route on the plain scans byte
    for byte; the config-4 view's sampled pixels equal the exact
    fixed-point counts (at most 1 of 12 off, the JAX package's bar).
-11. kernels: per kernel, its launches on the paths above and its median
+11. farm_path: the pull-based farm in the port alone, at main_path's
+   cut (``-l 4:256,10:1024``, 116 chunks, in a temporary data
+   directory): ``python -m distributedmandelbrot_tpu_torch coordinator``
+   as a process of its own, drained by ``worker --backend cuda
+   --stats-json`` (``cli.main`` in this process, K2 and K1 must
+   launch): chunks/s over TCP beside main_path's in-process chunks/s,
+   the worker's stage stats and the coordinator's upload histograms
+   (decode, accept, persist; its exporter's ``/varz``); every stored
+   chunk fetched back through the port's ``DataClient`` equals
+   ``CudaBackend``'s bytes for its grant, eight (sky, interior,
+   boundary of both levels) equal the plain version; the same drain
+   again with 2 and 4 upload lanes (a fresh coordinator each), for
+   chunks/s by lane count.  Then ``serve -l 2:256`` with no chunk on
+   disk: a read of an absent tile through the gateway, with a port worker
+   attached once the read waits, returns the plain version's bytes
+   (the compute-on-read latency); the second read is a cache hit by
+   the gateway's counter (its exporter's ``/varz``); the rendered
+   tile in jet, viridis and plasma decodes to ``value_lut(cmap)[tile]``;
+   ``viewer 2 1 1 --out`` and ``viewer --stitch 2 --out`` write the
+   PNGs the fetched values colour to.  Then ``animate`` of the
+   config-5 shape cut to 12 frames at 1024^2 (span 4 to 1e-16, budgets
+   1000 to 20000): seconds per frame, the deep frames, K1 and K9 must
+   launch, and frames 0, 6 and 11 are byte for byte the PNG ``render``
+   writes for the same span and budget.  Every process started is
+   stopped; each leg's launches are counted around its drive only.
+12. kernels: per kernel, its launches on the paths above and its median
    time by CUDA events at 4096^2 beside the plain version's and the
    bound (the larger of its f32 operations over the non-FMA f32 rate
    and the bytes it must move over the memory rate); K1 per mode, K5
@@ -1574,7 +1599,7 @@ def phase_main_path(wk, ce, names, TileSpec, Workload):
           "demotions_fused_to_per_tile": demoted, "bf16_pruned": pruned,
           "k1_recheck_equal": n, "sample_bitwise_vs_plain": len(sample),
           "stage_stats": worker.pipeline.stage_stats().get("fusion")})
-    return launches, workloads
+    return launches, workloads, n / wall
 
 
 def phase_main_path_profile(wk, workloads) -> None:
@@ -2998,6 +3023,472 @@ def phase_kernels(ce, TileSpec, launches, err, build):
     return kernels + perturb_rows(err, launches, ptxas)
 
 
+# The farm phase: the main path's profile (level 20 left to a
+# benchmark) over TCP, the serving leg's level, and the animation (the
+# config-5 shape cut to 12 frames at 1024^2).
+FARM_LEVELS = "4:256,10:1024"
+SERVE_LEVELS = "2:256"
+FARM_TIMEOUT_S = 120
+# Sampled chunks of each level held to the plain version: sky,
+# interior and boundary.
+FARM_SAMPLES = [(4, 256, 3, 3), (4, 256, 1, 1), (4, 256, 1, 2),
+                (4, 256, 0, 1), (10, 1024, 0, 0), (10, 1024, 4, 4),
+                (10, 1024, 3, 5), (10, 1024, 2, 4)]
+# The drain again with more upload lanes (the default on one card is
+# one): the upload stage holds the TCP drain back.
+FARM_UPLOAD_LANES = (2, 4)
+ANIMATE = {"center": "-0.77568377,0.13646737", "span_start": 4.0,
+           "span_end": 1e-16, "frames": 12, "definition": 1024,
+           "max_iter": 1000, "max_iter_end": 20000}
+ANIMATE_CHECKED = (0, 6, 11)
+_FRAME_LINE = re.compile(r"^frame (\d+)/\d+ span \S+ mi (\d+)( \(deep\))?")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_farm_process(command: str, args: list, log: str):
+    """``python -m distributedmandelbrot_tpu_torch <command> ...`` from
+    this script's directory, its output to ``log``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    with open(log, "w") as fh:
+        return subprocess.Popen(
+            [sys.executable, "-m", "distributedmandelbrot_tpu_torch",
+             command, *args], cwd=here, env=env, stdout=fh,
+            stderr=subprocess.STDOUT)
+
+
+def wait_listening(port: int, proc, log: str) -> None:
+    import socket
+    deadline = time.monotonic() + FARM_TIMEOUT_S
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            with open(log) as fh:
+                raise AssertionError(f"farm process exited {proc.returncode}"
+                                     f": {fh.read()[-2000:]}")
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=1).close()
+            return
+        except OSError:
+            time.sleep(0.1)
+    raise AssertionError(f"nothing listens on port {port}")
+
+
+def stop_farm_process(proc) -> int:
+    """Interrupt (the coordinator's clean shutdown), then kill."""
+    import signal
+    proc.send_signal(signal.SIGINT)
+    try:
+        return proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        return proc.wait(timeout=30)
+
+
+def varz_of(port: int) -> dict:
+    """A farm process's exporter's ``/varz``: counters, gauges and
+    histograms."""
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/varz",
+                                timeout=30) as resp:
+        return json.loads(resp.read())
+
+
+def counters_of(port: int) -> dict:
+    return varz_of(port)["counters"]
+
+
+def read_rgba_png(path: str) -> np.ndarray:
+    """Decode an RGBA8 PNG as ``serve.render.encode_png`` writes it
+    (colour type 6, filter 0): the card's machine has no imaging
+    library."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    pos, idat, ihdr = 8, bytearray(), None
+    while pos < len(data):
+        length = int.from_bytes(data[pos:pos + 4], "big")
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            ihdr = body
+        elif tag == b"IDAT":
+            idat += body
+    width, height = (int.from_bytes(ihdr[i:i + 4], "big") for i in (0, 4))
+    if ihdr[8:10] != b"\x08\x06":
+        raise AssertionError(f"{path}: not an RGBA8 PNG")
+    raw = np.frombuffer(zlib.decompress(bytes(idat)), np.uint8).reshape(
+        height, width * 4 + 1)
+    if raw[:, 0].any():
+        raise AssertionError(f"{path}: a scanline filter other than 0")
+    return raw[:, 1:].reshape(height, width, 4)
+
+
+def all_launches(ce, cp) -> dict:
+    return {**ce.launch_counts(), **cp.launch_counts()}
+
+
+def reset_launches(ce, cp) -> None:
+    torch.cuda.synchronize()
+    ce.reset_launch_counts()
+    cp.reset_launch_counts()
+
+
+def add_launches(total: dict, more: dict) -> None:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+
+
+def plain_chunk(ce, TileSpec, key) -> torch.Tensor:
+    level, mi, i, j = key
+    spec = TileSpec.for_chunk(level, i, j)
+    return ce.escape_tile_plain(
+        ce._params_row(spec), mi, 4096, 4096,
+        cycle_check=ce.escape_time.resolve_cycle_check(None, mi),
+        device="cuda").cpu().view(-1)
+
+
+def tcp_drain(cli, ce, cp, tmp, name, worker_args, inspect=None):
+    """``coordinator`` (``FARM_LEVELS``) as a process of its own, in a
+    data directory of its own, drained by ``worker --backend cuda`` in
+    this process with ``worker_args``; ``inspect(dataserver_port)`` runs
+    before the coordinator stops.  Returns the drain's wall seconds, the
+    worker's stats, its launches (counted around the drain only) and
+    what ``inspect`` returned."""
+    dist, data, exp = free_port(), free_port(), free_port()
+    log = os.path.join(tmp, f"{name}.log")
+    proc = start_farm_process("coordinator", [
+        "-l", FARM_LEVELS, "-o", os.path.join(tmp, name), "--host",
+        "127.0.0.1", "--distributer-port", str(dist), "--dataserver-port",
+        str(data), "--exporter-port", str(exp), "--stats-period", "0"], log)
+    try:
+        wait_listening(dist, proc, log)
+        wait_listening(exp, proc, log)
+        stats_path = os.path.join(tmp, f"{name}_stats.json")
+        reset_launches(ce, cp)
+        t0 = time.monotonic()
+        rc = cli.main(["worker", "--host", "127.0.0.1", "--port", str(dist),
+                       "--backend", "cuda", "--stats-json", stats_path,
+                       *worker_args, "-q"])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = all_launches(ce, cp)
+        if rc != 0:
+            raise AssertionError(f"the worker exited {rc}")
+        with open(stats_path) as fh:
+            stats = json.load(fh)
+        # The coordinator's side of each upload: decode, accept, persist.
+        stats["coordinator_histograms"] = {
+            k: v for k, v in varz_of(exp)["histograms"].items()
+            if k.startswith(("coord_", "store_"))}
+        inspected = inspect(data) if inspect is not None else None
+    finally:
+        code = stop_farm_process(proc)
+    if code != 0:
+        raise AssertionError(f"the coordinator exited {code} on SIGINT")
+    return wall, stats, launches, inspected
+
+
+def farm_drain(cli, wk, ce, cp, TileSpec, Workload, tmp, main_rate):
+    """``coordinator`` drained by ``worker --backend cuda`` (one upload
+    lane, the default on one card; K2 and K1 must launch): every stored
+    chunk fetched back through the port's ``DataClient`` equals
+    ``CudaBackend``'s bytes for its grant, the samples the plain
+    version's.  Then the same drain with 2 and 4 upload lanes."""
+    from distributedmandelbrot_tpu_torch.core.workload import \
+        parse_level_settings
+    from distributedmandelbrot_tpu_torch.viewer import (DataClient,
+                                                        FetchStatus)
+    keys = [(s.level, s.max_iter, i, j)
+            for s in parse_level_settings(FARM_LEVELS)
+            for j in range(s.level) for i in range(s.level)]
+
+    def check_stored(data: int) -> float:
+        backend = wk.CudaBackend()
+        differ, missing, samples = [], [], {}
+        t_fetch = time.monotonic()
+        with DataClient("127.0.0.1", data, timeout=60) as client:
+            for key in keys:
+                level, mi, i, j = key
+                for _ in range(100):  # saves land after the upload
+                    pixels, status = client.fetch(level, i, j)
+                    if status is not FetchStatus.NOT_AVAILABLE:
+                        break
+                    time.sleep(0.05)
+                if status is not FetchStatus.OK:
+                    missing.append((key, status.value))
+                    continue
+                want = backend.materialize_tile(backend.dispatch_tile(
+                    Workload(*key)))
+                if not np.array_equal(pixels, want):
+                    differ.append(key)
+                if key in FARM_SAMPLES:
+                    samples[key] = pixels
+        fetch_s = time.monotonic() - t_fetch
+        if missing or differ:
+            raise AssertionError(f"stored chunks missing {missing[:5]}, "
+                                 f"differing from CudaBackend {differ[:5]}")
+        off_plain = [key for key in FARM_SAMPLES if not torch.equal(
+            torch.from_numpy(samples[key]), plain_chunk(ce, TileSpec, key))]
+        if off_plain:
+            raise AssertionError(f"sampled chunks differ from the plain "
+                                 f"version: {off_plain}")
+        return fetch_s
+
+    wall, stats, launches, fetch_s = tcp_drain(cli, ce, cp, tmp, "farm", [],
+                                               check_stored)
+    if launches.get("escape_mega", 0) <= 0 \
+            or launches.get("escape_tile", 0) <= 0:
+        raise AssertionError(f"the drain launched {launches}: K2 and K1 "
+                             "must both run")
+    n = len(keys)
+    total = dict(launches)
+    by_lanes = {}
+    for lanes in FARM_UPLOAD_LANES:
+        lwall, lstats, more, _ = tcp_drain(
+            cli, ce, cp, tmp, f"lanes{lanes}", ["--upload-lanes", str(lanes)])
+        add_launches(total, more)
+        by_lanes[lanes] = {
+            "chunks_per_s_tcp": n / lwall,
+            "stage_stats": lstats["stage_stats"],
+            "coordinator_histograms": lstats["coordinator_histograms"]}
+    return total, {
+        "levels": FARM_LEVELS, "chunks": n, "seconds": wall,
+        "chunks_per_s_tcp": n / wall, "chunks_per_s_main_path": main_rate,
+        "timing": "host clock around the in-process cli.main(['worker', "
+                  "...]) to its drained exit, ended by "
+                  "torch.cuda.synchronize()",
+        "worker_rounds": stats.get("rounds"),
+        "stage_stats": stats.get("stage_stats"),
+        "coordinator_histograms": stats["coordinator_histograms"],
+        "wire_bytes": {k: v for k, v in stats["counters"].items()
+                       if k.startswith("wire_") or k == "upload_us"},
+        "launches": launches, "equal_to_cuda_backend": n,
+        "sample_bitwise_vs_plain": len(FARM_SAMPLES),
+        "fetch_and_recheck_s": fetch_s, "by_upload_lanes": by_lanes}
+
+
+def farm_serve(cli, wk, ce, cp, srender, TileSpec, tmp):
+    """``serve`` as a process of its own with no chunk on disk: an absent
+    tile read through the gateway is computed on read by a port worker
+    attached once the read waits, is the plain version's bytes, and is a
+    cache hit the second time; the rendered tiles in the three colormaps
+    decode to the colormap of the tile; ``viewer`` writes the chunk and
+    the stitched level as the PNGs their values colour to."""
+    from distributedmandelbrot_tpu_torch.net import protocol as proto
+    from distributedmandelbrot_tpu_torch.viewer import (DataClient,
+                                                        FetchStatus)
+    dist, data, gate, exp = (free_port() for _ in range(4))
+    log = os.path.join(tmp, "serve.log")
+    proc = start_farm_process("serve", [
+        "-l", SERVE_LEVELS, "-o", os.path.join(tmp, "serve"), "--host",
+        "127.0.0.1", "--distributer-port", str(dist), "--dataserver-port",
+        str(data), "--gateway-port", str(gate), "--exporter-port", str(exp),
+        "--stats-period", "0"], log)
+    stop = threading.Event()
+    worker_thread = None
+    launches: dict = {}
+    try:
+        wait_listening(gate, proc, log)
+        wait_listening(exp, proc, log)
+        backend = wk.CudaBackend()
+        worker = wk.Worker(wk.DistributerClient("127.0.0.1", dist), backend,
+                           window=4, depth=2)
+        first = {}
+        client = DataClient("127.0.0.1", gate, timeout=FARM_TIMEOUT_S)
+
+        def read():
+            t = time.monotonic()
+            first["got"] = client.fetch(2, 1, 1)
+            first["done"] = time.monotonic()
+            first["wall"] = first["done"] - t
+
+        reader = threading.Thread(target=read, daemon=True)
+        reader.start()
+        deadline = time.monotonic() + FARM_TIMEOUT_S
+        while counters_of(exp).get("ondemand_requests", 0) < 1:
+            if time.monotonic() > deadline:
+                raise AssertionError("the gateway never took the read")
+            time.sleep(0.02)
+        reset_launches(ce, cp)
+        t_attach = time.monotonic()
+        worker_thread = threading.Thread(
+            target=worker.run_forever,
+            kwargs=dict(poll_interval=0.05, stop=stop), daemon=True)
+        worker_thread.start()
+        reader.join(timeout=FARM_TIMEOUT_S)
+        pixels, status = first.get("got", (None, None))
+        if status is not FetchStatus.OK:
+            raise AssertionError(f"compute on read: {status}")
+        tile = plain_chunk(ce, TileSpec, (2, 256, 1, 1)).numpy()
+        if not np.array_equal(pixels, tile):
+            raise AssertionError("the tile computed on read differs from "
+                                 "the plain version")
+        before = counters_of(exp)
+        t = time.monotonic()
+        again, status = client.fetch(2, 1, 1)
+        hit_s = time.monotonic() - t
+        after = counters_of(exp)
+        if status is not FetchStatus.OK or not np.array_equal(again, tile) \
+                or after.get("tile_cache_hits", 0) != \
+                before.get("tile_cache_hits", 0) + 1 \
+                or after.get("workloads_granted") != \
+                before.get("workloads_granted"):
+            raise AssertionError("the second read was not a cache hit")
+        rendered = {}
+        for cid, name in proto.COLORMAPS.items():
+            body, status = client.fetch_render(2, 1, 1, cid)
+            if status is not FetchStatus.OK or not np.array_equal(
+                    srender.decode_rendered_png(body),
+                    srender.value_lut(name)[tile.reshape(4096, 4096)]):
+                raise AssertionError(f"rendered tile, {name}: {status}")
+            rendered[name] = len(body)
+        client.close()
+        # The attached worker drains the level's other chunks.
+        with DataClient("127.0.0.1", data, timeout=60) as reader_client:
+            values = {}
+            for j in range(2):
+                for i in range(2):
+                    for _ in range(600):
+                        px, status = reader_client.fetch(2, i, j)
+                        if status is FetchStatus.OK:
+                            break
+                        time.sleep(0.05)
+                    values[(i, j)] = px
+        stop.set()
+        worker_thread.join(timeout=FARM_TIMEOUT_S)
+        add_launches(launches, all_launches(ce, cp))
+        lut = srender.imsave_bytes(srender.value_to_rgba(
+            np.arange(256, dtype=np.uint8).reshape(16, 16))).reshape(256, 4)
+        one = os.path.join(tmp, "chunk.png")
+        level = os.path.join(tmp, "level.png")
+        t = time.monotonic()
+        rc = (cli.main(["viewer", "2", "1", "1", "--port", str(data),
+                        "--out", one, "-q"]),
+              cli.main(["viewer", "--stitch", "2", "--port", str(data),
+                        "--out", level, "-q"]))
+        viewer_s = time.monotonic() - t
+        stitched = np.zeros((8192, 8192), np.uint8)
+        for (i, j), px in values.items():
+            stitched[j * 4096:(j + 1) * 4096, i * 4096:(i + 1) * 4096] = \
+                px.reshape(4096, 4096)
+        if rc != (0, 0) or not np.array_equal(
+                read_rgba_png(one), lut[tile.reshape(4096, 4096)]) \
+                or not np.array_equal(read_rgba_png(level), lut[stitched]):
+            raise AssertionError(f"viewer PNGs (exit codes {rc}) differ "
+                                 "from the colormap of the fetched values")
+        counters = counters_of(exp)
+    finally:
+        stop.set()
+        if worker_thread is not None:
+            worker_thread.join(timeout=FARM_TIMEOUT_S)
+        code = stop_farm_process(proc)
+    if code != 0:
+        raise AssertionError(f"serve exited {code} on SIGINT")
+    if not counters.get("ondemand_served"):
+        raise AssertionError("the first read was not served on demand")
+    return launches, {
+        "levels": SERVE_LEVELS,
+        "compute_on_read_s": first["done"] - t_attach,
+        "compute_on_read_timing": "host clock from the port worker's "
+                                  "attach (the read already waiting at "
+                                  "the gateway) to the tile's bytes back",
+        "first_read_wall_s": first["wall"], "cache_hit_read_s": hit_s,
+        "rendered_png_bytes": rendered, "viewer_s": viewer_s,
+        "counters": {k: counters.get(k) for k in (
+            "ondemand_requests", "ondemand_served", "tile_cache_hits",
+            "workloads_granted", "gateway_render_served")},
+        "launches": launches, "serve_exit": code}
+
+
+def farm_animate(cli, ce, cp, tmp):
+    """``animate`` of the config-5 shape: K1 (shallow frames) and K9
+    (deep frames) launch; frames 0, 6 and 11 are the PNG ``render``
+    writes for the same span and budget."""
+    import contextlib
+    import io
+    a = ANIMATE
+    out_dir = os.path.join(tmp, "frames")
+    args = ["animate", f"--center={a['center']}", "--span-start",
+            repr(a["span_start"]), "--span-end", repr(a["span_end"]),
+            "--frames", str(a["frames"]), "--definition",
+            str(a["definition"]), "--max-iter", str(a["max_iter"]),
+            "--max-iter-end", str(a["max_iter_end"]), "--out-dir", out_dir]
+    buf = io.StringIO()
+    reset_launches(ce, cp)
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = all_launches(ce, cp)
+    lines = [m for m in map(_FRAME_LINE.match, buf.getvalue().splitlines())
+             if m]
+    if rc != 0 or len(lines) != a["frames"]:
+        raise AssertionError(f"animate exited {rc} after {len(lines)} "
+                             "frames")
+    if launches.get("escape_tile", 0) <= 0 \
+            or launches.get("perturb_scan", 0) <= 0:
+        raise AssertionError(f"animate launched {launches}: K1 and K9 "
+                             "must both run")
+    # The sweep as cmd_animate computes it.
+    ratio = (a["span_end"] / a["span_start"]) ** (1.0 / (a["frames"] - 1))
+    mi_ratio = (a["max_iter_end"] / a["max_iter"]) ** (
+        1.0 / (a["frames"] - 1))
+    equal = {}
+    for f in ANIMATE_CHECKED:
+        span = a["span_start"] * ratio ** f
+        mi = max(1, round(a["max_iter"] * mi_ratio ** f))
+        if int(lines[f][2]) != mi:
+            raise AssertionError(f"frame {f}: budget {lines[f][2]} != {mi}")
+        out = os.path.join(tmp, f"render_{f}.png")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["render", f"--center={a['center']}", "--span",
+                           repr(span), "--max-iter", str(mi),
+                           "--definition", str(a["definition"]), "--out",
+                           out, "-q"])
+        with open(out, "rb") as fh, open(os.path.join(
+                out_dir, f"frame_{f:04d}.png"), "rb") as gh:
+            equal[f] = rc == 0 and fh.read() == gh.read()
+    if not all(equal.values()):
+        raise AssertionError(f"animate frames against render: {equal}")
+    return launches, {
+        **a, "seconds": wall, "seconds_per_frame": wall / a["frames"],
+        "timing": "host clock around the in-process cli.main(['animate', "
+                  "...]), PNG writes included, ended by "
+                  "torch.cuda.synchronize()",
+        "deep_frames": [int(m[1]) - 1 for m in lines if m[3]],
+        "frames_equal_render": sorted(equal), "launches": launches}
+
+
+def phase_farm_path(cli, wk, ce, srender, TileSpec, Workload, main_rate):
+    """The pull-based farm in the port alone: its coordinator, its
+    worker, its gateway and viewer, and animate; each leg's launches
+    counted around the leg's drive only."""
+    import shutil
+    from distributedmandelbrot_tpu_torch.ops import cuda_perturb as cp
+    tmp = tempfile.mkdtemp(prefix="dm_farm_")
+    launches: dict = {}
+    t0 = time.monotonic()
+    try:
+        drained, drain = farm_drain(cli, wk, ce, cp, TileSpec, Workload, tmp,
+                                    main_rate)
+        served, serve = farm_serve(cli, wk, ce, cp, srender, TileSpec, tmp)
+        animated, animate = farm_animate(cli, ce, cp, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for more in (drained, served, animated):
+        add_launches(launches, more)
+    emit({"phase": "farm_path", "ok": True,
+          "seconds": time.monotonic() - t0, "drain": drain, "serve": serve,
+          "animate": animate, "launches": launches})
+    return launches
+
+
 def perturb_rows(err: dict, launches: dict, ptxas: dict) -> list:
     """The kernels line's rows of K9 and K10."""
     timed = time_perturb_kernels(ptxas)
@@ -3040,20 +3531,23 @@ def main() -> int:
     name, count, smi = phase_device(_build)
     err = phase_kernel_vs_plain(ce, TileSpec)
     phase_golden(wk, TileSpec, escape_time, Workload)
-    main_launches, workloads = phase_main_path(wk, ce, names, TileSpec,
-                                               Workload)
+    main_launches, workloads, main_rate = phase_main_path(
+        wk, ce, names, TileSpec, Workload)
     phase_main_path_profile(wk, workloads)
     render_launches = phase_render_path(ce, cli, srender, TileSpec)
     mesh_launches = phase_mesh_path(wk, ce, parallel, TileSpec, Workload)
     mxu_launches = phase_mxu_path(wk, ce, names, TileSpec, Workload)
     multihost_launches = phase_multihost(ce, TileSpec)
     deep_launches = phase_deep_path(cli, ce)["launches"]
+    farm_launches = phase_farm_path(cli, wk, ce, srender, TileSpec,
+                                    Workload, main_rate)
     kernels = phase_kernels(ce, TileSpec, {"main_path": main_launches,
                                            "render_path": render_launches,
                                            "mesh_path": mesh_launches,
                                            "mxu_path": mxu_launches,
                                            "multihost": multihost_launches,
-                                           "deep_path": deep_launches},
+                                           "deep_path": deep_launches,
+                                           "farm_path": farm_launches},
                             err, _build)
     emit({"phase": "kernels", "ok": True,
           "seconds_total": time.monotonic() - t_start,

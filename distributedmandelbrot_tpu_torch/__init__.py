@@ -6,9 +6,13 @@ carried with their imports renamed; modules that touch JAX are rewritten
 in PyTorch, and every Pallas kernel on a ported path becomes a CUDA C++
 kernel for Hopper (``ops/csrc``), built on first use.
 
-This slice carries the farm worker's tile path on one GPU: grant ->
+It runs the pull-based farm end to end: the coordinator (scheduler,
+append-only store, data server), the gateway and viewer client, carried
+from the reference, and the worker's tile path on the GPU: grant ->
 ``TileSpec`` -> fused kernel launch -> device-to-host copy -> flat uint8
-chunk -> upload (``python -m distributedmandelbrot_tpu_torch worker``).
+chunk -> upload; and local rendering (``render``, ``animate``), deep
+views by perturbation included.  ``python -m
+distributedmandelbrot_tpu_torch`` lists the subcommands.
 """
 
 __version__ = "0.1.0"

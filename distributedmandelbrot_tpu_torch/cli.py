@@ -1,7 +1,23 @@
-"""Command-line entry points of the port: ``worker`` and ``render``.
+"""Command-line entry points of the port: the farm (``coordinator``,
+``serve``, ``worker``, ``viewer``) and local rendering (``render``,
+``animate``).
 
+    python -m distributedmandelbrot_tpu_torch coordinator -l 4:256,10:1024
     python -m distributedmandelbrot_tpu_torch worker --host H --port P
+    python -m distributedmandelbrot_tpu_torch viewer 4 1 2 --out tile.png
+    python -m distributedmandelbrot_tpu_torch serve -l 2:256
     python -m distributedmandelbrot_tpu_torch render --out view.png
+    python -m distributedmandelbrot_tpu_torch animate --center=-0.75,0.1 \
+        --out-dir frames
+
+``coordinator``, ``serve`` and ``viewer`` take the flags of the JAX
+package's subcommands of the same names and run its carried modules
+(the store, scheduler, distributer, data server, gateway, sessions and
+exporter), so either package's worker and viewer talk to either
+package's coordinator, and either package's store reads the other's
+data directory.  ``viewer --out`` writes the PNG ``plt.imsave`` would;
+without ``--out`` it shows the view, which needs matplotlib and a
+display.
 
 ``worker`` takes the flags of ``dmtpu worker`` of the JAX package, with
 ``--backend`` choosing among the port's backends (auto, cuda, torch,
@@ -24,12 +40,15 @@ and Julia views below a span of 1e-12, f32 views too fine for f32
 coordinates, and ``--deep`` render by perturbation
 (``ops/perturbation.py``: the delta scans K9 and K10 on the card),
 with the bilinear approximation (``--bla``, ``--no-bla``; by default
-a probe decides).
+a probe decides).  ``animate`` is ``dmtpu animate``: a geometric span
+sweep whose frames each render as ``render`` would, deep once the span
+needs it; ``--gif`` needs PIL.
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
 import json
 import logging
 import sys
@@ -52,6 +71,31 @@ def _configure_logging(args: argparse.Namespace) -> None:
     logging.basicConfig(
         level=level,
         format="%(asctime)s %(name)s %(levelname)s: %(message)s")
+    if getattr(args, "no_info_log", False):
+        logging.getLogger("dmtpu").setLevel(logging.ERROR)
+
+
+def _configure_channel_logging(args: argparse.Namespace) -> None:
+    """Per-server info/error log enables (``-dli/-dle/-sli/-sle`` of the
+    original coordinator): disabling info leaves errors; disabling
+    errors silences the channel entirely."""
+    for chan, info, err in (
+            ("dmtpu.distributer", args.distributer_log_info,
+             args.distributer_log_error),
+            ("dmtpu.dataserver", args.data_server_log_info,
+             args.data_server_log_error)):
+        log = logging.getLogger(chan)
+        if err == "false":
+            log.setLevel(logging.CRITICAL + 1)
+        elif info == "false":
+            log.setLevel(logging.ERROR)
+
+
+def _add_common(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("-v", "--verbose", action="store_true",
+                        help="debug logging")
+    parser.add_argument("-q", "--quiet", action="store_true",
+                        help="errors only")
 
 
 def _mesh_for(device: str):
@@ -154,9 +198,7 @@ def _parser() -> argparse.ArgumentParser:
                         "the MASTER_ADDR/MASTER_PORT environment)")
     p.add_argument("--mh-processes", type=int, default=None)
     p.add_argument("--mh-process-id", type=int, default=None)
-    p.add_argument("-v", "--verbose", action="store_true",
-                   help="debug logging")
-    p.add_argument("-q", "--quiet", action="store_true", help="errors only")
+    _add_common(p)
     return p
 
 
@@ -313,9 +355,13 @@ def _span_f32_resolvable(cx: float, cy: float, span: float,
 
 def _view_f32_resolvable(args: argparse.Namespace,
                          center: tuple[float, float]) -> bool:
-    """Whether the request's finest view resolves in f32."""
-    return _span_f32_resolvable(center[0], center[1],
-                                getattr(args, "span", 4.0),
+    """Whether the request's finest view resolves in f32: the smallest
+    of ``span`` and an animation's two ends (a zoom out starts at the
+    small span)."""
+    span = min(getattr(args, "span", 4.0),
+               getattr(args, "span_start", 4.0),
+               getattr(args, "span_end", 4.0))
+    return _span_f32_resolvable(center[0], center[1], span,
                                 getattr(args, "definition", 1024))
 
 
@@ -327,11 +373,15 @@ def _resolve_dtype(args: argparse.Namespace,
     that renders deep (``--deep``, a sub-threshold span) stays f32.  An
     f32 view too fine for f32 coordinates goes to f64 for ``--smooth``
     and for the families (which have no perturbation route); Mandelbrot
-    and Julia stay f32, which the reference renders by perturbation."""
+    and Julia stay f32, which the reference renders by perturbation.
+    An animation whose sweep crosses the threshold at either end stays
+    f32 on every frame: a sweep does not change dtype mid-animation."""
     if args.dtype is not None:
         return _NP_DTYPES[args.dtype]
-    if getattr(args, "deep", False) or \
-            getattr(args, "span", 1.0) < DEEP_SPAN_THRESHOLD:
+    if (getattr(args, "deep", False)
+            or getattr(args, "span", 1.0) < DEEP_SPAN_THRESHOLD
+            or getattr(args, "span_start", 1.0) < DEEP_SPAN_THRESHOLD
+            or getattr(args, "span_end", 1.0) < DEEP_SPAN_THRESHOLD):
         return np.float32
     if center is not None and not _view_f32_resolvable(args, center):
         if getattr(args, "smooth", False) or not can_perturb:
@@ -611,7 +661,7 @@ def _render_device(name: str):
 
 def cmd_render(argv: Sequence[str]) -> int:
     """Local (farm-less) rendering of any view on the GPU."""
-    from distributedmandelbrot_tpu_torch.serve.render import SEGMENTS
+    from distributedmandelbrot_tpu_torch.serve.render import COLORMAPS
     parser = argparse.ArgumentParser(
         prog="python -m distributedmandelbrot_tpu_torch render",
         description="Render a view locally on the CUDA kernels.")
@@ -655,7 +705,7 @@ def cmd_render(argv: Sequence[str]) -> int:
                         help="arithmetic width; default: f64 for --smooth, "
                              "f32 otherwise.  f32 runs the kernels")
     parser.add_argument("--colormap", default="jet",
-                        help=f"one of {sorted(SEGMENTS)}")
+                        help=f"one of {sorted(COLORMAPS)}")
     parser.add_argument("--normalize", action="store_true",
                         help="stretch the view's own escaped-value range "
                              "over the full colormap (--smooth only)")
@@ -675,16 +725,11 @@ def cmd_render(argv: Sequence[str]) -> int:
                         help="torch device (default cuda; cpu runs the "
                              "kernels' plain versions)")
     parser.add_argument("--out", required=True, help="output PNG path")
-    parser.add_argument("-v", "--verbose", action="store_true",
-                        help="debug logging")
-    parser.add_argument("-q", "--quiet", action="store_true",
-                        help="errors only")
+    _add_common(parser)
     args = parser.parse_args(_join_negative_values(argv, ("--c", "--center")))
     _configure_logging(args)
 
-    if args.colormap not in SEGMENTS:
-        raise SystemExit(f"colormap {args.colormap!r} is not carried by the "
-                         f"port; it carries {sorted(SEGMENTS)}")
+    _check_colormap(args.colormap)
     family = _resolve_family(args.fractal, args.power)
     if args.normalize and not args.smooth:
         raise SystemExit("--normalize applies to --smooth renders only "
@@ -725,15 +770,395 @@ def cmd_render(argv: Sequence[str]) -> int:
     return 0
 
 
-COMMANDS = {"worker": cmd_worker, "render": cmd_render}
+def _check_colormap(colormap: str) -> None:
+    from distributedmandelbrot_tpu_torch.serve.render import COLORMAPS
+    if colormap not in COLORMAPS:
+        raise SystemExit(f"colormap {colormap!r} is not carried by the "
+                         f"port; it carries {sorted(COLORMAPS)}")
+
+
+def cmd_animate(argv: Sequence[str]) -> int:
+    """Zoom animation: a geometric span sweep rendered frame by frame,
+    each frame as ``render`` renders it (K1 or K4 direct, K5 with
+    ``--supersample``, K9 or K10 once the span needs perturbation)."""
+    import os
+    import time
+
+    parser = argparse.ArgumentParser(
+        prog="python -m distributedmandelbrot_tpu_torch animate",
+        description="Render a zoom animation as numbered PNG frames.")
+    parser.add_argument("--center", required=True,
+                        help="zoom target as RE,IM (decimal strings; "
+                             "precision beyond float64 is honored on "
+                             "deep frames)")
+    parser.add_argument("--fractal",
+                        choices=["mandelbrot", "julia", "multibrot", "ship"],
+                        default="mandelbrot")
+    parser.add_argument("--power", type=int, default=None,
+                        help="multibrot degree d in z^d + c (>= 2; "
+                             "default 3; multibrot only)")
+    parser.add_argument("--c", default="-0.8,0.156",
+                        help="Julia constant as RE,IM")
+    parser.add_argument("--span-start", type=float, default=4.0)
+    parser.add_argument("--span-end", type=float, default=1e-6)
+    parser.add_argument("--frames", type=int, default=60)
+    parser.add_argument("--definition", type=int, default=512)
+    parser.add_argument("--max-iter", type=int, default=1000)
+    parser.add_argument("--max-iter-end", type=int, default=None,
+                        help="budget for the last frame; per-frame "
+                             "budgets interpolate geometrically from "
+                             "--max-iter, as the spans do")
+    parser.add_argument("--smooth", action="store_true",
+                        help="band-free coloring on every frame")
+    parser.add_argument("--dtype", choices=["f32", "f64"], default=None,
+                        help="arithmetic width; default: f64 for --smooth, "
+                             "f32 otherwise, and f32 for a sweep that "
+                             "renders deep")
+    parser.add_argument("--colormap", default="jet")
+    parser.add_argument("--supersample", type=int, choices=[2, 4], default=1,
+                        help="anti-aliasing per frame (see render "
+                             "--supersample)")
+    parser.add_argument("--bla", action="store_true",
+                        help="force the BLA fast path for the deep frames "
+                             "(see render --bla); default: per-orbit "
+                             "auto-probe")
+    parser.add_argument("--no-bla", action="store_true",
+                        help="force the exact delta scan (disable the "
+                             "BLA auto-probe)")
+    parser.add_argument("--no-kernel", action="store_true",
+                        help="direct frames take the torch loops on the "
+                             "host-linspace grid instead of the kernels "
+                             "(see render --no-kernel)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; cpu runs the "
+                             "kernels' plain versions)")
+    parser.add_argument("--out-dir", required=True,
+                        help="directory for frame_NNNN.png files")
+    parser.add_argument("--gif", metavar="PATH", default=None,
+                        help="also assemble the frames into an animated "
+                             "GIF at PATH (needs PIL)")
+    parser.add_argument("--frame-ms", type=int, default=80,
+                        help="GIF frame duration in milliseconds")
+    _add_common(parser)
+    args = parser.parse_args(
+        _join_negative_values(argv, ("--center", "--c")))
+    _configure_logging(args)
+    if args.frames < 1:
+        raise SystemExit("--frames must be >= 1")
+    if args.span_end <= 0 or args.span_start <= 0:
+        raise SystemExit("spans must be positive")
+    if args.bla and args.no_bla:
+        raise SystemExit("--bla and --no-bla are mutually exclusive")
+    _check_colormap(args.colormap)
+
+    family = _resolve_family(args.fractal, args.power)
+    if family is not None and min(args.span_start,
+                                  args.span_end) < DEEP_SPAN_THRESHOLD:
+        # min of both ends: a zoom out starts at the small span.
+        raise SystemExit(f"--fractal {args.fractal} has no perturbation "
+                         f"path; spans below {DEEP_SPAN_THRESHOLD} "
+                         "would alias float64 pixel coordinates")
+    device = _render_device(args.device)
+    os.makedirs(args.out_dir, exist_ok=True)
+    c_re, c_im = (s.strip() for s in args.center.split(","))
+    julia_c = tuple(s.strip() for s in args.c.split(",")) \
+        if args.fractal == "julia" else None
+    np_dtype = _resolve_dtype(args, center=(float(c_re), float(c_im)),
+                              can_perturb=family is None)
+    ratio = (args.span_end / args.span_start) ** (
+        1.0 / max(1, args.frames - 1))
+    if args.max_iter < 1:
+        raise SystemExit("--max-iter must be >= 1")
+    if args.max_iter_end is not None and args.max_iter_end < 1:
+        raise SystemExit("--max-iter-end must be >= 1")
+    mi_ratio = ((args.max_iter_end / args.max_iter) ** (
+        1.0 / max(1, args.frames - 1))
+        if args.max_iter_end is not None else 1.0)
+
+    t0 = time.monotonic()
+    for f in range(args.frames):
+        span = args.span_start * ratio ** f
+        max_iter = max(1, round(args.max_iter * mi_ratio ** f))
+        # Decided once and passed down, so the label names the route
+        # the frame took.
+        deep = _resolve_deep(None, span, float(c_re), float(c_im),
+                             args.definition, np_dtype, family)
+        rgba = _render_view(c_re, c_im, span, args.definition, max_iter,
+                            smooth=args.smooth, np_dtype=np_dtype,
+                            colormap=args.colormap, device=device,
+                            deep=deep, julia_c=julia_c, family=family,
+                            no_kernel=args.no_kernel,
+                            supersample=args.supersample,
+                            bla=_resolve_bla(args))
+        path = os.path.join(args.out_dir, f"frame_{f:04d}.png")
+        _save_png(path, rgba)
+        print(f"frame {f + 1}/{args.frames} span {span:.3g} "
+              f"mi {max_iter}{' (deep)' if deep else ''} -> {path}",
+              flush=True)
+    dt = time.monotonic() - t0
+    pixels = args.frames * args.definition * args.definition
+    print(f"animation done: {args.frames} frames in {dt:.1f}s, "
+          f"{pixels / dt / 1e6:.2f} Mpix/s end-to-end", flush=True)
+    if args.gif:
+        from PIL import Image
+
+        def frame(f):
+            return Image.open(
+                os.path.join(args.out_dir, f"frame_{f:04d}.png")).convert(
+                    "P", palette=Image.Palette.ADAPTIVE)
+
+        # The tail frames stream through a generator: a deep zoom runs
+        # to hundreds of frames.
+        frame(0).save(args.gif, save_all=True,
+                      append_images=(frame(f) for f in
+                                     range(1, args.frames)),
+                      duration=args.frame_ms, loop=0)
+        print(f"wrote {args.gif} ({args.frames} frames @ "
+              f"{args.frame_ms}ms)", flush=True)
+    return 0
+
+
+# --- the farm: coordinator, serve, viewer -------------------------------
+
+def _add_coordinator_flags(parser: argparse.ArgumentParser) -> None:
+    """The flags ``coordinator`` and ``serve`` share."""
+    parser.add_argument("-l", "--levels", required=True,
+                        help="level:max_iter[,level:max_iter...] "
+                             "(e.g. 4:256,10:1024,20:1024)")
+    parser.add_argument("-o", "--data-dir", default="",
+                        help="parent directory for Data/ (default: cwd)")
+    parser.add_argument("--host", default="0.0.0.0")
+    parser.add_argument("--distributer-port", type=int,
+                        default=proto.DEFAULT_DISTRIBUTER_PORT)
+    parser.add_argument("--dataserver-port", type=int,
+                        default=proto.DEFAULT_DATASERVER_PORT)
+    parser.add_argument("--lease-timeout", type=float,
+                        default=proto.DEFAULT_LEASE_TIMEOUT,
+                        help="seconds a worker has to return a tile")
+    parser.add_argument("--sweep-period", type=float,
+                        default=proto.DEFAULT_SWEEP_PERIOD,
+                        help="seconds between expired-lease sweeps")
+    parser.add_argument("--fsync-index", action="store_true",
+                        help="fsync the tile index on every append")
+    parser.add_argument("--read-timeout", type=float,
+                        default=proto.DEFAULT_READ_TIMEOUT,
+                        help="per-read socket deadline in seconds")
+    parser.add_argument("--no-read-timeout", action="store_true",
+                        help="disable socket read deadlines")
+    parser.add_argument("--checkpoint-period", type=float, default=0.0,
+                        help="write a durability checkpoint every N seconds "
+                             "(0 disables; restart then replays the full "
+                             "index instead of a suffix)")
+    parser.add_argument("--stats-period", type=float, default=60.0,
+                        help="seconds between progress/throughput log "
+                             "lines (0 disables)")
+    parser.add_argument("--exporter-port", type=int,
+                        default=proto.DEFAULT_EXPORTER_PORT,
+                        help="HTTP metrics port (/metrics, /varz, "
+                             "/healthz); 0 = ephemeral, -1 disables")
+    parser.add_argument("--no-info-log", action="store_true")
+    _add_common(parser)
+
+
+def _run_coordinator(prog: str, args: argparse.Namespace, suffix: str = "",
+                     **kwargs) -> int:
+    """Start the carried ``Coordinator`` with the shared flags (and the
+    gateway's, as ``kwargs``) and serve until interrupted."""
+    from distributedmandelbrot_tpu_torch.coordinator import Coordinator
+    from distributedmandelbrot_tpu_torch.core.workload import \
+        parse_level_settings
+    from distributedmandelbrot_tpu_torch.storage.ownership import \
+        LevelOwnedError
+    from distributedmandelbrot_tpu_torch.storage.store import DataDirError
+
+    settings = parse_level_settings(args.levels)
+    try:
+        coordinator = Coordinator(
+            settings, data_dir_parent=args.data_dir, host=args.host,
+            distributer_port=args.distributer_port,
+            dataserver_port=args.dataserver_port,
+            lease_timeout=args.lease_timeout, sweep_period=args.sweep_period,
+            read_timeout=None if args.no_read_timeout else args.read_timeout,
+            fsync_index=args.fsync_index, stats_period=args.stats_period,
+            checkpoint_period=args.checkpoint_period,
+            exporter_port=(None if args.exporter_port < 0
+                           else args.exporter_port), **kwargs)
+    except (DataDirError, LevelOwnedError) as e:
+        # A clean pre-start failure: no traceback, exit code 1.
+        raise SystemExit(f"{prog}: {e}")
+    total = coordinator.scheduler.total_tiles
+    done = coordinator.scheduler.completed_count
+    print(f"{prog}: {len(settings)} level(s), {total} tiles ({done} "
+          f"already complete on disk){suffix}", flush=True)
+    try:
+        asyncio.run(coordinator.run_forever())
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def cmd_coordinator(argv: Sequence[str]) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m distributedmandelbrot_tpu_torch coordinator",
+        description="Run the tile coordinator (Distributer + DataServer).")
+    _add_coordinator_flags(parser)
+    for flag in ("--distributer-log-info", "--distributer-log-error",
+                 "--data-server-log-info", "--data-server-log-error"):
+        parser.add_argument(flag, choices=["true", "false"], default="true")
+    args = parser.parse_args(argv)
+    _configure_logging(args)
+    _configure_channel_logging(args)
+    return _run_coordinator("coordinator", args)
+
+
+def cmd_serve(argv: Sequence[str]) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m distributedmandelbrot_tpu_torch serve",
+        description="Run a serving coordinator: Distributer + DataServer + "
+                    "tile gateway (cache, coalescing, compute-on-read, "
+                    "admission control).")
+    _add_coordinator_flags(parser)
+    parser.add_argument("--gateway-port", type=int,
+                        default=proto.DEFAULT_GATEWAY_PORT)
+    parser.add_argument("--cache-tiles", type=int, default=256,
+                        help="decoded-tile LRU capacity, in tiles")
+    parser.add_argument("--render-cache-tiles", type=int, default=64,
+                        help="rendered palette-PNG LRU capacity, in "
+                             "entries (one per tile+colormap)")
+    parser.add_argument("--max-queue-depth", type=int, default=1024,
+                        help="max queries in service before shedding "
+                             "with OVERLOADED")
+    parser.add_argument("--rate", type=float, default=None,
+                        help="token-bucket refill rate in queries/s "
+                             "(default: unlimited)")
+    parser.add_argument("--burst", type=float, default=256.0,
+                        help="token-bucket capacity (burst size)")
+    parser.add_argument("--ondemand-deadline", type=float,
+                        default=proto.DEFAULT_ONDEMAND_DEADLINE,
+                        help="seconds a miss may wait for the farm to "
+                             "compute the tile before NOT_AVAILABLE")
+    parser.add_argument("--sample-period", type=float, default=2.0,
+                        help="seconds between /timeseries snapshots of "
+                             "the registry")
+    parser.add_argument("--history-window", type=float, default=600.0,
+                        help="seconds of timeseries history kept in the "
+                             "ring buffer")
+    args = parser.parse_args(argv)
+    _configure_logging(args)
+    return _run_coordinator(
+        "serve", args, f"; gateway on port {args.gateway_port}",
+        sample_period=args.sample_period,
+        history_window=args.history_window,
+        gateway_port=args.gateway_port,
+        gateway_cache_tiles=args.cache_tiles,
+        gateway_render_tiles=args.render_cache_tiles,
+        gateway_max_queue_depth=args.max_queue_depth,
+        gateway_rate=args.rate, gateway_burst=args.burst,
+        ondemand_deadline=args.ondemand_deadline)
+
+
+def cmd_viewer(argv: Sequence[str]) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m distributedmandelbrot_tpu_torch viewer",
+        description="Fetch and render finished tiles.")
+    parser.add_argument("level", type=int, nargs="?", default=None)
+    parser.add_argument("index_real", type=int, nargs="?", default=None)
+    parser.add_argument("index_imag", type=int, nargs="?", default=None)
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int,
+                        default=proto.DEFAULT_DATASERVER_PORT)
+    parser.add_argument("--stitch", action="store_true",
+                        help="fetch ALL chunks of the level into one image")
+    parser.add_argument("--out", default=None,
+                        help="write a PNG instead of opening a window")
+    parser.add_argument("--colormap", default="jet")
+    _add_common(parser)
+    args = parser.parse_args(argv)
+    _configure_logging(args)
+    _check_colormap(args.colormap)
+
+    if args.level is None and args.stitch:
+        parser.error("--stitch requires a level")
+    if args.level is None:
+        # No arguments: the original viewer's interactive session, with
+        # its prompts.  Closed stdin or a non-numeric answer exits with
+        # a usage error, not a traceback.
+        try:
+            args.host = input("Server Addr> ") or args.host
+            port_s = input("Server Port> ")
+            args.port = int(port_s) if port_s else args.port
+            args.level = int(input("Level> "))
+            args.index_real = int(input("Index Re> "))
+            args.index_imag = int(input("Index Im> "))
+        except EOFError:
+            parser.error("no arguments and no interactive input; "
+                         "pass LEVEL [INDEX_RE INDEX_IM] (see --help)")
+        except ValueError as e:
+            parser.error(f"invalid numeric answer: {e}")
+
+    from distributedmandelbrot_tpu_torch.viewer import DataClient
+
+    client = DataClient(args.host, args.port)
+    try:
+        return _viewer_fetch_and_render(parser, args, client)
+    except OSError as e:
+        print(f"error: cannot reach data server at {args.host}:{args.port} "
+              f"({e})", file=sys.stderr)
+        return 1
+
+
+def _viewer_fetch_and_render(parser, args, client) -> int:
+    from distributedmandelbrot_tpu_torch.viewer import (FetchStatus,
+                                                        stitch_level,
+                                                        value_to_rgba)
+
+    if args.stitch:
+        missing = []
+
+        def fetch(i: int, j: int) -> Optional[np.ndarray]:
+            pixels, status = client.fetch(args.level, i, j)
+            if status is not FetchStatus.OK:
+                missing.append((i, j))
+                return None
+            return pixels
+
+        values = stitch_level(fetch, args.level)
+        if missing:
+            print(f"warning: {len(missing)} chunk(s) unavailable, "
+                  f"rendered black: {missing[:8]}...", file=sys.stderr)
+    else:
+        if args.index_real is None or args.index_imag is None:
+            parser.error("index_real and index_imag required unless --stitch")
+        pixels, status = client.fetch(args.level, args.index_real,
+                                      args.index_imag)
+        if status is FetchStatus.NOT_AVAILABLE:
+            print("Chunk isn't available")
+            return 1
+        if status is FetchStatus.REJECTED:
+            print("Request was rejected (invalid indices)", file=sys.stderr)
+            return 2
+        values = pixels
+
+    rgba = value_to_rgba(values, colormap=args.colormap)
+    if args.out:
+        _save_png(args.out, rgba)
+    else:  # pragma: no cover - needs a display
+        from distributedmandelbrot_tpu_torch.viewer import show
+        show(rgba)
+    return 0
+
+
+COMMANDS = {"coordinator": cmd_coordinator, "serve": cmd_serve,
+            "worker": cmd_worker, "viewer": cmd_viewer,
+            "render": cmd_render, "animate": cmd_animate}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: python -m distributedmandelbrot_tpu_torch "
-              "{worker,render} [options]\nRun a subcommand with -h for "
-              "its options.")
+              f"{{{','.join(COMMANDS)}}} [options]\nRun a subcommand with "
+              "-h for its options.")
         return 0 if argv else 2
     cmd = argv[0]
     if cmd not in COMMANDS:

@@ -40,3 +40,10 @@ def stitch_level(fetch: Callable[[int, int], Optional[np.ndarray]],
             out[j * chunk_width:(j + 1) * chunk_width,
                 i * chunk_width:(i + 1) * chunk_width] = tile
     return out
+
+
+def show(rgba: np.ndarray) -> None:  # pragma: no cover - needs a display
+    from matplotlib import pyplot as plt
+
+    plt.imshow(rgba)
+    plt.show()

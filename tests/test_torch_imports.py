@@ -37,6 +37,18 @@ CARRIED = [
     "utils/metrics.py", "utils/faults.py", "net/framing.py",
     "net/protocol.py", "worker/client.py", "worker/pipeline.py",
     "worker/worker.py", "native/__init__.py", "native/bindings.py",
+    "core/chunk.py", "codecs/__init__.py", "codecs/base.py", "codecs/raw.py",
+    "codecs/checkpoint.py", "storage/__init__.py", "storage/index.py",
+    "storage/backends.py", "storage/store.py", "storage/ownership.py",
+    "coordinator/clock.py", "coordinator/scheduler.py",
+    "coordinator/recovery.py", "coordinator/dataserver.py",
+    "coordinator/distributer.py", "coordinator/app.py",
+    "coordinator/embed.py", "coordinator/__init__.py", "obs/trace.py",
+    "obs/chrome.py", "obs/exporter.py", "obs/timeseries.py", "obs/slo.py",
+    "serve/coalesce.py", "serve/cache.py", "serve/ondemand.py",
+    "serve/gateway.py", "sessions/__init__.py", "sessions/table.py",
+    "sessions/predict.py", "sessions/prefetch.py", "sessions/refine.py",
+    "sessions/service.py", "viewer/client.py",
 ]
 
 
@@ -63,7 +75,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "parallel.multihost", "serve.render", "viewer.render",
                 "worker.backends", "worker.pipeline", "cli", "__main__",
                 "ops.perturbation", "ops.cuda_perturb", "ops.bla", "native",
-                "native.bindings", "native.build"):
+                "native.bindings", "native.build", "core.chunk", "codecs",
+                "codecs.base", "codecs.raw", "codecs.checkpoint", "storage",
+                "storage.index", "storage.backends", "storage.store",
+                "storage.ownership", "coordinator", "coordinator.app",
+                "coordinator.clock", "coordinator.scheduler",
+                "coordinator.recovery", "coordinator.dataserver",
+                "coordinator.distributer", "coordinator.embed", "obs.trace",
+                "obs.chrome", "obs.exporter", "obs.timeseries", "obs.slo",
+                "serve", "serve.coalesce", "serve.cache", "serve.ondemand",
+                "serve.gateway", "sessions", "sessions.table",
+                "sessions.predict", "sessions.prefetch", "sessions.refine",
+                "sessions.service", "viewer", "viewer.client"):
         assert f"distributedmandelbrot_tpu_torch.{mod}" in report["modules"]
 
 

@@ -274,7 +274,7 @@ def test_jet_table_and_float_mapping_are_matplotlibs():
     rgba = srender.value_to_rgba(values)
     assert np.array_equal(srender.to_rgba8(rgba), ref_render.to_rgba8(rgba))
     with pytest.raises(ValueError, match="not carried"):
-        srender.colormap_table("viridis")
+        srender.colormap_table("magma")
 
 
 def test_png_writer_matches_plt_imsave(tmp_path):
@@ -592,7 +592,7 @@ def test_refusals_and_validation(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="needs a CUDA device"):
         cli.main(["render", "--definition", "64", "--out", out])
     with pytest.raises(SystemExit, match="carries"):
-        cli.main(["render", "--colormap", "viridis", "--device", "cpu",
+        cli.main(["render", "--colormap", "magma", "--device", "cpu",
                   "--out", out])
     with pytest.raises(SystemExit, match="no perturbation"):
         cli.main(["render", "--fractal", "ship", "--deep", "--device", "cpu",
