@@ -133,7 +133,27 @@ JSON line; any failure raises and the script exits non-zero.
    launch, and frames 0, 6 and 11 are byte for byte the PNG ``render``
    writes for the same span and budget.  Every process started is
    stopped; each leg's launches are counted around its drive only.
-12. kernels: per kernel, its launches on the paths above and its median
+12. control_path (in a process of its own: a process that profiled
+   before misses device events): the sharded control plane at
+   farm_path's cut.  Two ``python -m distributedmandelbrot_tpu_torch
+   coord`` shards (``--shard 0/2`` and ``1/2``, one shared data
+   directory, ports picked here and written into one ring JSON) are
+   drained by ``worker --backend cuda --ring RING --exporter-port 0
+   --profile DIR --stats-json`` (``cli.main`` in that process; K2 and
+   K1 must launch): chunks/s over the ring beside farm_path's, the
+   chunks each shard granted (they sum to 116), the worker's own
+   ``/varz`` read during the drain (the upload lane's histograms) and
+   its stage stats, the shards' upload histograms, and the escape
+   kernels' events in the ``--profile`` trace, which must equal the
+   launch counters.  Every stored chunk fetched from its owning shard
+   equals ``CudaBackend``'s bytes, the eight samples the plain version;
+   ``top --ring RING --once --json`` lists both shards and ``stats
+   --port --json`` reads each shard's ``/varz``.  The shards stop on
+   SIGINT (exit 0); ``compact -o DIR`` must refuse the sharded store
+   (it knows only a single coordinator's index) and touch nothing; the
+   shards restarted on it serve all 116 chunks equal once more.  Then
+   the same drain without ``--profile`` on fresh shards, for chunks/s.
+13. kernels: per kernel, its launches on the paths above and its median
    time by CUDA events at 4096^2 beside the plain version's and the
    bound (the larger of its f32 operations over the non-FMA f32 rate
    and the bytes it must move over the memory rate); K1 per mode, K5
@@ -155,6 +175,9 @@ JSON line; any failure raises and the script exits non-zero.
    1024^2, K10 on its smooth f64 view at 1024^2, beside their plain
    versions and their bound (the lane-steps the view needs x 20
    operations over the f32 or f64 rate), with registers.
+
+``python3 chip_smoke.py --control [--out PATH]`` runs control_path
+alone (about a minute with the build).
 
 ``python3 chip_smoke.py --deep [--out PATH]`` runs the deep route alone
 in a process of its own (about a minute): the build, ``deep_path``
@@ -3193,51 +3216,81 @@ def tcp_drain(cli, ce, cp, tmp, name, worker_args, inspect=None):
     return wall, stats, launches, inspected
 
 
+def farm_keys() -> list:
+    from distributedmandelbrot_tpu_torch.core.workload import \
+        parse_level_settings
+    return [(s.level, s.max_iter, i, j)
+            for s in parse_level_settings(FARM_LEVELS)
+            for j in range(s.level) for i in range(s.level)]
+
+
+def fetch_checked(wk, ce, TileSpec, Workload, keys, port_of,
+                  want=None, on_chunk=None) -> tuple:
+    """Fetch every chunk of ``keys`` through the port's ``DataClient``
+    from the data server ``port_of(key)`` (polled: saves land after the
+    upload) and hold it to ``CudaBackend``'s bytes for its grant, or to
+    ``want[key]`` (a SHA-256) when given; ``FARM_SAMPLES`` also to the
+    plain version.  ``on_chunk(pixels)`` sees each fetched chunk.
+    Returns the fetch seconds and each chunk's SHA-256."""
+    import hashlib
+    from distributedmandelbrot_tpu_torch.viewer import (DataClient,
+                                                        FetchStatus)
+    backend = wk.CudaBackend()
+    differ, missing, samples, digests = [], [], {}, {}
+    clients: dict = {}
+    t_fetch = time.monotonic()
+    try:
+        for key in keys:
+            level, mi, i, j = key
+            port = port_of(key)
+            if port not in clients:
+                clients[port] = DataClient("127.0.0.1", port, timeout=60)
+            for _ in range(100):
+                pixels, status = clients[port].fetch(level, i, j)
+                if status is not FetchStatus.NOT_AVAILABLE:
+                    break
+                time.sleep(0.05)
+            if status is not FetchStatus.OK:
+                missing.append((key, status.value))
+                continue
+            digests[key] = hashlib.sha256(pixels.tobytes()).hexdigest()
+            if on_chunk is not None:
+                on_chunk(pixels)
+            if want is not None:
+                same = digests[key] == want[key]
+            else:
+                same = np.array_equal(pixels, backend.materialize_tile(
+                    backend.dispatch_tile(Workload(*key))))
+            if not same:
+                differ.append(key)
+            if key in FARM_SAMPLES:
+                samples[key] = pixels
+    finally:
+        for client in clients.values():
+            client.close()
+    fetch_s = time.monotonic() - t_fetch
+    if missing or differ:
+        raise AssertionError(f"stored chunks missing {missing[:5]}, "
+                             f"differing from CudaBackend {differ[:5]}")
+    off_plain = [key for key in samples if not torch.equal(
+        torch.from_numpy(samples[key]), plain_chunk(ce, TileSpec, key))]
+    if off_plain:
+        raise AssertionError(f"sampled chunks differ from the plain "
+                             f"version: {off_plain}")
+    return fetch_s, digests
+
+
 def farm_drain(cli, wk, ce, cp, TileSpec, Workload, tmp, main_rate):
     """``coordinator`` drained by ``worker --backend cuda`` (one upload
     lane, the default on one card; K2 and K1 must launch): every stored
     chunk fetched back through the port's ``DataClient`` equals
     ``CudaBackend``'s bytes for its grant, the samples the plain
     version's.  Then the same drain with 2 and 4 upload lanes."""
-    from distributedmandelbrot_tpu_torch.core.workload import \
-        parse_level_settings
-    from distributedmandelbrot_tpu_torch.viewer import (DataClient,
-                                                        FetchStatus)
-    keys = [(s.level, s.max_iter, i, j)
-            for s in parse_level_settings(FARM_LEVELS)
-            for j in range(s.level) for i in range(s.level)]
+    keys = farm_keys()
 
     def check_stored(data: int) -> float:
-        backend = wk.CudaBackend()
-        differ, missing, samples = [], [], {}
-        t_fetch = time.monotonic()
-        with DataClient("127.0.0.1", data, timeout=60) as client:
-            for key in keys:
-                level, mi, i, j = key
-                for _ in range(100):  # saves land after the upload
-                    pixels, status = client.fetch(level, i, j)
-                    if status is not FetchStatus.NOT_AVAILABLE:
-                        break
-                    time.sleep(0.05)
-                if status is not FetchStatus.OK:
-                    missing.append((key, status.value))
-                    continue
-                want = backend.materialize_tile(backend.dispatch_tile(
-                    Workload(*key)))
-                if not np.array_equal(pixels, want):
-                    differ.append(key)
-                if key in FARM_SAMPLES:
-                    samples[key] = pixels
-        fetch_s = time.monotonic() - t_fetch
-        if missing or differ:
-            raise AssertionError(f"stored chunks missing {missing[:5]}, "
-                                 f"differing from CudaBackend {differ[:5]}")
-        off_plain = [key for key in FARM_SAMPLES if not torch.equal(
-            torch.from_numpy(samples[key]), plain_chunk(ce, TileSpec, key))]
-        if off_plain:
-            raise AssertionError(f"sampled chunks differ from the plain "
-                                 f"version: {off_plain}")
-        return fetch_s
+        return fetch_checked(wk, ce, TileSpec, Workload, keys,
+                             lambda key: data)[0]
 
     wall, stats, launches, fetch_s = tcp_drain(cli, ce, cp, tmp, "farm", [],
                                                check_stored)
@@ -3486,7 +3539,371 @@ def phase_farm_path(cli, wk, ce, srender, TileSpec, Workload, main_rate):
     emit({"phase": "farm_path", "ok": True,
           "seconds": time.monotonic() - t0, "drain": drain, "serve": serve,
           "animate": animate, "launches": launches})
-    return launches
+    return launches, drain["chunks_per_s_tcp"]
+
+
+# The sharded control plane (control_path): shards of the farm's cut, the
+# escape kernels' names in a torch.profiler trace, the child's limit.
+CONTROL_SHARDS = 2
+ESCAPE_KERNELS = r"escape_(tile|mega|smooth|pack|batch|state|resume)"
+CONTROL_TIMEOUT_S = 400
+
+
+def run_cli(cli, args: list) -> tuple:
+    """``cli.main(args)`` in this process with its standard output
+    captured: (exit code, output)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args)
+    return rc, buf.getvalue()
+
+
+class Shards:
+    """``CONTROL_SHARDS`` ``coord`` processes over ``data_dir``, on the
+    ports of ``ring`` (which ``ring_path`` holds)."""
+
+    def __init__(self, ring, ring_path: str, data_dir: str, tmp: str,
+                 tag: str):
+        self.ring, self.procs = ring, []
+        n = len(ring.shards)
+        for k, info in enumerate(ring.shards):
+            log = os.path.join(tmp, f"coord{k}_{tag}.log")
+            self.procs.append((start_farm_process("coord", [
+                "--shard", f"{k}/{n}", "--ring", ring_path, "-l",
+                FARM_LEVELS, "-o", data_dir, "--host", "127.0.0.1",
+                "--distributer-port", str(info.distributer_port),
+                "--dataserver-port", str(info.dataserver_port),
+                "--exporter-port", str(info.exporter_port),
+                "--stats-period", "0"], log), log))
+        try:
+            for (proc, log), info in zip(self.procs, ring.shards):
+                for port in (info.distributer_port, info.dataserver_port,
+                             info.exporter_port):
+                    wait_listening(port, proc, log)
+        except BaseException:
+            self.stop()
+            raise
+
+    def dataserver_of(self, key) -> int:
+        level, _, i, j = key
+        return self.ring.shards[self.ring.owner(level, i, j)] \
+            .dataserver_port
+
+    def stop(self) -> list:
+        return [stop_farm_process(proc) if proc.poll() is None
+                else proc.returncode for proc, _ in self.procs]
+
+    def stop_clean(self) -> None:
+        codes = self.stop()
+        if codes != [0] * len(codes):
+            raise AssertionError(f"the shards exited {codes} on SIGINT")
+
+    def logs(self) -> list:
+        out = []
+        for _, log in self.procs:
+            with open(log) as fh:
+                out.append(fh.read())
+        return out
+
+
+def ring_drain(cli, ce, cp, ring_path: str, worker_args: list) -> tuple:
+    """``worker --backend cuda --ring`` in this process, its launches
+    counted around the drain only and its own ``/varz`` (its exporter
+    on an ephemeral port, found in its output) read while it drains.
+    Returns the wall seconds, launches, the last ``/varz`` read, the
+    number of reads and the worker's output."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    done = threading.Event()
+    reads: list = []
+
+    def poll():
+        port = None
+        while not done.wait(0.1):
+            if port is None:
+                m = re.search(r"worker exporter on port (\d+)",
+                              buf.getvalue())
+                port = int(m.group(1)) if m else None
+                continue
+            try:
+                reads.append(varz_of(port))
+            except OSError:
+                pass
+
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    reset_launches(ce, cp)
+    t0 = time.monotonic()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["worker", "--backend", "cuda", "--ring",
+                           ring_path, *worker_args])
+        torch.cuda.synchronize()
+    finally:
+        done.set()
+        poller.join(timeout=30)
+    wall = time.monotonic() - t0
+    launches = all_launches(ce, cp)
+    if rc != 0:
+        raise AssertionError(f"the ring worker exited {rc}: "
+                             f"{buf.getvalue()[-2000:]}")
+    return wall, launches, (reads[-1] if reads else None), len(reads), \
+        buf.getvalue()
+
+
+def profile_kernel_events(prof_dir: str) -> dict:
+    """The escape kernels' device events in the worker's ``--profile``
+    Chrome trace, by kernel name."""
+    (path,) = [os.path.join(prof_dir, f) for f in os.listdir(prof_dir)
+               if f.startswith("worker-") and f.endswith(".trace.json")]
+    with open(path) as fh:
+        trace = json.load(fh)
+    counts: dict = {}
+    for ev in trace.get("traceEvents", []):
+        if ev.get("ph") != "X" or ev.get("cat") != "kernel":
+            continue
+        m = re.search(rf"\b{ESCAPE_KERNELS}_kernel\b", ev.get("name", ""))
+        if m:
+            name = f"escape_{m.group(1)}"
+            counts[name] = counts.get(name, 0) + 1
+    return {"events": counts, "trace_bytes": os.path.getsize(path)}
+
+
+def launches_by_kernel(launches: dict) -> dict:
+    """The escape launch counters summed per kernel (a kernel's variants,
+    ``escape_mega_mxu`` and the like, are launches of the same
+    ``__global__``)."""
+    out: dict = {}
+    for name, n in launches.items():
+        m = re.match(ESCAPE_KERNELS, name)
+        if m and n:
+            out[f"escape_{m.group(1)}"] = out.get(f"escape_{m.group(1)}",
+                                                  0) + n
+    return out
+
+
+def upload_split(varz: dict) -> dict:
+    """The upload lane's histograms and counters from a worker's or a
+    shard's ``/varz``."""
+    keep = ("upload", "stage", "phase", "coord_", "store_", "wire_")
+    return {
+        "histograms": {k: v for k, v in varz.get("histograms", {}).items()
+                       if any(t in k for t in keep)},
+        "counters": {k: v for k, v in varz.get("counters", {}).items()
+                     if any(t in k for t in keep)}}
+
+
+def upload_encode_s(pixels) -> float:
+    """Host seconds of the session upload's body encoding for one chunk
+    (``DistributerSession._encode_body``: the RLE estimate, then the
+    encode where the estimate clears the bar), outside any drain."""
+    from distributedmandelbrot_tpu_torch.codecs.rle import (RleCodec,
+                                                            estimate_ratio)
+    from distributedmandelbrot_tpu_torch.worker.client import (
+        MIN_WIRE_RATIO, DistributerClient)
+    t = time.perf_counter()
+    arr = np.frombuffer(DistributerClient._pixel_bytes(pixels), np.uint8)
+    if estimate_ratio(arr, MIN_WIRE_RATIO) > MIN_WIRE_RATIO:
+        RleCodec().encode(arr)
+    return time.perf_counter() - t
+
+
+def control_path(cli, wk, ce, cp, TileSpec, Workload) -> dict:
+    """The phase's drive and checks (see the module's docstring)."""
+    import shutil
+    from distributedmandelbrot_tpu_torch.control.ring import (HashRing,
+                                                              ShardInfo)
+    keys = farm_keys()
+    tmp = tempfile.mkdtemp(prefix="dm_control_")
+    t0 = time.monotonic()
+
+    def new_ring(name: str) -> tuple:
+        ring = HashRing([ShardInfo("127.0.0.1",
+                                   distributer_port=free_port(),
+                                   dataserver_port=free_port(),
+                                   exporter_port=free_port())
+                         for _ in range(CONTROL_SHARDS)], version=1)
+        path = os.path.join(tmp, f"{name}.json")
+        ring.save(path)
+        return ring, path
+
+    shards = None
+    try:
+        ring, ring_path = new_ring("ring")
+        data_dir = os.path.join(tmp, "farm")
+        prof_dir = os.path.join(tmp, "profile")
+        stats_path = os.path.join(tmp, "worker.json")
+        os.makedirs(data_dir)
+        shards = Shards(ring, ring_path, data_dir, tmp, "drain")
+        wall, launches, worker_varz, reads, out = ring_drain(
+            cli, ce, cp, ring_path, ["--exporter-port", "0", "--profile",
+                                     prof_dir, "--stats-json", stats_path,
+                                     "-q"])
+        if launches.get("escape_mega", 0) <= 0 \
+                or launches.get("escape_tile", 0) <= 0:
+            raise AssertionError(f"the ring drain launched {launches}: K2 "
+                                 "and K1 must both run")
+        if worker_varz is None:
+            raise AssertionError("the worker's /varz was never read during "
+                                 "the drain")
+        profiled = profile_kernel_events(prof_dir)
+        if profiled["events"] != launches_by_kernel(launches):
+            raise AssertionError(f"profile kernel events "
+                                 f"{profiled['events']} != launches "
+                                 f"{launches_by_kernel(launches)}")
+        with open(stats_path) as fh:
+            stats = json.load(fh)
+        encode_s: list = []
+        fetch_s, digests = fetch_checked(
+            wk, ce, TileSpec, Workload, keys, shards.dataserver_of,
+            on_chunk=lambda px: encode_s.append(upload_encode_s(px)))
+        shard_varz = [varz_of(info.exporter_port) for info in ring.shards]
+        granted = [v["counters"].get("workloads_granted", 0)
+                   for v in shard_varz]
+        completed = [v["scheduler"]["completed"] for v in shard_varz]
+        owned = [sum(ring.owner(k[0], k[2], k[3]) == n for k in keys)
+                 for n in range(CONTROL_SHARDS)]
+        if sum(granted) != len(keys) or completed != owned:
+            raise AssertionError(f"shards granted {granted}, completed "
+                                 f"{completed}; they own {owned}")
+        rc, top_out = run_cli(cli, ["top", "--ring", ring_path, "--once",
+                                    "--json", "--interval", "0.2"])
+        top = json.loads(top_out)
+        if rc != 0 or top["roles"].get("shard", {}).get("healthy") != \
+                CONTROL_SHARDS or sorted(
+                    r["shard"] for r in top["shards"]) != \
+                list(range(CONTROL_SHARDS)):
+            raise AssertionError(f"top (exit {rc}) does not list both "
+                                 f"shards: {top.get('roles')}")
+        for n, info in enumerate(ring.shards):
+            rc, text = run_cli(cli, ["stats", "--port",
+                                     str(info.exporter_port), "--json"])
+            if rc != 0 or json.loads(text)["scheduler"]["completed"] != \
+                    owned[n]:
+                raise AssertionError(f"stats of shard {n}: exit {rc}")
+        shards.stop_clean()
+        listing = sorted((f, os.path.getsize(os.path.join(data_dir, "Data",
+                                                          f)))
+                         for f in os.listdir(os.path.join(data_dir, "Data")))
+        try:
+            run_cli(cli, ["compact", "-o", data_dir])
+            compact = "rewrote"
+        except SystemExit as e:
+            compact = f"refused: {e}"
+        after = sorted((f, os.path.getsize(os.path.join(data_dir, "Data",
+                                                        f)))
+                       for f in os.listdir(os.path.join(data_dir, "Data")))
+        if not compact.startswith("refused: compact: no tile index") \
+                or after != listing:
+            raise AssertionError(f"compact on the sharded store: {compact}")
+        shards = Shards(ring, ring_path, data_dir, tmp, "restart")
+        refetch_s, _ = fetch_checked(wk, ce, TileSpec, Workload, keys,
+                                     shards.dataserver_of, want=digests)
+        on_disk = [re.findall(r"\((\d+) already complete on disk\)", log)
+                   for log in shards.logs()]
+        shards.stop_clean()
+        if on_disk != [[str(n)] for n in owned]:
+            raise AssertionError(f"restarted shards found {on_disk} "
+                                 f"complete on disk; they own {owned}")
+        # The same drain without the profiler, on fresh shards.
+        ring2, ring2_path = new_ring("ring2")
+        os.makedirs(os.path.join(tmp, "farm2"))
+        shards = Shards(ring2, ring2_path, os.path.join(tmp, "farm2"), tmp,
+                        "plain")
+        plain_stats_path = os.path.join(tmp, "worker_plain.json")
+        plain_wall, plain_launches, _, _, _ = ring_drain(
+            cli, ce, cp, ring2_path, ["--stats-json", plain_stats_path,
+                                      "-q"])
+        plain_varz = [varz_of(i.exporter_port) for i in ring2.shards]
+        plain_granted = [v["counters"].get("workloads_granted", 0)
+                         for v in plain_varz]
+        with open(plain_stats_path) as fh:
+            plain_stats = json.load(fh)
+        shards.stop_clean()
+        shards = None
+        if sum(plain_granted) != len(keys):
+            raise AssertionError(f"the plain ring drain granted "
+                                 f"{plain_granted}")
+    finally:
+        if shards is not None:
+            shards.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = dict(launches)
+    add_launches(total, plain_launches)
+    return {
+        "phase": "control_path", "ok": True, "card": nvidia_smi_line(),
+        "seconds": time.monotonic() - t0, "levels": FARM_LEVELS,
+        "shards": CONTROL_SHARDS, "chunks": len(keys),
+        "chunks_per_s_ring": len(keys) / plain_wall,
+        "chunks_per_s_ring_profiled": len(keys) / wall,
+        "timing": "host clock around the in-process cli.main(['worker', "
+                  "'--ring', ...]) to its drained exit, ended by "
+                  "torch.cuda.synchronize(); the profiled drain with "
+                  "--exporter-port 0 --profile",
+        "granted_by_shard": granted, "owned_by_shard": owned,
+        "granted_by_shard_plain": plain_granted,
+        "launches_profiled": launches_by_kernel(launches),
+        "launches_plain": launches_by_kernel(plain_launches),
+        "profile": profiled, "worker_varz_reads": reads,
+        "worker_varz": upload_split(worker_varz),
+        "stage_stats": stats.get("stage_stats"),
+        "shard_varz": [upload_split(v) for v in shard_varz],
+        "plain_drain": {"stage_stats": plain_stats.get("stage_stats"),
+                        "shard_varz": [upload_split(v)
+                                       for v in plain_varz]},
+        "worker_output": out.strip().splitlines(),
+        "top_totals": top.get("totals"), "compact": compact,
+        "restart_complete_on_disk": on_disk,
+        "upload_encode_ms": {
+            "median": 1e3 * statistics.median(encode_s),
+            "max": 1e3 * max(encode_s), "sum": 1e3 * sum(encode_s),
+            "timing": "host clock (perf_counter) around the session "
+                      "upload's body encoding of each fetched chunk, one "
+                      "thread, after the drains"},
+        "fetch_and_recheck_s": fetch_s, "refetch_after_restart_s": refetch_s,
+        "equal_to_cuda_backend": len(keys),
+        "sample_bitwise_vs_plain": len(FARM_SAMPLES), "launches": total}
+
+
+def run_control(argv: list[str]) -> int:
+    """``--control [--out PATH]``: control_path in a process of its own
+    (the build first), its record as the last line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    from distributedmandelbrot_tpu_torch import cli
+    from distributedmandelbrot_tpu_torch import worker as wk
+    from distributedmandelbrot_tpu_torch.core.geometry import TileSpec
+    from distributedmandelbrot_tpu_torch.core.workload import Workload
+    from distributedmandelbrot_tpu_torch.ops import _build
+    from distributedmandelbrot_tpu_torch.ops import cuda_escape as ce
+    from distributedmandelbrot_tpu_torch.ops import cuda_perturb as cp
+    _build.load()
+    record = control_path(cli, wk, ce, cp, TileSpec, Workload)
+    if "--out" in argv:
+        with open(argv[argv.index("--out") + 1], "w") as fh:
+            json.dump(record, fh, indent=1)
+    emit(record)
+    return 0
+
+
+def phase_control_path(farm_rate: float) -> dict:
+    """control_path in a fresh process of this script; its record with
+    farm_path's single-coordinator chunks/s beside the ring's.  Returns
+    the phase's launches."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--control"], capture_output=True, text=True,
+                          timeout=CONTROL_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"control_path's process failed:\n"
+                             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    record = json.loads(proc.stdout.strip().splitlines()[-1])
+    record["chunks_per_s_farm_path"] = farm_rate
+    emit(record)
+    return record["launches"]
 
 
 def perturb_rows(err: dict, launches: dict, ptxas: dict) -> list:
@@ -3539,15 +3956,17 @@ def main() -> int:
     mxu_launches = phase_mxu_path(wk, ce, names, TileSpec, Workload)
     multihost_launches = phase_multihost(ce, TileSpec)
     deep_launches = phase_deep_path(cli, ce)["launches"]
-    farm_launches = phase_farm_path(cli, wk, ce, srender, TileSpec,
-                                    Workload, main_rate)
+    farm_launches, farm_rate = phase_farm_path(cli, wk, ce, srender,
+                                               TileSpec, Workload, main_rate)
+    control_launches = phase_control_path(farm_rate)
     kernels = phase_kernels(ce, TileSpec, {"main_path": main_launches,
                                            "render_path": render_launches,
                                            "mesh_path": mesh_launches,
                                            "mxu_path": mxu_launches,
                                            "multihost": multihost_launches,
                                            "deep_path": deep_launches,
-                                           "farm_path": farm_launches},
+                                           "farm_path": farm_launches,
+                                           "control_path": control_launches},
                             err, _build)
     emit({"phase": "kernels", "ok": True,
           "seconds_total": time.monotonic() - t_start,
@@ -3568,4 +3987,6 @@ if __name__ == "__main__":
         sys.exit(run_split())
     if "--deep" in sys.argv:
         sys.exit(run_deep(sys.argv))
+    if "--control" in sys.argv:
+        sys.exit(run_control(sys.argv))
     sys.exit(main())

@@ -1,11 +1,16 @@
 """Command-line entry points of the port: the farm (``coordinator``,
-``serve``, ``worker``, ``viewer``) and local rendering (``render``,
-``animate``).
+``serve``, ``worker``, ``viewer``), the sharded control plane and its
+operations tools (``coord``, ``top``, ``stats``, ``trace``, ``admin``,
+``compact``, ``postmortem``, ``loadgen``, ``chaos``) and local rendering
+(``render``, ``animate``).
 
     python -m distributedmandelbrot_tpu_torch coordinator -l 4:256,10:1024
     python -m distributedmandelbrot_tpu_torch worker --host H --port P
     python -m distributedmandelbrot_tpu_torch viewer 4 1 2 --out tile.png
     python -m distributedmandelbrot_tpu_torch serve -l 2:256
+    python -m distributedmandelbrot_tpu_torch coord --shard 0/2 -l 4:256
+    python -m distributedmandelbrot_tpu_torch worker --ring ring.json
+    python -m distributedmandelbrot_tpu_torch top --ring ring.json --once
     python -m distributedmandelbrot_tpu_torch render --out view.png
     python -m distributedmandelbrot_tpu_torch animate --center=-0.75,0.1 \
         --out-dir frames
@@ -17,7 +22,11 @@ exporter), so either package's worker and viewer talk to either
 package's coordinator, and either package's store reads the other's
 data directory.  ``viewer --out`` writes the PNG ``plt.imsave`` would;
 without ``--out`` it shows the view, which needs matplotlib and a
-display.
+display.  ``coord``, ``top``, ``stats``, ``trace``, ``admin``,
+``compact``, ``postmortem``, ``loadgen`` and ``chaos`` are the JAX
+package's, with its flags, over the carried ``control/``, ``obs/``,
+``loadgen/`` and ``chaos/`` modules; all of them run on the host
+(``chaos`` and ``top --smoke`` start numpy workers).
 
 ``worker`` takes the flags of ``dmtpu worker`` of the JAX package, with
 ``--backend`` choosing among the port's backends (auto, cuda, torch,
@@ -27,9 +36,11 @@ GPU, ``--kernel auto|cuda|torch`` picking its compute (the reference's
 ``auto|pallas|xla``); ``--multihost`` runs the group-spanning worker
 over ``torch.distributed`` ranks (``--mh-coordinator``,
 ``--mh-processes``, ``--mh-process-id``).  ``--device cpu`` runs either
-on the CPU (the kernels' plain versions).  ``--ring``,
-``--exporter-port`` and ``--profile`` come with the slices that port
-what they drive.
+on the CPU (the kernels' plain versions).  ``--ring`` drains every
+shard of a sharded control plane, ``--exporter-port`` serves the
+worker's own ``/varz``, and ``--profile DIR`` writes a
+``torch.profiler`` Chrome trace of the run (CPU, and the CUDA kernels
+on a CUDA backend).
 
 ``render`` is ``dmtpu render``: Mandelbrot, Julia, Multibrot and
 Burning Ship views, integer or smooth, supersampled or not, on the CUDA
@@ -49,10 +60,13 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import json
 import logging
+import os
 import sys
 import threading
+import time
 from decimal import Decimal
 from typing import Optional, Sequence
 
@@ -184,6 +198,20 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--stats-json", metavar="PATH", default="",
                    help="on a drained exit, dump the counter snapshot and "
                         "pipeline stage stats to PATH as JSON")
+    p.add_argument("--exporter-port", type=int, default=-1,
+                   help="HTTP metrics port for this worker (/varz, "
+                        "/timeseries); 0 = ephemeral, -1 (default) "
+                        "disables")
+    p.add_argument("--ring", metavar="RING_JSON", default=None,
+                   help="multi-home against a sharded control plane: one "
+                        "session per shard from this ring config, leases "
+                        "round-robined across shards, uploads routed by "
+                        "key (overrides --host/--port; implies the "
+                        "pipelined executor)")
+    p.add_argument("--profile", metavar="DIR", default="",
+                   help="capture a torch.profiler trace of the run (CPU, "
+                        "and CUDA on a CUDA backend) into DIR as Chrome "
+                        "trace JSON (view with Perfetto)")
     p.add_argument("--kernel", choices=["auto", "cuda", "torch"],
                    default="auto",
                    help="compute of the mesh backend and --multihost: "
@@ -200,6 +228,37 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--mh-process-id", type=int, default=None)
     _add_common(p)
     return p
+
+
+@contextlib.contextmanager
+def _profiled(out_dir: str, devices):
+    """``--profile DIR``: a ``torch.profiler`` trace of the block, CPU
+    activity and, when any of ``devices`` is a CUDA device, the CUDA
+    kernels too, written to ``DIR/worker-<pid>.trace.json`` (Chrome
+    trace JSON) however the block ends.  An empty ``out_dir`` profiles
+    nothing; a CUDA device without a GPU raises."""
+    if not out_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if any(torch.device(d).type == "cuda" for d in devices):
+        if not torch.cuda.is_available():
+            raise SystemExit("--profile: a CUDA backend without a CUDA "
+                             "device")
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"worker-{os.getpid()}.trace.json")
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(path)
+        print(f"profile trace written to {path}", flush=True)
 
 
 def _cmd_multihost(args: argparse.Namespace) -> int:
@@ -227,15 +286,33 @@ def _cmd_multihost(args: argparse.Namespace) -> int:
             "--batch-size %d rounded to %d (the SPMD batch must be a "
             "multiple of the %d global devices)", args.batch_size,
             per_dev * n_dev, n_dev)
-    rounds = multihost.run_spmd_worker(
-        args.host, args.port, batch_per_device=per_dev, poll=args.poll,
-        dtype=_NP_DTYPES[args.dtype or "f32"], mesh=mesh,
-        kernel=args.kernel)
+    with _profiled(args.profile, devices):
+        rounds = multihost.run_spmd_worker(
+            args.host, args.port, batch_per_device=per_dev,
+            poll=args.poll, dtype=_NP_DTYPES[args.dtype or "f32"],
+            mesh=mesh, kernel=args.kernel)
     if multihost.is_primary():
         print(f"multihost worker: drained after {rounds} round(s) "
               f"({multihost.process_count()} processes, {n_dev} devices)",
               flush=True)
     return 0
+
+
+def _worker_exporter(worker, port: int):
+    """The worker's own metrics exporter (``--exporter-port``)."""
+    from distributedmandelbrot_tpu_torch.obs.exporter import ExporterThread
+    from distributedmandelbrot_tpu_torch.obs.timeseries import \
+        TimeseriesSampler
+    exporter = ExporterThread(
+        worker.counters.registry,
+        sampler=TimeseriesSampler(worker.counters.registry),
+        varz_extra=lambda: {
+            "role": "worker",
+            "worker_id": format(worker.spans.worker_id, "016x")},
+        port=port)
+    exporter.start()
+    print(f"worker exporter on port {exporter.port}", flush=True)
+    return exporter
 
 
 def cmd_worker(argv: Sequence[str]) -> int:
@@ -251,29 +328,56 @@ def cmd_worker(argv: Sequence[str]) -> int:
     if batch_size <= 0:
         batch_size = (len(backend.devices()) if args.backend == "mesh"
                       else 1)
+    ring = None
+    host, port = args.host, args.port
+    if args.ring is not None:
+        from distributedmandelbrot_tpu_torch.control.ring import (
+            HashRing, RingConfigError)
+        try:
+            ring = HashRing.load(args.ring)
+        except RingConfigError as e:
+            raise SystemExit(f"worker: {e}")
+        if args.no_session:
+            raise SystemExit("worker: --ring needs sessions (drop "
+                             "--no-session)")
+        # The classic client is the declined-hello fallback: shard 0.
+        host = ring.shards[0].host
+        port = ring.shards[0].distributer_port
     window = args.window
     if window < 0:
         window = (2 * args.depth * max(1, len(backend.devices()))
                   if hasattr(backend, "dispatch_tile") else 0)
-    worker = Worker(DistributerClient(args.host, args.port,
+    if ring is not None and window == 0:
+        # Multi-homing lives in the pipelined session path.
+        window = max(2, 2 * args.depth)
+    worker = Worker(DistributerClient(host, port,
                                       reconnect_attempts=args.reconnect),
                     backend, batch_size=batch_size,
                     window=window, depth=args.depth,
                     upload_lanes=args.upload_lanes,
                     batch_tiles=args.batch_tiles,
                     grant_batch=args.grant_batch,
-                    use_session=not args.no_session)
+                    use_session=not args.no_session, ring=ring)
+    exporter = (_worker_exporter(worker, args.exporter_port)
+                if args.exporter_port >= 0 else None)
+    # The host loops (numpy, native) have no devices(): the CPU.
+    devices = (backend.devices() if hasattr(backend, "devices")
+               else [getattr(backend, "device", "cpu")])
     try:
-        if args.poll > 0:
-            worker.run_forever(poll_interval=args.poll)
-            return 0
-        rounds = worker.run_until_drained()
+        with _profiled(args.profile, devices):
+            if args.poll > 0:
+                worker.run_forever(poll_interval=args.poll)
+                return 0
+            rounds = worker.run_until_drained()
     except KeyboardInterrupt:
         return 0
     except OSError as e:
-        print(f"error: cannot reach coordinator at {args.host}:{args.port} "
+        print(f"error: cannot reach coordinator at {host}:{port} "
               f"({e})", file=sys.stderr)
         return 1
+    finally:
+        if exporter is not None:
+            exporter.stop()
     stats = worker.counters.snapshot()
     print(f"worker: drained after {rounds} round(s); "
           f"{stats.get('tiles_computed', 0)} tiles computed, "
@@ -781,9 +885,6 @@ def cmd_animate(argv: Sequence[str]) -> int:
     """Zoom animation: a geometric span sweep rendered frame by frame,
     each frame as ``render`` renders it (K1 or K4 direct, K5 with
     ``--supersample``, K9 or K10 once the span needs perturbation)."""
-    import os
-    import time
-
     parser = argparse.ArgumentParser(
         prog="python -m distributedmandelbrot_tpu_torch animate",
         description="Render a zoom animation as numbered PNG frames.")
@@ -1148,9 +1249,1034 @@ def _viewer_fetch_and_render(parser, args, client) -> int:
     return 0
 
 
+# --- operations: the sharded control plane and its tools ------------
+
+def cmd_compact(argv: Sequence[str]) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m distributedmandelbrot_tpu_torch compact",
+        description="Offline maintenance: rewrite the append-only tile "
+                    "index with one (last-wins) entry per tile and delete "
+                    "chunk files nothing references.  Claims every level "
+                    "in the index, so it fails loudly if a coordinator is "
+                    "running on the same data directory.")
+    parser.add_argument("-o", "--data-dir", default="",
+                        help="parent directory of Data/ (default: cwd)")
+    parser.add_argument("--keep-orphans", action="store_true",
+                        help="only rewrite the index; leave unreferenced "
+                             "chunk files in place")
+    _add_common(parser)
+    args = parser.parse_args(argv)
+    _configure_logging(args)
+
+    from distributedmandelbrot_tpu_torch.storage.index import CorruptIndexError
+    from distributedmandelbrot_tpu_torch.storage.ownership import \
+        LevelOwnedError
+    from distributedmandelbrot_tpu_torch.storage.store import (DataDirError,
+                                                               compact)
+
+    try:
+        stats = compact(args.data_dir,
+                        remove_orphans=not args.keep_orphans)
+    except (DataDirError, LevelOwnedError, CorruptIndexError,
+            RuntimeError) as e:
+        raise SystemExit(f"compact: {e}")
+    print(f"compacted: {stats['entries_before']} -> "
+          f"{stats['entries_after']} entries, "
+          f"{stats['orphans_removed']} orphan file(s) removed, "
+          f"index now {stats['index_bytes']} bytes", flush=True)
+    return 0
+
+
+def _fetch_varz(host: str, port: int, timeout: float) -> dict:
+    import urllib.request
+    url = f"http://{host}:{port}/varz"
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return json.loads(resp.read().decode("utf-8"))
+
+
+def _print_varz(varz: dict) -> None:
+    sched = varz.get("scheduler")
+    if sched:
+        print(f"progress: {sched.get('completed', 0)}/{sched.get('total', 0)}"
+              f" tiles complete, {sched.get('outstanding_leases', 0)} leased,"
+              f" frontier depth {sched.get('frontier_depth', 0)}")
+    gauges = varz.get("gauges", {})
+    if gauges:
+        print("gauges:")
+        for name in sorted(gauges):
+            print(f"  {name:<40} {gauges[name]:.4g}")
+    counters = varz.get("counters", {})
+    if counters:
+        print("counters:")
+        for name in sorted(counters):
+            print(f"  {name:<40} {counters[name]}")
+    hists = varz.get("histograms", {})
+    if hists:
+        print(f"histograms:{'':<36} count      p50      p90      p99")
+        for name in sorted(hists):
+            h = hists[name]
+            print(f"  {name:<40} {h.get('count', 0):>5}"
+                  f" {h.get('p50', 0.0):>8.4f} {h.get('p90', 0.0):>8.4f}"
+                  f" {h.get('p99', 0.0):>8.4f}")
+    trace = varz.get("trace")
+    if trace:
+        skew = (trace.get("worker_skew") or {}).get("skew")
+        print(f"trace: {trace.get('recorded', 0)} events "
+              f"({trace.get('dropped', 0)} dropped), "
+              f"{trace.get('complete_spans', 0)}/{trace.get('spans', 0)} "
+              f"complete spans, worker skew "
+              + (f"{skew:.2f}" if skew is not None else "n/a"))
+        workers = (trace.get("worker_skew") or {}).get("workers") or {}
+        for wid in sorted(workers):
+            w = workers[wid]
+            print(f"  {wid:<40} {w.get('tiles', 0)} tiles, "
+                  f"{w.get('busy_s', 0.0):.3f}s busy "
+                  f"({w.get('busy_source', 'lease')})")
+    farm = varz.get("farm_trace")
+    if farm and farm.get("tiles"):
+        print(f"critical path ({farm['tiles']} tiles, "
+              f"{farm.get('attributed_tiles', 0)} span-attributed):")
+        for phase in ("queue", "compute", "d2h", "upload", "persist",
+                      "other"):
+            secs = farm.get(f"{phase}_s", 0.0)
+            share = farm.get(f"{phase}_share", 0.0)
+            print(f"  {phase:<10} {secs:>10.3f}s  {share * 100:5.1f}%")
+
+
+def cmd_stats(argv: Sequence[str]) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m distributedmandelbrot_tpu_torch stats",
+        description="Fetch and pretty-print a running coordinator's /varz "
+                    "(counters, gauges, histogram percentiles, trace "
+                    "summary) from its metrics exporter.")
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int,
+                        default=proto.DEFAULT_EXPORTER_PORT)
+    parser.add_argument("--timeout", type=float, default=5.0,
+                        help="HTTP fetch timeout in seconds")
+    parser.add_argument("--watch", type=float, default=0.0, metavar="SECS",
+                        help="refresh every SECS seconds until interrupted")
+    parser.add_argument("--json", action="store_true",
+                        help="dump raw /varz JSON instead of pretty text")
+    args = parser.parse_args(argv)
+
+    while True:
+        try:
+            varz = _fetch_varz(args.host, args.port, args.timeout)
+        except OSError as e:
+            raise SystemExit(
+                f"stats: cannot fetch http://{args.host}:{args.port}"
+                f"/varz: {e}")
+        if args.json:
+            print(json.dumps(varz, indent=1, sort_keys=True), flush=True)
+        else:
+            _print_varz(varz)
+        if args.watch <= 0:
+            return 0
+        print(flush=True)
+        try:
+            time.sleep(args.watch)
+        except KeyboardInterrupt:
+            return 0
+
+
+def cmd_trace(argv: Sequence[str]) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m distributedmandelbrot_tpu_torch trace",
+        description="Dump a running coordinator's merged farm timeline "
+                    "(coordinator lifecycle + clock-aligned worker spans) "
+                    "as Chrome trace-event JSON from the metrics "
+                    "exporter's /trace.json.  Load the file at "
+                    "https://ui.perfetto.dev or chrome://tracing.")
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int,
+                        default=proto.DEFAULT_EXPORTER_PORT)
+    parser.add_argument("--timeout", type=float, default=5.0,
+                        help="HTTP fetch timeout in seconds")
+    parser.add_argument("--out", default="-", metavar="PATH",
+                        help="output path ('-' for stdout)")
+    args = parser.parse_args(argv)
+
+    import urllib.request
+    url = f"http://{args.host}:{args.port}/trace.json"
+    try:
+        with urllib.request.urlopen(url, timeout=args.timeout) as resp:
+            trace = json.loads(resp.read().decode("utf-8"))
+    except (OSError, ValueError) as e:
+        raise SystemExit(f"trace: cannot fetch {url}: {e}")
+    body = json.dumps(trace, indent=1)
+    if args.out == "-":
+        print(body, flush=True)
+    else:
+        with open(args.out, "w", encoding="utf-8") as f:
+            f.write(body + "\n")
+        n = len(trace.get("traceEvents", []))
+        print(f"wrote {n} trace events -> {args.out} "
+              f"(load at https://ui.perfetto.dev)", flush=True)
+    return 0
+
+
+def cmd_postmortem(argv: Sequence[str]) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m distributedmandelbrot_tpu_torch postmortem",
+        description="Merge a directory of flight-recorder dumps (one "
+                    "JSONL per process; DMTPU_FLIGHT_DIR made them) "
+                    "into one causally-ordered cross-process timeline, "
+                    "reconstruct the leases in flight when each process "
+                    "died, and run the anomaly detectors (grant without "
+                    "accept, lease ping-pong, redirect loops, double "
+                    "commits, retry storms).  Corrupt dumps never abort "
+                    "the assembly; bad lines are counted and a partial "
+                    "timeline renders.")
+    parser.add_argument("dump_dir", metavar="DIR",
+                        help="directory of flight-*.jsonl dumps")
+    fmt = parser.add_mutually_exclusive_group()
+    fmt.add_argument("--json", action="store_true",
+                     help="full timeline + anomalies as JSON")
+    fmt.add_argument("--chrome", action="store_true",
+                     help="Chrome trace-event JSON (ui.perfetto.dev)")
+    parser.add_argument("--limit", type=int, default=200, metavar="N",
+                        help="text mode: show the last N merged events "
+                             "(default 200; 0 = all)")
+    parser.add_argument("--out", default="-", metavar="PATH",
+                        help="output path ('-' for stdout)")
+    args = parser.parse_args(argv)
+
+    from distributedmandelbrot_tpu_torch.obs import postmortem
+
+    pm = postmortem.assemble(args.dump_dir)
+    if args.json:
+        body = json.dumps(pm.to_dict(), indent=1, sort_keys=True)
+    elif args.chrome:
+        body = json.dumps(pm.to_chrome())
+    else:
+        body = pm.render_text(limit=args.limit or None)
+    if args.out == "-":
+        print(body, flush=True)
+    else:
+        with open(args.out, "w", encoding="utf-8") as f:
+            f.write(body + "\n")
+        print(f"wrote postmortem of {len(pm.dumps)} dump(s), "
+              f"{len(pm.timeline)} events, {len(pm.anomalies)} "
+              f"anomalies -> {args.out}", flush=True)
+    if not pm.dumps:
+        print(f"postmortem: no readable dumps in "
+              f"{args.dump_dir}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def cmd_admin(argv: Sequence[str]) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m distributedmandelbrot_tpu_torch admin",
+        description="Administrative actions against a running "
+                    "coordinator's metrics exporter.")
+    parser.add_argument("action", choices=["checkpoint"],
+                        help="checkpoint: write a durability checkpoint "
+                             "now (POST /checkpoint) and print its stats")
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int,
+                        default=proto.DEFAULT_EXPORTER_PORT)
+    parser.add_argument("--timeout", type=float, default=30.0,
+                        help="HTTP timeout in seconds (checkpoint writes "
+                             "are fsync'd; allow for slow disks)")
+    args = parser.parse_args(argv)
+
+    import urllib.request
+    url = f"http://{args.host}:{args.port}/checkpoint"
+    req = urllib.request.Request(url, data=b"", method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=args.timeout) as resp:
+            stats = json.loads(resp.read().decode("utf-8"))
+    except (OSError, ValueError) as e:
+        raise SystemExit(f"admin checkpoint: cannot POST {url}: {e}")
+    print(json.dumps(stats, indent=1, sort_keys=True), flush=True)
+    return 0
+
+
+def cmd_loadgen(argv: Sequence[str]) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m distributedmandelbrot_tpu_torch loadgen",
+        description="Open-loop storm harness for the gateway read path: "
+                    "Poisson arrivals, Zipf tile popularity, scripted "
+                    "flash-crowd phases, replica fleets over one shared "
+                    "object store.  Reports p50/p99/p999, goodput vs "
+                    "offered load, and the shed fraction.")
+    parser.add_argument("--smoke", action="store_true",
+                        help="self-check on a virtual clock against a "
+                             "stub gateway — no sockets (CI-safe)")
+    parser.add_argument("--phases",
+                        default="steady:200x5,spike:1200x2,steady:200x3",
+                        help="schedule spec: kind:rate[-hi]xduration "
+                             "segments, comma-separated (kinds: steady, "
+                             "spike, ramp; e.g. ramp:200-2000x5)")
+    parser.add_argument("--level", type=int, default=8,
+                        help="tile level whose keyspace the Zipf sampler "
+                             "draws from")
+    parser.add_argument("--zipf", type=float, default=1.1,
+                        help="Zipf popularity exponent s (P(rank k) ~ "
+                             "k**-s)")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="schedule + sampler seed (same seed, same "
+                             "storm)")
+    parser.add_argument("--replicas", type=int, default=1,
+                        help="gateway replicas sharing one object store")
+    parser.add_argument("--render", action="store_true",
+                        help="issue rendered-tile queries (palette PNG "
+                             "bodies) instead of raw codec payloads")
+    parser.add_argument("--colormap", default="jet",
+                        help="colormap for --render "
+                             "(jet, viridis, plasma)")
+    parser.add_argument("--rate", type=float, default=None,
+                        help="per-replica admission token-bucket rate "
+                             "(default: unlimited)")
+    parser.add_argument("--burst", type=float, default=64.0,
+                        help="per-replica token-bucket burst")
+    parser.add_argument("--queue-depth", type=int, default=64,
+                        help="per-replica cap on queries in service")
+    parser.add_argument("--seed-tiles", type=int, default=16,
+                        help="pre-seed the hottest N tiles into the "
+                             "shared store before the storm")
+    parser.add_argument("--timeout", type=float, default=30.0,
+                        help="per-request client timeout (seconds)")
+    parser.add_argument("--sessions", type=int, default=0, metavar="N",
+                        help="interactive-session mode: deal arrivals "
+                             "onto N panning sessions speaking the "
+                             "session wire (trajectory tracking, "
+                             "prefetch, per-session fairness)")
+    parser.add_argument("--hot-share", type=float, default=0.0,
+                        help="with --sessions: extra fraction of "
+                             "arrivals routed to session 0 (the "
+                             "flash-crowd fairness scenario)")
+    parser.add_argument("--session-rate", type=float, default=None,
+                        help="with --sessions: per-session admission "
+                             "token rate (default: unlimited)")
+    parser.add_argument("--session-burst", type=float, default=32.0,
+                        help="with --sessions: per-session token burst")
+    parser.add_argument("--json", action="store_true",
+                        help="emit the report as JSON")
+    args = parser.parse_args(argv)
+
+    # Lazy: the loadgen package and the serve stack under it load only
+    # for this command.
+    from distributedmandelbrot_tpu_torch import loadgen
+
+    try:
+        phases = loadgen.parse_phases(args.phases)
+    except ValueError as e:
+        print(f"loadgen: {e}", file=sys.stderr)
+        return 2
+    if args.sessions:
+        schedule = loadgen.build_session_schedule(
+            phases, level=args.level, sessions=args.sessions,
+            seed=args.seed, zipf_s=args.zipf, hot_share=args.hot_share)
+    else:
+        sampler = loadgen.ZipfTiles(args.level, s=args.zipf,
+                                    seed=args.seed)
+        schedule = loadgen.build_schedule(phases, sampler, seed=args.seed)
+    if not schedule:
+        print("loadgen: schedule is empty (rate 0?)", file=sys.stderr)
+        return 2
+    if args.sessions:
+        return _loadgen_session_storm(args, phases, schedule,
+                                      smoke=args.smoke)
+    if args.smoke:
+        return _loadgen_smoke(phases, schedule)
+    return _loadgen_storm(args, phases, schedule)
+
+
+def _loadgen_smoke(phases, schedule) -> int:
+    """Virtual-clock self-check: stub gateway, deterministic, instant.
+
+    The stub models a server with bounded concurrency: requests past its
+    depth are shed immediately, admitted ones cost a fixed service time.
+    The checks are consistency invariants, not performance numbers.
+    """
+
+    from distributedmandelbrot_tpu_torch import loadgen
+    from distributedmandelbrot_tpu_torch.loadgen import recorder as rec
+
+    timebase = loadgen.VirtualTimebase()
+    recorder = loadgen.StormRecorder()
+    inflight = 0
+
+    async def stub(level: int, i: int, j: int) -> tuple[str, int]:
+        nonlocal inflight
+        if inflight >= 64:
+            return rec.OUTCOME_SHED, 0
+        inflight += 1
+        try:
+            await timebase.sleep(0.1)  # 640/s capacity vs 1200/s spike
+        finally:
+            inflight -= 1
+        return rec.OUTCOME_OK, 1024
+
+    runner = loadgen.OpenLoopRunner(schedule, stub, recorder,
+                                    timebase=timebase)
+
+    async def drive() -> float:
+        task = asyncio.ensure_future(runner.run())
+        await timebase.drain(until=task)
+        return task.result()
+
+    duration = asyncio.run(drive())
+    report = recorder.report(duration=duration,
+                             offered=loadgen.schedule.offered_rate(schedule),
+                             phases=[p.name for p in phases])
+    issued = report["requests"]
+    settled = (report["completed"] + report["shed"]
+               + report["unavailable"] + report["errors"])
+    problems = []
+    if issued != len(schedule):
+        problems.append(f"issued {issued} != scheduled {len(schedule)}")
+    if settled != issued:
+        problems.append(f"settled {settled} != issued {issued}")
+    if report["completed"] == 0 or report["p50"] is None:
+        problems.append("no completed requests / empty latency histogram")
+    if problems:
+        print("loadgen --smoke FAILED: " + "; ".join(problems),
+              file=sys.stderr)
+        return 1
+    print(f"loadgen smoke ok: {issued} arrivals over "
+          f"{len(phases)} phase(s) in {duration:.1f} virtual s — "
+          f"{report['completed']} completed, {report['shed']} shed, "
+          f"p50 {report['p50']:.3f}s goodput {report['goodput']}/s")
+    return 0
+
+
+def _loadgen_storm(args, phases, schedule) -> int:
+    """A real storm: threaded replica fleet over a shared in-memory
+    object store, seeded with the Zipf head, driven open-loop."""
+
+
+    from distributedmandelbrot_tpu_torch import loadgen
+    from distributedmandelbrot_tpu_torch.core.chunk import Chunk
+    from distributedmandelbrot_tpu_torch.core.geometry import CHUNK_PIXELS
+    from distributedmandelbrot_tpu_torch.loadgen.driver import GatewayDriver
+    from distributedmandelbrot_tpu_torch.loadgen.replicas import GatewayFleet
+    from distributedmandelbrot_tpu_torch.storage.backends import (
+        MemoryObjectStore, ObjectStoreBackend)
+    from distributedmandelbrot_tpu_torch.storage.store import ChunkStore
+
+    colormap_ids = {name: cid for cid, name in proto.COLORMAPS.items()}
+    if args.render and args.colormap not in colormap_ids:
+        print(f"loadgen: unknown colormap {args.colormap!r} "
+              f"(have {sorted(colormap_ids)})", file=sys.stderr)
+        return 2
+
+    kv = MemoryObjectStore()
+    seeder = ChunkStore(backend=ObjectStoreBackend(kv))
+    # RLE-friendly non-constant pixels: long runs, a few distinct values.
+    pixels = np.repeat(np.arange(64, dtype=np.uint8) + 1,
+                       CHUNK_PIXELS // 64)
+    sampler = loadgen.ZipfTiles(args.level, s=args.zipf, seed=args.seed)
+    for level, i, j in sampler.hottest(args.seed_tiles):
+        seeder.save(Chunk(level, i, j, pixels))
+
+    fleet = GatewayFleet(kv, replicas=args.replicas, rate=args.rate,
+                         burst=args.burst,
+                         max_queue_depth=args.queue_depth)
+    with fleet:
+        driver = GatewayDriver(fleet.addresses, render=args.render,
+                               colormap_id=colormap_ids.get(args.colormap,
+                                                            0),
+                               timeout=args.timeout)
+        recorder = loadgen.StormRecorder()
+        runner = loadgen.OpenLoopRunner(schedule, driver, recorder)
+        duration = asyncio.run(runner.run())
+        report = recorder.report(
+            duration=duration,
+            offered=loadgen.schedule.offered_rate(schedule),
+            phases=[p.name for p in phases])
+        report["replicas"] = args.replicas
+        report["gateway_overloaded"] = fleet.counter("gateway_overloaded")
+        report["gateway_served"] = (fleet.counter("gateway_served")
+                                    + fleet.counter(
+                                        "gateway_render_served"))
+    if args.json:
+        print(json.dumps(report, indent=2, sort_keys=True))
+    else:
+        for key in ("requests", "completed", "shed", "unavailable",
+                    "errors", "offered_rate", "goodput", "shed_fraction",
+                    "p50", "p99", "p999", "bytes", "replicas",
+                    "gateway_overloaded", "gateway_served"):
+            print(f"{key:20} {report[key]}")
+        for phase, stats in (report.get("phases") or {}).items():
+            print(f"  {phase:18} p50={stats['p50']} p99={stats['p99']} "
+                  f"p999={stats['p999']}")
+    return 0
+
+
+def _loadgen_session_storm(args, phases, schedule, *,
+                           smoke: bool = False) -> int:
+    """Trajectory storm against a session-enabled fleet.
+
+    The store is pre-seeded with the *whole* level grid — sessions pan
+    everywhere, and a fully-warm store keeps the measurement about the
+    session machinery (prediction, prefetch marks, fair admission)
+    rather than store misses.  ``smoke`` runs the same storm on a
+    virtual clock and turns the report into pass/fail checks: ids
+    issued, predictions planned, prefetch marks consumed, every arrival
+    settled — host-only, no device needed.
+    """
+
+
+    from distributedmandelbrot_tpu_torch import loadgen
+    from distributedmandelbrot_tpu_torch.core.chunk import Chunk
+    from distributedmandelbrot_tpu_torch.core.geometry import CHUNK_PIXELS
+    from distributedmandelbrot_tpu_torch.loadgen.replicas import GatewayFleet
+    from distributedmandelbrot_tpu_torch.obs import names as obs_names
+    from distributedmandelbrot_tpu_torch.storage.backends import (
+        MemoryObjectStore, ObjectStoreBackend)
+    from distributedmandelbrot_tpu_torch.storage.store import ChunkStore
+
+    class _IoVirtualTimebase(loadgen.VirtualTimebase):
+        # Real sockets under the virtual clock: after each quiesce
+        # burst, yield to the selector for a moment so cross-thread
+        # socket IO can land.  The deadlock guard gets minutes of
+        # grace (>= 1 ms per idle round) because the in-flight tail
+        # completes on wall time, not the virtual clock — the driver's
+        # per-request timeout still bounds a genuine hang.
+        def __init__(self) -> None:
+            super().__init__(max_idle_rounds=120_000)
+
+        async def _quiesce(self) -> None:
+            await super()._quiesce()
+            await asyncio.sleep(0.001)
+
+    kv = MemoryObjectStore()
+    seeder = ChunkStore(backend=ObjectStoreBackend(kv))
+    pixels = np.repeat(np.arange(64, dtype=np.uint8) + 1,
+                       CHUNK_PIXELS // 64)
+    for i in range(args.level):
+        for j in range(args.level):
+            seeder.save(Chunk(args.level, i, j, pixels))
+
+    fleet = GatewayFleet(kv, replicas=args.replicas, rate=args.rate,
+                         burst=args.burst,
+                         max_queue_depth=args.queue_depth,
+                         sessions=True, session_rate=args.session_rate,
+                         session_burst=args.session_burst)
+    with fleet:
+        driver = loadgen.SessionDriver(fleet.addresses,
+                                       timeout=args.timeout)
+        recorder = loadgen.StormRecorder()
+        if smoke:
+            timebase = _IoVirtualTimebase()
+            runner = loadgen.SessionRunner(schedule, driver, recorder,
+                                           timebase=timebase)
+
+            async def drive() -> float:
+                task = asyncio.ensure_future(runner.run())
+                await timebase.drain(until=task)
+                return task.result()
+
+            duration = asyncio.run(drive())
+        else:
+            runner = loadgen.SessionRunner(schedule, driver, recorder)
+            duration = asyncio.run(runner.run())
+        report = recorder.report(
+            duration=duration,
+            offered=loadgen.schedule.offered_rate(schedule),
+            phases=[p.name for p in phases])
+        report["replicas"] = args.replicas
+        report["sessions"] = args.sessions
+        report["session_opens"] = fleet.counter(obs_names.SESSION_OPENS)
+        report["session_throttled"] = fleet.counter(
+            obs_names.SESSION_THROTTLED)
+        report["prefetch_planned"] = fleet.counter(
+            obs_names.PREFETCH_PLANNED)
+        hits = fleet.counter(obs_names.PREFETCH_HITS)
+        misses = fleet.counter(obs_names.PREFETCH_MISSES)
+        report["prefetch_hits"] = hits
+        report["prefetch_misses"] = misses
+        report["prefetch_hit_ratio"] = (
+            round(hits / (hits + misses), 4) if hits + misses else None)
+        ok_min, ok_max = loadgen.ok_spread(driver.ok_by_session,
+                                           args.sessions)
+        report["ok_min_session"] = ok_min
+        report["ok_max_session"] = ok_max
+
+    if smoke:
+        issued = report["requests"]
+        settled = (report["completed"] + report["shed"]
+                   + report["unavailable"] + report["errors"])
+        problems = []
+        if issued != len(schedule):
+            problems.append(f"issued {issued} != scheduled "
+                            f"{len(schedule)}")
+        if settled != issued:
+            problems.append(f"settled {settled} != issued {issued}")
+        if report["completed"] == 0:
+            problems.append("no completed requests")
+        if report["session_opens"] < 1:
+            problems.append("no sessions opened on the wire")
+        if report["prefetch_planned"] < 1:
+            problems.append("predictor planned no prefetches")
+        if report["prefetch_hits"] < 1:
+            problems.append("no query consumed a prefetch mark")
+        if problems:
+            print("loadgen --smoke FAILED: "
+                  + "; ".join(problems), file=sys.stderr)
+            return 1
+        print(f"loadgen session smoke ok: {issued} arrivals, "
+              f"{report['sessions']} sessions, "
+              f"{report['session_opens']} opened, "
+              f"prefetch hit ratio {report['prefetch_hit_ratio']}, "
+              f"ok spread {report['ok_min_session']}.."
+              f"{report['ok_max_session']}")
+        return 0
+
+    if args.json:
+        print(json.dumps(report, indent=2, sort_keys=True))
+    else:
+        for key in ("requests", "completed", "shed", "unavailable",
+                    "errors", "offered_rate", "goodput", "shed_fraction",
+                    "p50", "p99", "p999", "bytes", "replicas",
+                    "sessions", "session_opens", "session_throttled",
+                    "prefetch_planned", "prefetch_hits",
+                    "prefetch_misses", "prefetch_hit_ratio",
+                    "ok_min_session", "ok_max_session"):
+            print(f"{key:20} {report[key]}")
+        for phase, stats in (report.get("phases") or {}).items():
+            print(f"  {phase:18} p50={stats['p50']} p99={stats['p99']} "
+                  f"p999={stats['p999']}")
+    return 0
+
+
+def cmd_coord(argv: Sequence[str]) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m distributedmandelbrot_tpu_torch coord",
+        description="Run ONE shard of the sharded control plane: the "
+                    "full Distributer/DataServer stack restricted to the "
+                    "consistent-hash slice --shard K/N owns, over a data "
+                    "dir shared with the other N-1 shards.")
+    parser.add_argument("--shard", required=True, metavar="K/N",
+                        help="this shard's slice: index K of N shards "
+                             "(e.g. 0/4)")
+    parser.add_argument("--ring", default=None, metavar="RING_JSON",
+                        help="ring config naming all N shard endpoints; "
+                             "optional — ownership needs only K/N, so "
+                             "ephemeral-port launches may start ringless "
+                             "and publish bound ports afterwards")
+    parser.add_argument("--ring-version", type=int, default=1,
+                        help="ring version to advertise when launching "
+                             "without --ring (skew detector on the wire)")
+    parser.add_argument("-l", "--levels", required=True,
+                        help="level:max_iter[,level:max_iter...] — must "
+                             "be identical across the fleet")
+    parser.add_argument("-o", "--data-dir", default="",
+                        help="parent directory for the SHARED Data/ "
+                             "(default: cwd)")
+    parser.add_argument("--host", default="0.0.0.0")
+    parser.add_argument("--distributer-port", type=int, default=0,
+                        help="0 = ephemeral (default: shards usually "
+                             "co-locate, so fixed ports would collide)")
+    parser.add_argument("--dataserver-port", type=int, default=0)
+    parser.add_argument("--lease-timeout", type=float,
+                        default=proto.DEFAULT_LEASE_TIMEOUT)
+    parser.add_argument("--sweep-period", type=float,
+                        default=proto.DEFAULT_SWEEP_PERIOD)
+    parser.add_argument("--fsync-index", action="store_true")
+    parser.add_argument("--checkpoint-period", type=float, default=0.0,
+                        help="durability checkpoint every N seconds "
+                             "(0 disables)")
+    parser.add_argument("--stats-period", type=float, default=60.0)
+    parser.add_argument("--exporter-port", type=int, default=0,
+                        help="HTTP metrics port; 0 = ephemeral, "
+                             "-1 disables")
+    parser.add_argument("--sample-period", type=float, default=2.0,
+                        help="seconds between /timeseries snapshots of "
+                             "the registry")
+    parser.add_argument("--history-window", type=float, default=600.0,
+                        help="seconds of timeseries history kept in the "
+                             "ring buffer")
+    _add_common(parser)
+    args = parser.parse_args(argv)
+    _configure_logging(args)
+
+    from distributedmandelbrot_tpu_torch.control import ShardedCoordinator
+    from distributedmandelbrot_tpu_torch.control.ring import (
+        RingConfigError, parse_shard_spec)
+    from distributedmandelbrot_tpu_torch.storage.ownership import \
+        LevelOwnedError
+    from distributedmandelbrot_tpu_torch.storage.store import DataDirError
+
+    from distributedmandelbrot_tpu_torch.core.workload import \
+        parse_level_settings
+
+    settings = parse_level_settings(args.levels)
+    try:
+        shard, n_shards = parse_shard_spec(args.shard)
+        coordinator = ShardedCoordinator(
+            settings, shard, n_shards,
+            ring_path=args.ring, ring_version=args.ring_version,
+            data_dir_parent=args.data_dir, host=args.host,
+            distributer_port=args.distributer_port,
+            dataserver_port=args.dataserver_port,
+            lease_timeout=args.lease_timeout,
+            sweep_period=args.sweep_period,
+            fsync_index=args.fsync_index,
+            checkpoint_period=args.checkpoint_period,
+            stats_period=args.stats_period,
+            sample_period=args.sample_period,
+            history_window=args.history_window,
+            exporter_port=(None if args.exporter_port < 0
+                           else args.exporter_port))
+    except (RingConfigError, DataDirError, LevelOwnedError) as e:
+        raise SystemExit(f"coord: {e}")
+    sched = coordinator.scheduler
+    print(f"coord shard {shard}/{n_shards}: owns {sched.owned_tiles} of "
+          f"{sched.total_tiles} tiles across {len(settings)} level(s) "
+          f"({sched.completed_count} already complete on disk)",
+          flush=True)
+    try:
+        asyncio.run(coordinator.run_forever())
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def cmd_chaos(argv: Sequence[str]) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m distributedmandelbrot_tpu_torch chaos",
+        description="Run one chaos scenario against a live sharded farm "
+                    "(real subprocesses, real sockets, real numpy "
+                    "compute): kill coordinators and workers on a "
+                    "schedule, then audit exactly-once completion, ring "
+                    "ownership, numpy-golden parity, and the "
+                    "restart-to-first-grant blip.")
+    parser.add_argument("scenario", nargs="?", default="coord-kill",
+                        help="catalogue entry (see --list); default: "
+                             "coord-kill")
+    parser.add_argument("--list", action="store_true",
+                        help="list the scenario catalogue and exit")
+    parser.add_argument("--smoke", action="store_true",
+                        help="CI-sized run: shallower tiles, one worker, "
+                             "one parity sample")
+    parser.add_argument("--levels", default=None,
+                        help="override the scenario's level spec")
+    parser.add_argument("--workers", type=int, default=None,
+                        help="override the scenario's worker count")
+    parser.add_argument("--shards", type=int, default=None,
+                        help="override the scenario's shard count")
+    parser.add_argument("--deadline", type=float, default=None,
+                        help="override the completion deadline (seconds)")
+    parser.add_argument("--workdir", default=None,
+                        help="keep farm state + per-process logs here "
+                             "(default: throwaway temp dir)")
+    parser.add_argument("--json", action="store_true",
+                        help="emit the report as JSON")
+    _add_common(parser)
+    args = parser.parse_args(argv)
+    _configure_logging(args)
+
+    import dataclasses as dc
+
+    # Lazy: the chaos package loads only for this command; its
+    # workers compute with numpy on the host.
+    from distributedmandelbrot_tpu_torch.chaos import SCENARIOS, ChaosRunner
+
+    if args.list:
+        for name in sorted(SCENARIOS):
+            sc = SCENARIOS[name]
+            print(f"{name:18} {sc.description}")
+        return 0
+    if args.scenario not in SCENARIOS:
+        print(f"chaos: unknown scenario {args.scenario!r}; have "
+              f"{sorted(SCENARIOS)}", file=sys.stderr)
+        return 2
+    scenario = SCENARIOS[args.scenario]
+    if args.smoke:
+        scenario = dc.replace(scenario, levels="3:2", n_workers=1,
+                              parity_samples=1, deadline=180.0)
+    overrides = {}
+    if args.levels is not None:
+        overrides["levels"] = args.levels
+    if args.workers is not None:
+        overrides["n_workers"] = args.workers
+    if args.shards is not None:
+        overrides["n_shards"] = args.shards
+    if args.deadline is not None:
+        overrides["deadline"] = args.deadline
+    if overrides:
+        scenario = dc.replace(scenario, **overrides)
+
+    runner = ChaosRunner(scenario, workdir=args.workdir,
+                         log=None if args.quiet else print)
+    report = runner.run()
+    if args.json:
+        print(report.to_json())
+    else:
+        print(f"chaos {report.scenario}: "
+              f"{'OK' if report.ok else 'FAILED'} — "
+              f"{report.tiles_on_disk}/{report.expected_tiles} tiles, "
+              f"{report.duplicate_entries} duplicates, "
+              f"{report.misowned_entries} misowned, "
+              f"parity {report.parity_checked - report.parity_failures}/"
+              f"{report.parity_checked}, {report.kills} kills, "
+              f"{report.restarts} restarts, "
+              f"first-grant blips {report.restart_to_first_grant_s} "
+              f"in {report.duration_s:.1f}s")
+        for failure in report.failures:
+            print(f"  FAIL: {failure}")
+    return 0 if report.ok else 1
+
+
+def _parse_peer_args(args: argparse.Namespace) -> list:
+    """--peers/--ring -> ``[role@]host:port`` peer specs for the
+    aggregator (shared by cmd_top's direct mode and the smoke farm)."""
+    peers: list = []
+    for chunk in args.peers or []:
+        peers.extend(s for s in (p.strip() for p in chunk.split(","))
+                     if s)
+    if args.ring:
+        from distributedmandelbrot_tpu_torch.control.ring import (
+            HashRing, RingConfigError)
+        try:
+            ring = HashRing.load(args.ring)
+        except RingConfigError as e:
+            raise SystemExit(f"top: {e}")
+        for info in ring.shards:
+            if info.exporter_port:
+                peers.append(f"shard@{info.host}:{info.exporter_port}")
+    return peers
+
+
+def _fetch_fleet_doc(url: str, timeout: float = 5.0) -> dict:
+    """One /fleet document from a running FleetService/exporter."""
+
+    from distributedmandelbrot_tpu_torch.obs.fleet import (ScrapeError,
+                                                           http_fetch)
+    base = url if "://" in url else "http://" + url
+    body = http_fetch(base.rstrip("/") + "/fleet", timeout)
+    doc = json.loads(body.decode("utf-8", errors="replace"))
+    if not isinstance(doc, dict):
+        raise ScrapeError(f"/fleet returned {type(doc).__name__}")
+    return doc
+
+
+def _top_smoke(args) -> int:
+    """Throwaway host-only farm (2 shards + 2 numpy workers via the
+    chaos driver, 1 in-process gateway replica), one dashboard frame
+    against it, and hard assertions that every role reports: the CI
+    proof that the whole observability plane is wired end to end."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    from distributedmandelbrot_tpu_torch.control.ring import (HashRing,
+                                                              ShardInfo)
+    from distributedmandelbrot_tpu_torch.loadgen.driver import GatewayDriver
+    from distributedmandelbrot_tpu_torch.loadgen.replicas import GatewayFleet
+    from distributedmandelbrot_tpu_torch.obs.fleet import FleetAggregator
+    from distributedmandelbrot_tpu_torch.obs.top import render_top
+    from distributedmandelbrot_tpu_torch.storage.backends import \
+        MemoryObjectStore
+
+    n_shards, n_workers, levels = 2, 2, "3:2"
+    root = tempfile.mkdtemp(prefix="dmtpu-top-smoke-")
+    procs: list = []
+    fleet_gw = None
+    failures: list[str] = []
+    try:
+        data_dir = f"{root}/farm"
+        ring_path = f"{root}/ring.json"
+        port_files = [f"{root}/shard-{k}.ports" for k in range(n_shards)]
+        for k in range(n_shards):
+            cmd = [sys.executable, "-m",
+                   "distributedmandelbrot_tpu_torch.chaos.driver", "shard",
+                   data_dir, port_files[k], levels, str(k), str(n_shards),
+                   "--lease-timeout", "30", "--sweep-period", "0.5",
+                   "--checkpoint-period", "0.5"]
+            with open(f"{root}/shard-{k}.log", "w", encoding="utf-8") as lf:
+                procs.append(subprocess.Popen(cmd, stdout=lf, stderr=lf))
+        deadline = time.monotonic() + 30.0
+        infos = []
+        for k in range(n_shards):
+            while True:
+                try:
+                    with open(port_files[k], "r", encoding="utf-8") as f:
+                        infos.append(json.load(f))
+                    break
+                except (OSError, ValueError):
+                    if time.monotonic() > deadline:
+                        raise SystemExit(
+                            f"top --smoke: shard {k} never "
+                            f"published its ports (see {root})")
+                    time.sleep(0.05)
+        HashRing([ShardInfo("127.0.0.1",
+                            distributer_port=i["distributer"],
+                            dataserver_port=i["dataserver"],
+                            exporter_port=i["exporter"])
+                  for i in infos], version=1).save(ring_path)
+        for _ in range(n_workers):
+            cmd = [sys.executable, "-m",
+                   "distributedmandelbrot_tpu_torch.chaos.driver", "worker",
+                   ring_path, "--poll-interval", "0.2"]
+            with open(f"{root}/worker.log", "a", encoding="utf-8") as lf:
+                procs.append(subprocess.Popen(cmd, stdout=lf, stderr=lf))
+        # The read tier: one exporter-bearing gateway replica over an
+        # (empty) shared object store — misses still count queries and
+        # time the request histogram, which is all the dashboard needs.
+        fleet_gw = GatewayFleet(MemoryObjectStore(), replicas=1,
+                                exporter=True).start()
+        gw_peer = f"gateway@127.0.0.1:{fleet_gw.exporter_ports[0]}"
+        agg = FleetAggregator(
+            [f"shard@127.0.0.1:{i['exporter']}" for i in infos]
+            + [gw_peer], rate_window=30.0)
+        driver = GatewayDriver(fleet_gw.addresses)
+
+        async def _storm(n: int) -> None:
+            for i in range(n):
+                await driver(3, i % 8, (i // 8) % 8)
+
+        snap: dict = {}
+        probe_deadline = time.monotonic() + 60.0
+        while time.monotonic() < probe_deadline:
+            asyncio.run(_storm(6))
+            agg.scrape_once()
+            snap = agg.snapshot()
+            roles = snap.get("roles", {})
+            if (snap["totals"]["grants_per_s"] > 0
+                    and snap["totals"]["queries_per_s"] > 0
+                    and snap.get("workers")
+                    and "shard" in roles and "gateway" in roles):
+                break
+            time.sleep(1.0)
+        print(render_top(snap, color=False), flush=True)
+
+        roles = snap.get("roles", {})
+        totals = snap.get("totals", {})
+        if roles.get("shard", {}).get("healthy", 0) != n_shards:
+            failures.append(f"expected {n_shards} healthy shard peers, "
+                            f"got {roles.get('shard')}")
+        if roles.get("gateway", {}).get("healthy", 0) < 1:
+            failures.append(f"no healthy gateway peer: "
+                            f"{roles.get('gateway')}")
+        if not snap.get("workers"):
+            failures.append("no span-reported worker rows")
+        if not totals.get("grants_per_s", 0) > 0:
+            failures.append(f"zero grant rate: {totals}")
+        if not totals.get("queries_per_s", 0) > 0:
+            failures.append(f"zero gateway query rate: {totals}")
+        if not any(g.get("queries_per_s", 0) > 0
+                   for g in snap.get("gateways", [])):
+            failures.append("no gateway row with a nonzero query rate")
+        for failure in failures:
+            print(f"SMOKE FAIL: {failure}", file=sys.stderr)
+        print(f"top smoke: {'OK' if not failures else 'FAILED'} — "
+              f"{len(snap.get('peers', []))} peers, "
+              f"{len(snap.get('workers', []))} workers, "
+              f"{totals.get('grants_per_s')} grants/s, "
+              f"{totals.get('queries_per_s')} q/s", flush=True)
+        return 0 if not failures else 1
+    finally:
+        if fleet_gw is not None:
+            fleet_gw.stop()
+        for proc in procs:
+            proc.terminate()
+        for proc in procs:
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def cmd_top(argv: Sequence[str]) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m distributedmandelbrot_tpu_torch top",
+        description="Live fleet dashboard: scrape every exporter "
+                    "(--peers / --ring), or read a running /fleet "
+                    "endpoint (--fleet-url), and render per-role rates, "
+                    "SLO burn, and straggler flags.")
+    parser.add_argument("--peers", action="append", metavar="SPECS",
+                        help="comma-separated [role@]host:port exporter "
+                             "endpoints (repeatable)")
+    parser.add_argument("--ring", default=None, metavar="RING_JSON",
+                        help="scrape the exporter ports named in this "
+                             "ring config")
+    parser.add_argument("--fleet-url", default=None, metavar="URL",
+                        help="read an existing fleet aggregator's /fleet "
+                             "instead of scraping peers directly")
+    parser.add_argument("--once", action="store_true",
+                        help="print one frame and exit (CI mode)")
+    parser.add_argument("--json", action="store_true",
+                        help="emit the raw /fleet snapshot as JSON "
+                             "instead of the dashboard")
+    parser.add_argument("--interval", type=float, default=2.0,
+                        help="seconds between frames (and scrapes)")
+    parser.add_argument("--window", type=float, default=60.0,
+                        help="trailing rate window in seconds")
+    parser.add_argument("--no-color", action="store_true",
+                        help="plain text (auto when stdout is not a tty)")
+    parser.add_argument("--smoke", action="store_true",
+                        help="spawn a throwaway host-only farm (2 shards, "
+                             "2 numpy workers, 1 gateway), render one "
+                             "frame against it, and assert every role "
+                             "reports — the CI end-to-end check")
+    _add_common(parser)
+    args = parser.parse_args(argv)
+    _configure_logging(args)
+
+    from distributedmandelbrot_tpu_torch.obs.fleet import (FleetAggregator,
+                                                           ScrapeError)
+    from distributedmandelbrot_tpu_torch.obs.top import render_frame
+
+    if args.smoke:
+        return _top_smoke(args)
+
+    color = not args.no_color and sys.stdout.isatty()
+    interval = max(0.2, args.interval)
+
+    if args.fleet_url:
+        def take_snapshot() -> dict:
+            return _fetch_fleet_doc(args.fleet_url)
+    else:
+        peers = _parse_peer_args(args)
+        if not peers:
+            parser.error("need --peers, --ring, or --fleet-url "
+                         "(or --smoke)")
+        agg = FleetAggregator(peers, rate_window=args.window)
+
+        def take_snapshot() -> dict:
+            agg.scrape_once()
+            return agg.snapshot()
+
+    try:
+        if args.once and not args.fleet_url:
+            # Rates need two scrape points: one warmup round, a beat,
+            # then the rendered snapshot.
+            take_snapshot()
+            time.sleep(min(interval, 1.0))
+        while True:
+            try:
+                snap = take_snapshot()
+            except (ScrapeError, OSError, ValueError) as e:
+                if args.once:
+                    raise SystemExit(f"top: {e}")
+                snap = {"peers": [], "error": str(e)}
+            if args.json:
+                print(json.dumps(snap, indent=1, sort_keys=True))
+            else:
+                sys.stdout.write(render_frame(snap, color=color,
+                                              clear=not args.once))
+                sys.stdout.flush()
+            if args.once:
+                return 0
+            time.sleep(interval)
+    except KeyboardInterrupt:
+        return 0
+
+
 COMMANDS = {"coordinator": cmd_coordinator, "serve": cmd_serve,
             "worker": cmd_worker, "viewer": cmd_viewer,
-            "render": cmd_render, "animate": cmd_animate}
+            "render": cmd_render, "animate": cmd_animate,
+            "coord": cmd_coord, "compact": cmd_compact, "stats": cmd_stats,
+            "trace": cmd_trace, "admin": cmd_admin,
+            "postmortem": cmd_postmortem, "loadgen": cmd_loadgen,
+            "chaos": cmd_chaos, "top": cmd_top}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

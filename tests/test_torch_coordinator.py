@@ -130,6 +130,22 @@ def _wait_listening(port: int, proc, timeout: float = 60.0) -> None:
     raise TimeoutError(f"nothing listens on port {port}")
 
 
+def _wait_stored(port: int, chunks, proc, timeout: float = 60.0) -> None:
+    """Poll the data server until every chunk fetches ``OK``: the
+    coordinator accepts a chunk before its group-commit save lands."""
+    deadline = time.monotonic() + timeout
+    with DataClient("127.0.0.1", port) as client:
+        while True:
+            assert proc.poll() is None, proc.communicate()
+            missing = [c for c in chunks
+                       if client.fetch(*c)[1] is not FetchStatus.OK]
+            if not missing:
+                return
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"chunks never stored: {missing}")
+            time.sleep(0.1)
+
+
 def test_coordinator_worker_viewer_commands(tmp_path):
     """``coordinator`` as a process of its own, drained by the port's
     ``worker`` (``--backend native``); ``viewer`` writes a chunk and a
@@ -147,6 +163,8 @@ def test_coordinator_worker_viewer_commands(tmp_path):
         _wait_listening(data, proc)
         assert cli.main(["worker", "--port", str(dist), "--backend",
                          "native", "-q"]) == 0
+        _wait_stored(data, [(1, 0, 0)] + [(2, i, j) for i in range(2)
+                                          for j in range(2)], proc)
         png = tmp_path / "chunk.png"
         assert cli.main(["viewer", "2", "1", "0", "--port", str(data),
                          "--out", str(png), "--colormap", "plasma"]) == 0
@@ -226,7 +244,9 @@ def _options(parser) -> dict:
 
 
 @pytest.mark.parametrize("name", ["coordinator", "serve", "viewer",
-                                  "animate"])
+                                  "animate", "coord", "top", "postmortem",
+                                  "compact", "stats", "trace", "admin",
+                                  "loadgen", "chaos"])
 def test_subcommands_take_the_jax_flags(name, monkeypatch):
     """Each new subcommand takes the JAX package's flags and positionals
     with its defaults and choices; ``animate`` has ``--no-kernel`` in

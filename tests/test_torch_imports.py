@@ -49,6 +49,12 @@ CARRIED = [
     "serve/gateway.py", "sessions/__init__.py", "sessions/table.py",
     "sessions/predict.py", "sessions/prefetch.py", "sessions/refine.py",
     "sessions/service.py", "viewer/client.py",
+    "control/__init__.py", "control/ring.py", "control/sharded.py",
+    "obs/fleet.py", "obs/top.py", "obs/postmortem.py",
+    "loadgen/__init__.py", "loadgen/driver.py", "loadgen/recorder.py",
+    "loadgen/replicas.py", "loadgen/runner.py", "loadgen/schedule.py",
+    "loadgen/trajectory.py", "chaos/__init__.py", "chaos/driver.py",
+    "chaos/runner.py",
 ]
 
 
@@ -86,7 +92,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "serve", "serve.coalesce", "serve.cache", "serve.ondemand",
                 "serve.gateway", "sessions", "sessions.table",
                 "sessions.predict", "sessions.prefetch", "sessions.refine",
-                "sessions.service", "viewer", "viewer.client"):
+                "sessions.service", "viewer", "viewer.client", "control",
+                "control.ring", "control.sharded", "obs.fleet", "obs.top",
+                "obs.postmortem", "loadgen", "loadgen.driver",
+                "loadgen.recorder", "loadgen.replicas", "loadgen.runner",
+                "loadgen.schedule", "loadgen.trajectory", "chaos",
+                "chaos.driver", "chaos.runner"):
         assert f"distributedmandelbrot_tpu_torch.{mod}" in report["modules"]
 
 

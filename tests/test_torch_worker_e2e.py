@@ -100,7 +100,7 @@ def test_cli_worker_flags(tmp_path, capsys):
     assert "drained" in capsys.readouterr().out
     assert out.exists()
     assert cli.main(["--help"]) == 0
-    assert cli.main(["compact"]) == 2  # not ported: an unknown command
+    assert cli.main(["check"]) == 2  # not ported: an unknown command
     with pytest.raises(SystemExit) as exc:
         cli.main(["render"])  # --out is required
     assert exc.value.code == 2
