@@ -175,6 +175,14 @@ JSON line; any failure raises and the script exits non-zero.
    1024^2, K10 on its smooth f64 view at 1024^2, beside their plain
    versions and their bound (the lane-steps the view needs x 20
    operations over the f32 or f64 rate), with registers.
+14. check_path: ``python -m distributedmandelbrot_tpu_torch check --json
+   --profile`` (``cli.main``, through a gate script) in a child process
+   on the card's host must exit 0 with no finding and no stale baseline
+   entry, having imported neither torch, jax nor the JAX package; every
+   kernel on the kernels line must have its launching function in the
+   ``torch`` rule family's scope (``rules_torch.launching_functions``).
+   Its wall and CPU seconds and the per-family seconds of ``--profile``
+   beside the card's name and power limit.
 
 ``python3 chip_smoke.py --control [--out PATH]`` runs control_path
 alone (about a minute with the build).
@@ -194,6 +202,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import resource
 import statistics
 import subprocess
 import sys
@@ -3906,6 +3915,78 @@ def phase_control_path(farm_rate: float) -> dict:
     return record["launches"]
 
 
+# The port's static analysis, in a child that must import neither torch,
+# jax nor the JAX package.
+CHECK_TIMEOUT_S = 300
+CHECK_GATE = """\
+import sys
+from distributedmandelbrot_tpu_torch.cli import main
+rc = main(["check", "--json", "--profile"])
+loaded = sorted(n for n in sys.modules if n.split(".")[0]
+                in ("jax", "torch", "distributedmandelbrot_tpu"))
+assert not loaded, f"check imported {loaded}"
+sys.exit(rc)
+"""
+_PROFILE_LINE = re.compile(r"^dmtpu check: (\S+)\s+([0-9.]+)s$")
+
+
+def kernel_entry(name: str, entries) -> str | None:
+    """The kernel library's entry that launches the kernel ``name``: its
+    own ``dm_<name>``, or the entry it is a mode of (K2's Julia,
+    Multibrot and Ship modes and K8's matrix form are template flags of
+    ``dm_escape_mega``)."""
+    full = f"dm_{name}"
+    found = [e for e in entries if full == e or full.startswith(e + "_")]
+    return max(found, key=len) if found else None
+
+
+def phase_check_path(kernels: list, smi: str) -> None:
+    """``check --json --profile`` in a child process (CHECK_GATE): clean,
+    no stale baseline entry, none of torch, jax or the JAX package
+    imported; and every kernel of the kernels line launched from a
+    function in the torch family's scope."""
+    from distributedmandelbrot_tpu_torch import analysis
+    from distributedmandelbrot_tpu_torch.analysis import rules_torch
+    root = os.path.dirname(os.path.abspath(__file__))
+    before = resource.getrusage(resource.RUSAGE_CHILDREN)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CHECK_GATE], cwd=root,
+                          capture_output=True, text=True,
+                          timeout=CHECK_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    after = resource.getrusage(resource.RUSAGE_CHILDREN)
+    if proc.returncode != 0:
+        raise AssertionError(f"check failed (exit {proc.returncode}):\n"
+                             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    doc = json.loads(proc.stdout)
+    if doc["counts"]["total"] != 0 or doc["stale_baseline"]:
+        raise AssertionError(f"check is not clean: {doc}")
+    profile = {m.group(1): float(m.group(2))
+               for m in map(_PROFILE_LINE.match, proc.stderr.splitlines())
+               if m}
+    if "total" not in profile or "rules_torch" not in profile:
+        raise AssertionError(f"no --profile lines: {proc.stderr[-3000:]}")
+    launchers = rules_torch.launching_functions(
+        analysis.Project.from_root(root))
+    by_entry = {e: f"{x.path}::{x.name}" for x in launchers
+                for e in x.entries}
+    launched_from = {}
+    for k in kernels:
+        entry = kernel_entry(k["name"], by_entry)
+        if entry is None:
+            raise AssertionError(f"kernel {k['name']} has no launching "
+                                 f"function in the torch family's scope")
+        launched_from[k["name"]] = by_entry[entry]
+    emit({"phase": "check_path", "ok": True, "card": smi,
+          "wall_s": wall,
+          "cpu_s": (after.ru_utime - before.ru_utime)
+          + (after.ru_stime - before.ru_stime),
+          "timing": "host clock (perf_counter) around the child; its CPU "
+                    "from RUSAGE_CHILDREN; per family from --profile",
+          "profile_s": profile, "counts": doc["counts"],
+          "launched_from": launched_from})
+
+
 def perturb_rows(err: dict, launches: dict, ptxas: dict) -> list:
     """The kernels line's rows of K9 and K10."""
     timed = time_perturb_kernels(ptxas)
@@ -3971,6 +4052,7 @@ def main() -> int:
     emit({"phase": "kernels", "ok": True,
           "seconds_total": time.monotonic() - t_start,
           "card": smi, "kernels": kernels})
+    phase_check_path(kernels, smi)
     print(nvidia_smi_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,8 +1,9 @@
 """Command-line entry points of the port: the farm (``coordinator``,
 ``serve``, ``worker``, ``viewer``), the sharded control plane and its
 operations tools (``coord``, ``top``, ``stats``, ``trace``, ``admin``,
-``compact``, ``postmortem``, ``loadgen``, ``chaos``) and local rendering
-(``render``, ``animate``).
+``compact``, ``postmortem``, ``loadgen``, ``chaos``), local rendering
+(``render``, ``animate``) and the static analysis of the port's own
+tree (``check``).
 
     python -m distributedmandelbrot_tpu_torch coordinator -l 4:256,10:1024
     python -m distributedmandelbrot_tpu_torch worker --host H --port P
@@ -14,6 +15,7 @@ operations tools (``coord``, ``top``, ``stats``, ``trace``, ``admin``,
     python -m distributedmandelbrot_tpu_torch render --out view.png
     python -m distributedmandelbrot_tpu_torch animate --center=-0.75,0.1 \
         --out-dir frames
+    python -m distributedmandelbrot_tpu_torch check [--rules torch]
 
 ``coordinator``, ``serve`` and ``viewer`` take the flags of the JAX
 package's subcommands of the same names and run its carried modules
@@ -54,6 +56,12 @@ with the bilinear approximation (``--bla``, ``--no-bla``; by default
 a probe decides).  ``animate`` is ``dmtpu animate``: a geometric span
 sweep whose frames each render as ``render`` would, deep once the span
 needs it; ``--gif`` needs PIL.
+
+``check`` is ``dmtpu check`` over ``distributedmandelbrot_tpu_torch/``
+(the ``analysis/`` package, stdlib ``ast``, importing neither torch nor
+the JAX package), with the ``torch`` rule family on the kernel-launch
+wrappers in place of the reference's ``jax`` family, and its own
+baseline, ``distributedmandelbrot_tpu_torch/tools/lint_baseline.json``.
 """
 
 from __future__ import annotations
@@ -1494,6 +1502,137 @@ def cmd_admin(argv: Sequence[str]) -> int:
     return 0
 
 
+def cmd_check(argv: Sequence[str]) -> int:
+    parser = argparse.ArgumentParser(
+        prog="dmtpu check",
+        description="Run the project-native static analysis suite "
+                    "(lock discipline incl. interprocedural propagation, "
+                    "async hygiene, wire-format parity, protocol "
+                    "conformance, resource lifecycle, metric-name "
+                    "registration, kernel-launch asynchrony, wire-input "
+                    "taint tracking, "
+                    "exception-path leaks, protocol state-machine "
+                    "exploration) over the package.  Exits 0 "
+                    "when clean, 1 when there are unsuppressed findings.")
+    parser.add_argument("--json", action="store_true",
+                        help="emit the versioned JSON report instead of text")
+    parser.add_argument("--rules", nargs="+", metavar="RULE",
+                        help="run only these rule ids or families; "
+                             "space- or comma-separated "
+                             "(e.g. --rules taint,exc or --rules proto res)")
+    parser.add_argument("--severity", choices=("error", "warn", "warning"),
+                        default=None,
+                        help="report only findings at or above this "
+                             "severity (error = errors only; warn/warning "
+                             "= everything, the default)")
+    parser.add_argument("--list-rules", action="store_true",
+                        help="print the rule catalogue and exit")
+    parser.add_argument("--root", default=None,
+                        help="repo root to scan (default: the checkout "
+                             "containing the installed package)")
+    parser.add_argument("--baseline", default=None,
+                        help="baseline JSON path (default: "
+                             "<root>/distributedmandelbrot_tpu_torch/tools/"
+                             "lint_baseline.json if present)")
+    parser.add_argument("--update-baseline", action="store_true",
+                        help="rewrite the baseline file to grandfather "
+                             "every current finding, then exit 0")
+    parser.add_argument("--diff", metavar="GIT_REF", default=None,
+                        help="report only findings introduced since the "
+                             "given git ref (fingerprint-based; findings "
+                             "already present at the ref are treated as "
+                             "an ephemeral baseline) — fast pre-commit runs")
+    parser.add_argument("--fsm-dump", metavar="DOT_PATH", default=None,
+                        help="extract the protocol endpoint automata and "
+                             "write them as Graphviz DOT to this path, "
+                             "then exit (no rules are run)")
+    parser.add_argument("--profile", action="store_true",
+                        help="print per-rule-family wall-clock timings to "
+                             "stderr after the run")
+    args = parser.parse_args(argv)
+    if args.rules:
+        # --rules taint,exc and --rules taint exc are both accepted.
+        args.rules = [tok for arg in args.rules
+                      for tok in arg.split(",") if tok]
+
+    # Imported lazily so `coordinator` & co. never pay for it; the analysis
+    # package itself imports neither torch nor the JAX package (gated by a
+    # test).
+    from distributedmandelbrot_tpu_torch import analysis
+
+    if args.list_rules:
+        for rule in sorted(analysis.all_rules().values(),
+                           key=lambda r: (r.family, r.id)):
+            print(f"{rule.id:20} {rule.severity:8} [{rule.family}] "
+                  f"{rule.doc}")
+        return 0
+
+    root = args.root or analysis.default_root()
+    import os
+    baseline_path = args.baseline or os.path.join(
+        str(root), analysis.engine.PACKAGE, "tools", "lint_baseline.json")
+    project = analysis.Project.from_root(root)
+
+    if args.fsm_dump:
+        from distributedmandelbrot_tpu_torch.analysis import fsm
+        pairs = fsm.build_pairs(project)
+        with open(args.fsm_dump, "w", encoding="utf-8") as fh:
+            fh.write(fsm.to_dot(pairs))
+        print(f"dmtpu check: wrote {len(pairs)} exchange automaton "
+              f"pair(s) -> {args.fsm_dump}")
+        return 0
+
+    timings: dict = {}
+    try:
+        if args.update_baseline:
+            findings = analysis.check_project(project, args.rules)
+            kept = [f for f in findings
+                    if not (project.file(f.path) or _NO_FILE)
+                    .is_suppressed(f.line, f.rule)]
+            analysis.save_baseline(baseline_path, kept)
+            print(f"dmtpu check: baseline rewritten with {len(kept)} "
+                  f"finding(s) -> {baseline_path}")
+            return 0
+        baseline = (analysis.load_baseline(baseline_path)
+                    if os.path.exists(baseline_path) else set())
+        ref_fps: set = set()
+        if args.diff:
+            ref_fps = analysis.fingerprints_at_ref(root, args.diff,
+                                                   args.rules)
+        report = analysis.run_check(project, args.rules,
+                                    baseline | ref_fps,
+                                    timings=timings if args.profile
+                                    else None)
+        if ref_fps:
+            # Ephemeral entries that no longer match are expected churn
+            # (the point of --diff is that old findings went away or
+            # moved), not stale committed-baseline entries.
+            report.stale_baseline = [fp for fp in report.stale_baseline
+                                     if fp not in ref_fps]
+    except ValueError as e:
+        print(f"dmtpu check: {e}", file=sys.stderr)
+        return 2
+    except KeyError as e:
+        # Defensive: a fingerprint/file lookup on state that moved under
+        # us (e.g. files deleted since a --diff ref) must degrade to a
+        # diagnostic, not a traceback.
+        print(f"dmtpu check: internal lookup failed for {e!s}",
+              file=sys.stderr)
+        return 2
+    if args.severity == "error":
+        report.findings = [f for f in report.findings
+                           if f.severity == "error"]
+    if args.profile:
+        # stderr so the JSON report on stdout stays machine-parseable
+        total = sum(timings.values())
+        for fam, secs in sorted(timings.items(), key=lambda kv: -kv[1]):
+            print(f"dmtpu check: {fam:14s} {secs:6.3f}s", file=sys.stderr)
+        print(f"dmtpu check: {'total':14s} {total:6.3f}s", file=sys.stderr)
+    print(analysis.render_json(report) if args.json
+          else analysis.render_text(report))
+    return 0 if report.clean else 1
+
+
 def cmd_loadgen(argv: Sequence[str]) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m distributedmandelbrot_tpu_torch loadgen",
@@ -2270,13 +2409,24 @@ def cmd_top(argv: Sequence[str]) -> int:
         return 0
 
 
+class _NoFile:
+    """Stand-in for findings on unparseable files (no suppressions)."""
+
+    @staticmethod
+    def is_suppressed(line: int, rule: str) -> bool:
+        return False
+
+
+_NO_FILE = _NoFile()
+
+
 COMMANDS = {"coordinator": cmd_coordinator, "serve": cmd_serve,
             "worker": cmd_worker, "viewer": cmd_viewer,
             "render": cmd_render, "animate": cmd_animate,
             "coord": cmd_coord, "compact": cmd_compact, "stats": cmd_stats,
             "trace": cmd_trace, "admin": cmd_admin,
             "postmortem": cmd_postmortem, "loadgen": cmd_loadgen,
-            "chaos": cmd_chaos, "top": cmd_top}
+            "chaos": cmd_chaos, "top": cmd_top, "check": cmd_check}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

@@ -261,7 +261,9 @@ def scan_state_with(lib, z_re, z_im, dc_re, dc_im, *, add_dc: bool,
             counts = torch.zeros(k, dtype=torch.int32, device=dev)
             launch(seg * PERTURB_SEGMENT, (seg + k) * PERTURB_SEGMENT,
                    counts)
-            return counts.tolist()
+            # The stagnation census picks the next stop on the host, as
+            # the JAX package's scan does.
+            return counts.tolist()  # dmtpu: ignore[torch-host-sync]
 
         seg = _stagnation_loop(segments, h * w, full,
                                cap=STAGNATION_MAX_LIVE)

@@ -138,6 +138,9 @@ def probe_planes(device) -> torch.Tensor:
         if rc != 0:
             raise RuntimeError("dm_mxu_probe launch failed: "
                                f"{lib.dm_error_string(rc).decode()}")
+        # The probe runs once per device, off the launch path, and its
+        # verdict needs the planes.
+        # dmtpu: ignore[torch-host-sync] — a deliberate wait, see above
         torch.cuda.current_stream(dev).synchronize()
     return out
 

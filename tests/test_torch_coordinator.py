@@ -246,7 +246,7 @@ def _options(parser) -> dict:
 @pytest.mark.parametrize("name", ["coordinator", "serve", "viewer",
                                   "animate", "coord", "top", "postmortem",
                                   "compact", "stats", "trace", "admin",
-                                  "loadgen", "chaos"])
+                                  "loadgen", "chaos", "check"])
 def test_subcommands_take_the_jax_flags(name, monkeypatch):
     """Each new subcommand takes the JAX package's flags and positionals
     with its defaults and choices; ``animate`` has ``--no-kernel`` in

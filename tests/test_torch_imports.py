@@ -55,6 +55,12 @@ CARRIED = [
     "loadgen/replicas.py", "loadgen/runner.py", "loadgen/schedule.py",
     "loadgen/trajectory.py", "chaos/__init__.py", "chaos/driver.py",
     "chaos/runner.py",
+    "analysis/astutil.py", "analysis/callgraph.py", "analysis/dataflow.py",
+    "analysis/rules_locks.py", "analysis/rules_async.py",
+    "analysis/rules_wire.py", "analysis/rules_proto.py",
+    "analysis/rules_res.py", "analysis/rules_obs.py",
+    "analysis/rules_taint.py", "analysis/rules_exc.py", "analysis/fsm.py",
+    "analysis/explore.py", "analysis/rules_fsm.py",
 ]
 
 
@@ -97,7 +103,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "obs.postmortem", "loadgen", "loadgen.driver",
                 "loadgen.recorder", "loadgen.replicas", "loadgen.runner",
                 "loadgen.schedule", "loadgen.trajectory", "chaos",
-                "chaos.driver", "chaos.runner"):
+                "chaos.driver", "chaos.runner", "analysis",
+                "analysis.engine", "analysis.astutil", "analysis.callgraph",
+                "analysis.dataflow", "analysis.rules_locks",
+                "analysis.rules_async", "analysis.rules_wire",
+                "analysis.rules_proto", "analysis.rules_res",
+                "analysis.rules_obs", "analysis.rules_taint",
+                "analysis.rules_exc", "analysis.fsm", "analysis.explore",
+                "analysis.rules_fsm", "analysis.rules_torch"):
         assert f"distributedmandelbrot_tpu_torch.{mod}" in report["modules"]
 
 
