@@ -53,9 +53,13 @@ and Julia views below a span of 1e-12, f32 views too fine for f32
 coordinates, and ``--deep`` render by perturbation
 (``ops/perturbation.py``: the delta scans K9 and K10 on the card),
 with the bilinear approximation (``--bla``, ``--no-bla``; by default
-a probe decides).  ``animate`` is ``dmtpu animate``: a geometric span
-sweep whose frames each render as ``render`` would, deep once the span
-needs it; ``--gif`` needs PIL.
+a probe decides).  ``render --profile DIR`` writes
+``DIR/render-<pid>.trace.json``, a ``torch.profiler`` trace in which the
+render's host-only phases (``obs/phases.py``: the colormap, PNG and
+file write, the deep route's orbits and exact repairs) appear as
+``dmtpu.<phase>`` beside the kernels.  ``animate`` is ``dmtpu
+animate``: a geometric span sweep whose frames each render as
+``render`` would, deep once the span needs it; ``--gif`` needs PIL.
 
 ``check`` is ``dmtpu check`` over ``distributedmandelbrot_tpu_torch/``
 (the ``analysis/`` package, stdlib ``ast``, importing neither torch nor
@@ -239,10 +243,10 @@ def _parser() -> argparse.ArgumentParser:
 
 
 @contextlib.contextmanager
-def _profiled(out_dir: str, devices):
+def _profiled(out_dir: str, devices, name: str = "worker"):
     """``--profile DIR``: a ``torch.profiler`` trace of the block, CPU
     activity and, when any of ``devices`` is a CUDA device, the CUDA
-    kernels too, written to ``DIR/worker-<pid>.trace.json`` (Chrome
+    kernels too, written to ``DIR/<name>-<pid>.trace.json`` (Chrome
     trace JSON) however the block ends.  An empty ``out_dir`` profiles
     nothing; a CUDA device without a GPU raises."""
     if not out_dir:
@@ -258,7 +262,7 @@ def _profiled(out_dir: str, devices):
                              "device")
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"worker-{os.getpid()}.trace.json")
+    path = os.path.join(out_dir, f"{name}-{os.getpid()}.trace.json")
     prof = profile(activities=activities)
     prof.start()
     try:
@@ -584,6 +588,15 @@ def _resolve_family(fractal: str, power: int | None
     return None
 
 
+def _colormapped(to_rgba, *args, **kwargs) -> np.ndarray:
+    """``to_rgba(*args, **kwargs)``, a colormap of ``viewer`` on a plane
+    already on the host, timed as the render's colormap phase."""
+    from distributedmandelbrot_tpu_torch.obs import names as obs_names
+    from distributedmandelbrot_tpu_torch.obs import phases
+    with phases.timed(obs_names.PHASE_RENDER_COLORMAP, annotate=True):
+        return to_rgba(*args, **kwargs)
+
+
 def _render_supersampled(c_re: str, c_im: str, span: float, definition: int,
                          max_iter: int, *, supersample: int,
                          render_kwargs: dict) -> np.ndarray:
@@ -624,7 +637,8 @@ def _render_supersampled(c_re: str, c_im: str, span: float, definition: int,
             if planes is not None:
                 acc = None
                 for plane in planes.cpu().numpy():
-                    rgba = value_to_rgba(plane, colormap=kw["colormap"])
+                    rgba = _colormapped(value_to_rgba, plane,
+                                        colormap=kw["colormap"])
                     acc = rgba if acc is None else acc + rgba
                 return acc / supersample
 
@@ -688,8 +702,8 @@ def _render_view(c_re: str, c_im: str, span: float, definition: int,
                 spec, max_iter, power=power, burning=burning,
                 dtype=np_dtype, device=device)
                 if nu is None else nu.cpu().numpy())
-            return smooth_to_rgba(nu, max_iter, colormap=colormap,
-                                  normalize=normalize)
+            return _colormapped(smooth_to_rgba, nu, max_iter,
+                                colormap=colormap, normalize=normalize)
         values = kernel_first("compute_tile_family_cuda", spec, max_iter,
                               power=power, burning=burning,
                               device=device) if on_kernel else None
@@ -697,8 +711,9 @@ def _render_view(c_re: str, c_im: str, span: float, definition: int,
             values = families.compute_tile_family(
                 spec, max_iter, power=power, burning=burning,
                 dtype=np_dtype, device=device)
-        return value_to_rgba(values.reshape(spec.height, spec.width),
-                             colormap=colormap)
+        return _colormapped(value_to_rgba,
+                            values.reshape(spec.height, spec.width),
+                            colormap=colormap)
 
     if _resolve_deep(deep, span, cx, cy, definition, np_dtype, family):
         import torch
@@ -713,8 +728,8 @@ def _render_view(c_re: str, c_im: str, span: float, definition: int,
                 dspec, max_iter, dtype=np_dtype, julia_c=julia_c, bla=bla,
                 device=device)
             _warn_if_deep_all_inset(nu, max_iter, span)
-            return smooth_to_rgba(nu, max_iter, colormap=colormap,
-                                  normalize=normalize)
+            return _colormapped(smooth_to_rgba, nu, max_iter,
+                                colormap=colormap, normalize=normalize)
         counts, _ = perturbation.compute_counts_perturb(
             dspec, max_iter, dtype=np_dtype, julia_c=julia_c, bla=bla,
             device=device)
@@ -723,7 +738,7 @@ def _render_view(c_re: str, c_im: str, span: float, definition: int,
         _warn_if_deep_all_inset(counts, max_iter, span)
         values = escape_time.scale_counts_to_uint8(
             torch.from_numpy(counts), max_iter=max_iter).numpy()
-        return value_to_rgba(values, colormap=colormap)
+        return _colormapped(value_to_rgba, values, colormap=colormap)
     jc = (complex(float(julia_c[0]), float(julia_c[1]))
           if julia_c is not None else None)
     if smooth:
@@ -732,8 +747,8 @@ def _render_view(c_re: str, c_im: str, span: float, definition: int,
         nu = (escape_time.compute_tile_smooth(spec, max_iter, dtype=np_dtype,
                                               julia_c=jc, device=device)
               if nu is None else nu.cpu().numpy())
-        return smooth_to_rgba(nu, max_iter, colormap=colormap,
-                              normalize=normalize)
+        return _colormapped(smooth_to_rgba, nu, max_iter,
+                            colormap=colormap, normalize=normalize)
     values = None
     if on_kernel:
         values = (kernel_first("compute_tile_cuda", spec, max_iter,
@@ -746,18 +761,26 @@ def _render_view(c_re: str, c_im: str, span: float, definition: int,
                   escape_time.compute_tile_julia(spec, jc, max_iter,
                                                  dtype=np_dtype,
                                                  device=device))
-    return value_to_rgba(values.reshape(spec.height, spec.width),
-                         colormap=colormap)
+    return _colormapped(value_to_rgba,
+                        values.reshape(spec.height, spec.width),
+                        colormap=colormap)
 
 
 def _save_png(path: str, rgba) -> None:
     """Write float RGBA as an RGBA8 PNG with the bytes ``plt.imsave``
-    would store (no matplotlib needed)."""
+    would store (no matplotlib needed), each step a phase of the render:
+    float to uint8, deflate, the file write."""
+    from distributedmandelbrot_tpu_torch.obs import names as obs_names
+    from distributedmandelbrot_tpu_torch.obs import phases
     from distributedmandelbrot_tpu_torch.serve.render import (encode_png,
                                                               imsave_bytes)
-    data = encode_png(imsave_bytes(rgba))
-    with open(path, "wb") as fh:
-        fh.write(data)
+    with phases.timed(obs_names.PHASE_RENDER_RGBA8, annotate=True):
+        rgba8 = imsave_bytes(rgba)
+    with phases.timed(obs_names.PHASE_RENDER_DEFLATE, annotate=True):
+        data = encode_png(rgba8)
+    with phases.timed(obs_names.PHASE_RENDER_WRITE, annotate=True):
+        with open(path, "wb") as fh:
+            fh.write(data)
     print(f"wrote {path} ({rgba.shape[1]}x{rgba.shape[0]})")
 
 
@@ -772,7 +795,23 @@ def _render_device(name: str):
 
 
 def cmd_render(argv: Sequence[str]) -> int:
-    """Local (farm-less) rendering of any view on the GPU."""
+    """Local (farm-less) rendering of any view on the GPU, timed by phase
+    (``obs.phases``): its argument parse, and within the view the
+    colormap, the float-to-uint8 step, deflate and the file write,
+    besides the deep route's own phases."""
+    from distributedmandelbrot_tpu_torch.obs import names as obs_names
+    from distributedmandelbrot_tpu_torch.obs import phases
+    with phases.timed(obs_names.PHASE_RENDER_PARSE, annotate=True):
+        args, view, kwargs = _render_request(argv)
+    with _profiled(args.profile, [kwargs["device"]], name="render"):
+        _save_png(args.out, _render_view(*view, **kwargs))
+    return 0
+
+
+def _render_request(argv: Sequence[str]
+                    ) -> tuple[argparse.Namespace, tuple, dict]:
+    """``render``'s arguments, checked and resolved: the namespace, and
+    :func:`_render_view`'s positional and keyword arguments."""
     from distributedmandelbrot_tpu_torch.serve.render import COLORMAPS
     parser = argparse.ArgumentParser(
         prog="python -m distributedmandelbrot_tpu_torch render",
@@ -837,6 +876,12 @@ def cmd_render(argv: Sequence[str]) -> int:
                         help="torch device (default cuda; cpu runs the "
                              "kernels' plain versions)")
     parser.add_argument("--out", required=True, help="output PNG path")
+    parser.add_argument("--profile", metavar="DIR", default="",
+                        help="write a torch.profiler trace of the render "
+                             "(CPU, and the CUDA kernels on a CUDA device) "
+                             "to DIR/render-<pid>.trace.json; the render's "
+                             "host-only phases appear in it as "
+                             "dmtpu.<phase> beside the kernels")
     _add_common(parser)
     args = parser.parse_args(_join_negative_values(argv, ("--c", "--center")))
     _configure_logging(args)
@@ -871,15 +916,12 @@ def cmd_render(argv: Sequence[str]) -> int:
                          "(--deep, or a view the auto-selector routes "
                          "to perturbation); this view renders on the "
                          "direct kernels, which have no orbit to skip")
-    rgba = _render_view(c_re, c_im, args.span, args.definition,
-                        args.max_iter, smooth=args.smooth, np_dtype=np_dtype,
-                        colormap=args.colormap,
-                        device=_render_device(args.device), deep=deep,
-                        julia_c=julia_c, family=family,
-                        no_kernel=args.no_kernel, normalize=args.normalize,
-                        supersample=args.supersample, bla=_resolve_bla(args))
-    _save_png(args.out, rgba)
-    return 0
+    return args, (c_re, c_im, args.span, args.definition, args.max_iter), \
+        dict(smooth=args.smooth, np_dtype=np_dtype, colormap=args.colormap,
+             device=_render_device(args.device), deep=deep,
+             julia_c=julia_c, family=family, no_kernel=args.no_kernel,
+             normalize=args.normalize, supersample=args.supersample,
+             bla=_resolve_bla(args))
 
 
 def _check_colormap(colormap: str) -> None:

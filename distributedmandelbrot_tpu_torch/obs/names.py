@@ -439,6 +439,33 @@ POSTMORTEM_DUMPS_LOADED = "postmortem_dumps_loaded"
 POSTMORTEM_DUMP_ERRORS = "postmortem_dump_errors"
 POSTMORTEM_ANOMALIES = "postmortem_anomalies"
 
+# -- a render's phases (obs/phases.py) --------------------------------------
+
+# Port-only.  Host-clock seconds and entries by phase of one ``render``:
+# its argument parse, the colormap, the float-to-uint8 step, deflate and
+# the file write; the deep route's reference search, BLA
+# probe and tables, scans, secondary and exact repairs, the fixed-point
+# orbits it computes and its probe scans; and the route's counts of
+# glitched and exactly repaired pixels.  A phase that launches no device
+# work also appears in a ``torch.profiler`` trace as an annotation named
+# with the prefix before its key.
+PHASE_ANNOTATION_PREFIX = "dmtpu."
+PHASE_RENDER_PARSE = "render.parse"
+PHASE_RENDER_COLORMAP = "render.colormap"
+PHASE_RENDER_RGBA8 = "render.rgba8"
+PHASE_RENDER_DEFLATE = "render.deflate"
+PHASE_RENDER_WRITE = "render.write"
+PHASE_DEEP_REFERENCE = "reference"
+PHASE_DEEP_BLA_PROBE = "bla_probe"
+PHASE_DEEP_BLA_TABLE = "bla_table"
+PHASE_DEEP_SCAN = "scan"
+PHASE_DEEP_REPAIR_SECONDARY = "repair_secondary"
+PHASE_DEEP_REPAIR_EXACT = "repair_exact"
+PHASE_DEEP_ORBIT = "deep.orbit"
+PHASE_DEEP_PROBE = "deep.probe"
+COUNT_DEEP_GLITCHED = "glitched"
+COUNT_DEEP_EXACT_REPAIRED = "exact_repaired"
+
 # -- legacy aliases -------------------------------------------------------
 
 # canonical name -> the spelling pre-registry call sites read.  Reads of a

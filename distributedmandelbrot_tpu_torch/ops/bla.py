@@ -39,12 +39,13 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from distributedmandelbrot_tpu_torch.obs import names as obs_names
+from distributedmandelbrot_tpu_torch.obs import phases
 from distributedmandelbrot_tpu_torch.ops.cuda_perturb import (_delta_step,
                                                               _shape_of,
                                                               _step_terms)
 from distributedmandelbrot_tpu_torch.ops.perturbation import (GLITCH_TOL,
-                                                              _smooth_nu,
-                                                              _timed)
+                                                              _smooth_nu)
 
 logger = logging.getLogger("dmtpu.bla")
 
@@ -198,7 +199,7 @@ def _table(z_re: np.ndarray, z_im: np.ndarray, dc_max: float, eps: float,
     if hit is not None and hit[0] == fp:
         _TABLE_CACHE.move_to_end(key)
         return hit[1]
-    with _timed("bla_table"):
+    with phases.timed(obs_names.PHASE_DEEP_BLA_TABLE):
         host = build_bla_table(z_re, z_im, q, eps=eps, z_cap=z_cap)
         # The cast may saturate extension-segment coefficients to inf;
         # build_bla_table zeroed those entries' radii, so they are never

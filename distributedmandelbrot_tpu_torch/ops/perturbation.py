@@ -30,16 +30,19 @@ the int32 and bool planes as they are; the output is the same.
 
 from __future__ import annotations
 
-import contextlib
 import logging
-import threading
-import time
 from collections import OrderedDict
 from dataclasses import dataclass
 from functools import lru_cache
 
 import numpy as np
 import torch
+
+from distributedmandelbrot_tpu_torch.obs import names as obs_names
+from distributedmandelbrot_tpu_torch.obs import phases
+# The route's phase seconds, read and reset here as they always were.
+from distributedmandelbrot_tpu_torch.obs.phases import (  # noqa: F401
+    phase_seconds, reset_phase_seconds)
 
 logger = logging.getLogger(__name__)
 
@@ -209,31 +212,33 @@ def _orbit_cached_giant(za: int, zb: int, ca: int, cb: int,
 def _orbit_fixed_impl(za: int, zb: int, ca: int, cb: int, max_iter: int,
                       bits: int, extra: int = 12
                       ) -> tuple[np.ndarray, np.ndarray, int]:
-    if _native_fixed(bits, za, zb, ca, cb):
-        from distributedmandelbrot_tpu_torch.native import bindings
+    # Host only, so its phase is marked in a profiler's trace.
+    with phases.timed(obs_names.PHASE_DEEP_ORBIT, annotate=True):
+        if _native_fixed(bits, za, zb, ca, cb):
+            from distributedmandelbrot_tpu_torch.native import bindings
 
-        return bindings.fixed_orbit(za, zb, ca, cb, max_iter, bits, extra)
-    one = 1 << bits
-    four = 4 * one * one  # |z|^2 comparisons happen at 2*bits scale
-    huge = (10 ** 100) * one * one
-    steps = max(1, max_iter)
-    z_re = np.empty(steps + extra, np.float64)
-    z_im = np.empty(steps + extra, np.float64)
-    a, b = za, zb
-    n = 0
-    valid = None
-    while n < steps + extra:
-        z_re[n] = _fixed_to_float(a, bits)
-        z_im[n] = _fixed_to_float(b, bits)
-        n += 1
-        a2 = a * a
-        b2 = b * b
-        if valid is None and (n >= steps or a2 + b2 >= four):
-            valid = n
-        if valid is not None and (n >= valid + extra or a2 + b2 >= huge):
-            break
-        a, b = (a2 - b2 >> bits) + ca, ((a * b) >> (bits - 1)) + cb
-    return z_re[:n], z_im[:n], valid if valid is not None else n
+            return bindings.fixed_orbit(za, zb, ca, cb, max_iter, bits, extra)
+        one = 1 << bits
+        four = 4 * one * one  # |z|^2 comparisons happen at 2*bits scale
+        huge = (10 ** 100) * one * one
+        steps = max(1, max_iter)
+        z_re = np.empty(steps + extra, np.float64)
+        z_im = np.empty(steps + extra, np.float64)
+        a, b = za, zb
+        n = 0
+        valid = None
+        while n < steps + extra:
+            z_re[n] = _fixed_to_float(a, bits)
+            z_im[n] = _fixed_to_float(b, bits)
+            n += 1
+            a2 = a * a
+            b2 = b * b
+            if valid is None and (n >= steps or a2 + b2 >= four):
+                valid = n
+            if valid is not None and (n >= valid + extra or a2 + b2 >= huge):
+                break
+            a, b = (a2 - b2 >> bits) + ca, ((a * b) >> (bits - 1)) + cb
+        return z_re[:n], z_im[:n], valid if valid is not None else n
 
 
 # The uncached implementation under the same attribute functools exposed
@@ -329,51 +334,6 @@ class DeepTileSpec:
         dre = np.broadcast_to(col, (self.height, self.width))
         dim = np.broadcast_to(row[:, None], (self.height, self.width))
         return dre.astype(dtype).copy(), dim.astype(dtype).copy()
-
-
-# -- where a deep view's time goes ----------------------------------------
-
-_phase_lock = threading.Lock()
-_phase_s: dict[str, float] = {}
-_phase_n: dict[str, int] = {}
-
-
-def phase_seconds() -> dict[str, float]:
-    """Host-clock seconds spent so far in this process by phase of the
-    deep route: ``reference`` (the reference search and its orbits),
-    ``bla_probe`` (the auto-BLA probe), ``bla_table`` (building BLA
-    tables; within ``repair_secondary`` when the secondary pass builds
-    one), ``scan`` (the row chunks' scans, each to its
-    fetch, which waits for the device), ``repair_secondary`` (the
-    secondary reference: its orbits and re-scan) and ``repair_exact``
-    (the fixed-point recompute); plus the pixels flagged glitched
-    (``glitched``) and the pixels left to the exact repair
-    (``exact_repaired``)."""
-    with _phase_lock:
-        out = dict(_phase_s)
-        out.update({k: float(v) for k, v in _phase_n.items()})
-        return out
-
-
-def reset_phase_seconds() -> None:
-    with _phase_lock:
-        _phase_s.clear()
-        _phase_n.clear()
-
-
-@contextlib.contextmanager
-def _timed(name: str):
-    t0 = time.monotonic()
-    try:
-        yield
-    finally:
-        with _phase_lock:
-            _phase_s[name] = _phase_s.get(name, 0.0) + time.monotonic() - t0
-
-
-def _tally(name: str, n: int) -> None:
-    with _phase_lock:
-        _phase_n[name] = _phase_n.get(name, 0) + int(n)
 
 
 def _device(device) -> torch.device:
@@ -658,13 +618,14 @@ def _find_reference(za: int, zb: int, ca: int, cb: int, span: float,
         pim = np.repeat(lat, side) - off_im
         # Against the orbit's VALID prefix: the post-escape extension
         # diverges and would corrupt the alive mask.
-        counts, _, alive = _perturb_scan(
-            torch.as_tensor(z_re[:n], device=dev),
-            torch.as_tensor(z_im[:n], device=dev),
-            torch.as_tensor(pre.astype(np.float64), device=dev),
-            torch.as_tensor(pim.astype(np.float64), device=dev),
-            max_iter=max_iter, add_dc=add_dc, stagnation=False)
-        alive = alive.cpu().numpy()
+        with phases.timed(obs_names.PHASE_DEEP_PROBE):
+            counts, _, alive = _perturb_scan(
+                torch.as_tensor(z_re[:n], device=dev),
+                torch.as_tensor(z_im[:n], device=dev),
+                torch.as_tensor(pre.astype(np.float64), device=dev),
+                torch.as_tensor(pim.astype(np.float64), device=dev),
+                max_iter=max_iter, add_dc=add_dc, stagnation=False)
+            alive = alive.cpu().numpy()
         if alive.any():
             # Hop to the outliving probe nearest the view center.
             idx = np.argwhere(alive).ravel()
@@ -784,7 +745,7 @@ def _compute_perturb(spec: DeepTileSpec, max_iter: int, scan_fn, *,
         ca = _to_fixed(julia_c[0], bits)
         cb = _to_fixed(julia_c[1], bits)
         add_dc = False
-    with _timed("reference"):
+    with phases.timed(obs_names.PHASE_DEEP_REFERENCE):
         z_re, z_im, _, off_re, off_im = _find_reference(
             za, zb, ca, cb, spec.span, max_iter, bits, add_dc=add_dc,
             device=str(dev))
@@ -801,7 +762,7 @@ def _compute_perturb(spec: DeepTileSpec, max_iter: int, scan_fn, *,
         zr, zi = _device_orbit(z_re, z_im, dev)
     use_bla = bla
     if use_bla is None:
-        with _timed("bla_probe"):
+        with phases.timed(obs_names.PHASE_DEEP_BLA_PROBE):
             use_bla = (scan_factory is not None
                        and _auto_bla(z_re, z_im, zr, zi, dre, dim, max_iter,
                                      julia_c is None, dtype=dtype))
@@ -816,7 +777,7 @@ def _compute_perturb(spec: DeepTileSpec, max_iter: int, scan_fn, *,
     chunk = max(1, min(spec.height, limit // max(1, spec.width)))
     # The row and column vectors are uploaded and broadcast on the device.
     vals, glitches = [], []
-    with _timed("scan"):
+    with phases.timed(obs_names.PHASE_DEEP_SCAN):
         dre_row = torch.as_tensor(dre[0].astype(dtype), device=dev)
         for r0 in range(0, spec.height, chunk):
             rows = min(chunk, spec.height - r0)
@@ -831,13 +792,13 @@ def _compute_perturb(spec: DeepTileSpec, max_iter: int, scan_fn, *,
     glitched = np.concatenate(glitches)
     bad = np.argwhere(glitched)
     n_flagged = len(bad)
-    _tally("glitched", n_flagged)
+    phases.tally(obs_names.COUNT_DEEP_GLITCHED, n_flagged)
     if len(bad) > 1:
         # Secondary-reference pass: a glitched pixel whose exact orbit
         # covers the FULL budget becomes a second reference, and the
         # glitched pixels' deltas are re-scanned against it; candidates
         # in in-set-likelihood order, at most SECONDARY_REFERENCE_TRIES.
-        with _timed("repair_secondary"):
+        with phases.timed(obs_names.PHASE_DEEP_REPAIR_SECONDARY):
             z2 = None
             for ci in _secondary_candidates(bad, out[bad[:, 0], bad[:, 1]],
                                             spec.height, spec.width)[
@@ -896,7 +857,8 @@ def _compute_perturb(spec: DeepTileSpec, max_iter: int, scan_fn, *,
     # threaded, where available), center + delta formed in fixed point.
     # On the smooth plane this patches an integer count.
     if len(bad):
-        with _timed("repair_exact"):
+        with phases.timed(obs_names.PHASE_DEEP_REPAIR_EXACT,
+                          annotate=True):
             pts = []
             for r, c in bad:
                 d_re = float((c - (spec.width - 1) / 2) * step)
@@ -906,7 +868,7 @@ def _compute_perturb(spec: DeepTileSpec, max_iter: int, scan_fn, *,
             jc = None if julia_c is None else (ca, cb)
             out[bad[:, 0], bad[:, 1]] = _escape_counts_exact_batch(
                 pts, max_iter, bits, jc)
-        _tally("exact_repaired", len(bad))
+        phases.tally(obs_names.COUNT_DEEP_EXACT_REPAIRED, len(bad))
     return out, n_flagged
 
 

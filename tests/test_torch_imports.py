@@ -155,8 +155,9 @@ def test_carried_module_matches_the_jax_package(rel):
 
 
 def test_names_only_add_the_demotion_counter():
-    """``obs/names.py`` is carried with two additions: the port counts its
-    demotions by route, and the MXU census shadows that failed."""
+    """``obs/names.py`` is carried with three additions: the port counts
+    its demotions by route, the MXU census shadows that failed, and the
+    keys of a render's phases (``obs/phases.py``)."""
     ref = _renamed(REF / "obs/names.py").splitlines()
     port = (PORT / "obs/names.py").read_text().splitlines()
     assert set(ref) <= set(port)
@@ -168,4 +169,20 @@ def test_names_only_add_the_demotion_counter():
                     'ROUTE_MESH_TO_FUSED = "mesh_to_fused"',
                     'ROUTE_BATCH_TO_TORCH = "batch_to_torch"',
                     'WORKER_MXU_CENSUS_FAILURES = '
-                    '"worker_mxu_census_failures"']
+                    '"worker_mxu_census_failures"',
+                    'PHASE_ANNOTATION_PREFIX = "dmtpu."',
+                    'PHASE_RENDER_PARSE = "render.parse"',
+                    'PHASE_RENDER_COLORMAP = "render.colormap"',
+                    'PHASE_RENDER_RGBA8 = "render.rgba8"',
+                    'PHASE_RENDER_DEFLATE = "render.deflate"',
+                    'PHASE_RENDER_WRITE = "render.write"',
+                    'PHASE_DEEP_REFERENCE = "reference"',
+                    'PHASE_DEEP_BLA_PROBE = "bla_probe"',
+                    'PHASE_DEEP_BLA_TABLE = "bla_table"',
+                    'PHASE_DEEP_SCAN = "scan"',
+                    'PHASE_DEEP_REPAIR_SECONDARY = "repair_secondary"',
+                    'PHASE_DEEP_REPAIR_EXACT = "repair_exact"',
+                    'PHASE_DEEP_ORBIT = "deep.orbit"',
+                    'PHASE_DEEP_PROBE = "deep.probe"',
+                    'COUNT_DEEP_GLITCHED = "glitched"',
+                    'COUNT_DEEP_EXACT_REPAIRED = "exact_repaired"']
