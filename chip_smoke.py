@@ -190,8 +190,8 @@ alone (about a minute with the build).
 ``python3 chip_smoke.py --deep [--out PATH]`` runs the deep route alone
 in a process of its own (about a minute): the build, ``deep_path``
 twice (pass 1 is the process's first render, pass 2 a later one), K9
-and K10 against their plain versions and their times; ``--out`` writes
-the JSON lines to PATH.
+and K10 against their plain versions and their times, the colour
+kernel's; ``--out`` writes the JSON lines to PATH.
 
 The second-to-last line is ``nvidia-smi``'s name and power limit, the
 last ``{"ok": true, "device": {...}}``.
@@ -418,7 +418,8 @@ class GrantSource:
 def kernel_name(mangled: str) -> str:
     """``escape_mega_kernel<0,1>`` from its mangled name: a length
     prefix, the name, then ``I<L[ib]n E...>E`` template arguments."""
-    m = re.search(r"\d((?:escape_[a-z]+|mxu_probe|perturb_[a-z]+)_kernel)"
+    m = re.search(r"\d((?:escape_[a-z]+|mxu_probe|perturb_[a-z]+"
+                  r"|colormap_rgba8)_kernel)"
                   r"(?:I([fd]?)((?:L[ib]\d+E)+)E)?", mangled)
     if not m:
         return mangled
@@ -1341,11 +1342,13 @@ def deep_render(cli, pt, cp, ce, flags, out, timer=None) -> dict:
     """One deep render through ``cli.main``, its counts set to 0 just
     before: host-clock seconds split by the route's phases (colormap,
     PNG and the rest by difference), the K9/K10 calls' time by CUDA
-    events (``timer``), their launches, glitched and exactly repaired
-    pixels."""
+    events (``timer``), their launches and the colour kernel's, glitched
+    and exactly repaired pixels."""
+    from distributedmandelbrot_tpu_torch.ops import cuda_colormap as cc
     torch.cuda.synchronize()
     ce.reset_launch_counts()
     cp.reset_launch_counts()
+    cc.reset_launch_counts()
     pt.reset_phase_seconds()
     t0 = time.monotonic()
     rc = cli.main(["render", *flags, "--out", out, "-q"])
@@ -1358,6 +1361,7 @@ def deep_render(cli, pt, cp, ce, flags, out, timer=None) -> dict:
     return {"rc": rc, "seconds": wall, "split_s": split,
             "scan_kernels_device_ms": timer.take_ms() if timer else None,
             "launches": cp.launch_counts(), "escape_launches": escape,
+            "colour_launches": cc.launch_counts()[cc.KERNEL_COLORMAP],
             "glitched": int(phases.get("glitched", 0)),
             "exact_repaired": int(phases.get("exact_repaired", 0)),
             "bla": "bla_table" in phases}
@@ -1384,12 +1388,14 @@ def phase_deep_path(cli, ce):
     K10 (smooth) and never the plain scans on the card, writes the PNG
     of the same route with the plain scans byte for byte, and the
     config-4 view's sampled pixels equal the exact fixed-point counts;
-    the bond view takes BLA.  Each view runs twice: cold (every cache of
+    the bond view takes BLA; the smooth view is coloured by one launch of
+    the colour kernel.  Each view runs twice: cold (every cache of
     the route emptied first: the reference search and orbit computed)
     and warm (cached, as a re-render)."""
     from distributedmandelbrot_tpu_torch.ops import cuda_perturb as cp
     from distributedmandelbrot_tpu_torch.ops import perturbation as pt
-    launches = {"perturb_scan": 0, "perturb_scan_smooth": 0}
+    launches = {"perturb_scan": 0, "perturb_scan_smooth": 0,
+                KERNEL_COLORMAP: 0}
     views = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, flags in DEEP_RENDERS:
@@ -1400,6 +1406,7 @@ def phase_deep_path(cli, ce):
                 warm = deep_render(cli, pt, cp, ce, flags, out, timer)
             for k, v in cold["launches"].items():
                 launches[k] += v
+            launches[KERNEL_COLORMAP] += cold["colour_launches"]
             with open(out, "rb") as fh:
                 got = fh.read()
             smooth = "--smooth" in flags
@@ -1416,7 +1423,9 @@ def phase_deep_path(cli, ce):
             with open(plain_out, "rb") as fh:
                 png_equal = fh.read() == got
             ok = (cold["rc"] == warm["rc"] == 0 and not cold["escape_launches"]
-                  and png_equal and sum(plain["launches"].values()) == 0)
+                  and png_equal and sum(plain["launches"].values()) == 0
+                  and cold["colour_launches"] == warm["colour_launches"]
+                  == int(smooth))
             if name.startswith("bond"):
                 ok = ok and cold["bla"]
             else:
@@ -1446,6 +1455,115 @@ def phase_deep_path(cli, ce):
                     "segment counts included)"}
     emit(record)
     return record
+
+
+KERNEL_COLORMAP = "colormap_rgba8"
+COLORMAP_SOURCE = ("distributedmandelbrot_tpu_torch/ops/csrc/"
+                   "colormap_kernels.cu")
+NO_PALLAS_COLORMAP = ("no Pallas counterpart: the JAX package colours on "
+                      "the host (serve/render.py smooth_to_rgba, then "
+                      "imsave_bytes)")
+NO_COLORMAP_LIBRARY = ("no single PyTorch call maps values to table rows "
+                       "and bytes; the plain version is searchsorted and "
+                       "a gather")
+# A pixel's bytes: nu read (f64), RGBA8 written.
+COLORMAP_BYTES_PER_PIXEL = 8 + 4
+
+
+def time_colormap_kernel(ptxas) -> list:
+    """The colour kernel on the config-4 view's repaired smooth values
+    (f64, max_iter 50000, jet) at 1024^2 and 4096^2, nu already on the
+    card: ``ms`` by CUDA events around a wrapper call, as every row of
+    the kernels line is timed (a kernel this short waits there for the
+    launch's host path), and ``device_ms``, the median of 50 launches'
+    kernel intervals in a ``torch.profiler`` trace; the plain version on
+    the card; the route's colouring (``serve.render._smooth_rgba8``: nu
+    up, the launch, the bytes down) and the host's float route
+    (``imsave_bytes(smooth_to_rgba(...))``) by the host clock.  The
+    kernel must equal both byte for byte; bound = 12 bytes a pixel over
+    3.35 TB/s."""
+    from torch.profiler import ProfilerActivity, profile
+    from distributedmandelbrot_tpu_torch.ops import cuda_colormap as cc
+    from distributedmandelbrot_tpu_torch.ops import perturbation as pt
+    from distributedmandelbrot_tpu_torch.serve import render as srender
+    dev = torch.device("cuda", 0)
+    bounds = torch.tensor(srender.smooth_boundaries(50000), device=dev)
+    table = torch.tensor(srender.smooth_table8("jet"), device=dev)
+
+    def host_ms(fn, reps):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    rows = []
+    for side in (1024, 4096):
+        nu, _ = pt.compute_smooth_perturb(
+            pt.DeepTileSpec(*CONFIG4, 1e-10, width=side, height=side), 50000,
+            dtype=np.float64, device=dev)
+        x = torch.from_numpy(nu).to(dev)
+        ms = median_ms(lambda: cc.colormap_rgba8_cuda(x, bounds, table),
+                       reps=50)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(50):
+                cc.colormap_rgba8_cuda(x, bounds, table)
+            torch.cuda.synchronize()
+        device_ms = statistics.median(
+            e.time_range.elapsed_us() / 1e3 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "colormap_rgba8_kernel" in e.name)
+        plain_ms = median_ms(lambda: cc.colormap_rgba8_plain(x, bounds,
+                                                             table),
+                             reps=5, warmup=1)
+        route_ms = host_ms(lambda: srender._smooth_rgba8(nu, 50000, "jet",
+                                                         dev), reps=11)
+        float_ms = host_ms(lambda: srender.imsave_bytes(
+            srender.smooth_to_rgba(nu, 50000)), reps=3)
+        got = cc.colormap_rgba8_cuda(x, bounds, table)
+        torch.cuda.synchronize()
+        bytewise_plain = bool(torch.equal(
+            got, cc.colormap_rgba8_plain(x, bounds, table)))
+        bytewise_float = bool(np.array_equal(
+            got.cpu().numpy(),
+            srender.imsave_bytes(srender.smooth_to_rgba(nu, 50000))))
+        bound_ms = side * side * COLORMAP_BYTES_PER_PIXEL / HBM_BYTES_PER_S \
+            * 1e3
+        rows.append({
+            "name": KERNEL_COLORMAP, "side": side, "dtype": "float64",
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "route_host_ms": route_ms,
+            "float_route_host_ms": float_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "share_of_bound": bound_ms / ms,
+            "device_share_of_bound": bound_ms / device_ms,
+            "bitwise_vs_plain": bytewise_plain,
+            "bitwise_vs_float_route": bytewise_float,
+            "registers": ptxas.get("colormap_rgba8_kernel", {}).get(
+                "registers")})
+        if not (bytewise_plain and bytewise_float):
+            raise AssertionError(f"the colour kernel at {side}^2 differs "
+                                 "from its plain version or the float "
+                                 "route")
+    return rows
+
+
+def colormap_rows(launches: dict, ptxas: dict) -> list:
+    """The kernels line's row of the colour kernel."""
+    main, *more = time_colormap_kernel(ptxas)
+    # Only the paths that count the colour kernel's launches.
+    by_path = {path: counts[KERNEL_COLORMAP]
+               for path, counts in launches.items()
+               if KERNEL_COLORMAP in counts}
+    return [{**main, "route": "cuda", "source": COLORMAP_SOURCE,
+             "replaces": None, "replaces_note": NO_PALLAS_COLORMAP,
+             "launches": sum(by_path.values()), "launches_by_path": by_path,
+             "max_abs_err": 0, "library_ms": None,
+             "library_reason": NO_COLORMAP_LIBRARY,
+             "input": "the config-4 view's repaired smooth values at "
+                      "1024^2, f64, max_iter 50000, jet",
+             "other_inputs": more}]
 
 
 def perturb_needed_steps(n, active, orbit_len: int) -> int:
@@ -1731,7 +1849,7 @@ def run_deep(argv: list[str]) -> int:
     first (each timed), so that pass 1 of ``deep_path`` is each view's
     first render in the process past its start-up and pass 2 a later
     one; then holds K9 and K10 bitwise against their plain versions and
-    times them."""
+    times them, and the colour kernel too."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1759,7 +1877,9 @@ def run_deep(argv: list[str]) -> int:
     ptxas = {kernel_name(r["kernel"]): r for r in _build.ptxas_report()}
     records.append({"phase": "perturb_kernels",
                     "timed": time_perturb_kernels(ptxas)})
-    for record in records[-2:]:
+    records.append({"phase": "colormap_kernel",
+                    "timed": time_colormap_kernel(ptxas)})
+    for record in records[-3:]:
         emit(record)
     if "--out" in argv:
         with open(argv[argv.index("--out") + 1], "w") as fh:
@@ -1905,30 +2025,39 @@ def expected_png(ce, cli, srender, TileSpec, name, flags, dev) -> bytes:
 
 def render_breakdown(ce, srender, TileSpec) -> dict:
     """Where a 4096^2 render's time goes, piece by piece on the host
-    clock: the kernel (launch to synchronize), the copy of its plane to
-    the host, the colormap, and the PNG (byte conversion and zlib)."""
+    clock, by the route the render takes: the kernel (launch to
+    synchronize), the copy of its plane to the host, the colormap, and
+    the PNG (byte conversion and zlib).  The smooth view's plane stays on
+    the card: its colormap is the colour kernel's route (the plane
+    widened to f64 there, the launch, the bytes copied back) and its
+    copy 0."""
     dev = torch.device("cuda", 0)
     spec = render_view("mandelbrot", TileSpec)
     win = [shifted(spec, dx, dy) for dx, dy in SS4]
+
+    def to_host(plane):
+        return plane.cpu().numpy()
+
     cases = {
         "mandelbrot": (lambda: ce.compute_tile_cuda_device(
-            spec, 1024, device=dev), srender.value_to_rgba),
+            spec, 1024, device=dev), to_host, srender.value_to_rgba),
         "mandelbrot_smooth": (lambda: ce.compute_tile_smooth_cuda(
-            spec, 1024, device=dev),
-            lambda nu: srender.smooth_to_rgba(nu, 1024)),
+            spec, 1024, device=dev), lambda plane: plane,
+            lambda nu: srender.smooth_to_rgba(nu, 1024, rgba8_on=dev)),
         "mandelbrot_ss4": (lambda: pack_call(ce, win, [1024] * 4, {}, dev),
+                           to_host,
                            lambda planes: sum(srender.value_to_rgba(p)
                                               for p in planes) / 4),
     }
     out = {}
-    for name, (compute, colormap) in cases.items():
+    for name, (compute, copy, colormap) in cases.items():
         compute()
         torch.cuda.synchronize()
         t0 = time.monotonic()
         plane = compute()
         torch.cuda.synchronize()
         t1 = time.monotonic()
-        host = plane.cpu().numpy()
+        host = copy(plane)
         t2 = time.monotonic()
         rgba = colormap(host)
         t3 = time.monotonic()
@@ -1943,22 +2072,29 @@ def phase_render_path(ce, cli, srender, TileSpec):
     """The render subcommand end to end at 4096^2, one view per mode:
     each launches its kernel once and nothing else, declines nothing,
     and writes the plain versions' PNG byte for byte."""
+    from distributedmandelbrot_tpu_torch.ops import cuda_colormap as cc
     dev = torch.device("cuda", 0)
-    by_render, launches = {}, {k: 0 for k in ce.launch_counts()}
+    by_render = {}
+    launches = {k: 0 for k in {**ce.launch_counts(), **cc.launch_counts()}}
     with tempfile.TemporaryDirectory() as tmp:
         for name, flags, kernel in RENDERS:
             out = os.path.join(tmp, f"{name}.png")
             torch.cuda.synchronize()
             ce.reset_launch_counts()
+            cc.reset_launch_counts()
             cli.reset_kernel_declines()
             t0 = time.monotonic()
             rc = cli.main(["render", *flags, "--definition",
                            str(RENDER_SIDE), "--out", out, "-q"])
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
-            counts = ce.launch_counts()
+            counts = {**ce.launch_counts(), **cc.launch_counts()}
             declines = cli.kernel_declines()
-            want = {k: int(k == kernel) for k in counts}
+            # A smooth view of one sample is coloured by the colour
+            # kernel too.
+            coloured = {kernel, cc.KERNEL_COLORMAP} if "--smooth" in flags \
+                else {kernel}
+            want = {k: int(k in coloured) for k in counts}
             if rc != 0 or counts != want or declines:
                 raise AssertionError(
                     f"render {name}: rc {rc}, launches {counts} (want "
@@ -1973,6 +2109,7 @@ def phase_render_path(ce, cli, srender, TileSpec):
                 raise AssertionError(f"render {name}: the PNG differs from "
                                      "the plain versions' PNG")
             by_render[name] = {"kernel": kernel, "launches": counts[kernel],
+                               "colour_launches": counts[cc.KERNEL_COLORMAP],
                                "declines": 0, "seconds": wall,
                                "png_bytes": len(got),
                                "png_equal_plain": png_equal}
@@ -3052,7 +3189,8 @@ def phase_kernels(ce, TileSpec, launches, err, build):
             row["k2_cached_ms_same_run"] = k2_ms
             row["sass_f32_ops"] = sass
         kernels.append(row)
-    return kernels + perturb_rows(err, launches, ptxas)
+    return (kernels + perturb_rows(err, launches, ptxas)
+            + colormap_rows(launches, ptxas))
 
 
 # The farm phase: the main path's profile (level 20 left to a
@@ -3161,13 +3299,17 @@ def read_rgba_png(path: str) -> np.ndarray:
 
 
 def all_launches(ce, cp) -> dict:
-    return {**ce.launch_counts(), **cp.launch_counts()}
+    from distributedmandelbrot_tpu_torch.ops import cuda_colormap as cc
+    return {**ce.launch_counts(), **cp.launch_counts(),
+            **cc.launch_counts()}
 
 
 def reset_launches(ce, cp) -> None:
+    from distributedmandelbrot_tpu_torch.ops import cuda_colormap as cc
     torch.cuda.synchronize()
     ce.reset_launch_counts()
     cp.reset_launch_counts()
+    cc.reset_launch_counts()
 
 
 def add_launches(total: dict, more: dict) -> None:

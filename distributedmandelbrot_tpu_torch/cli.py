@@ -590,10 +590,16 @@ def _resolve_family(fractal: str, power: int | None
 
 def _colormapped(to_rgba, *args, **kwargs) -> np.ndarray:
     """``to_rgba(*args, **kwargs)``, a colormap of ``viewer`` on a plane
-    already on the host, timed as the render's colormap phase."""
+    already on the host, timed as the render's colormap phase; annotated
+    only where it runs on the host (``rgba8_on``, where given, names the
+    device that colours)."""
+    import torch
+
     from distributedmandelbrot_tpu_torch.obs import names as obs_names
     from distributedmandelbrot_tpu_torch.obs import phases
-    with phases.timed(obs_names.PHASE_RENDER_COLORMAP, annotate=True):
+    device = kwargs.get("rgba8_on")
+    on_host = device is None or torch.device(device).type == "cpu"
+    with phases.timed(obs_names.PHASE_RENDER_COLORMAP, annotate=on_host):
         return to_rgba(*args, **kwargs)
 
 
@@ -658,11 +664,14 @@ def _render_view(c_re: str, c_im: str, span: float, definition: int,
                  julia_c: tuple[str, str] | None = None,
                  family: tuple[int, bool] | None = None,
                  no_kernel: bool = False, normalize: bool = False,
-                 supersample: int = 1, bla: bool | None = None
-                 ) -> np.ndarray:
+                 supersample: int = 1, bla: bool | None = None,
+                 rgba8: bool = False) -> np.ndarray:
     """One view -> float RGBA (Mandelbrot, or Julia when ``julia_c`` is
     set, or a Multibrot/Burning-Ship view when ``family=(power,
-    burning)``), on ``device``.
+    burning)``), on ``device``.  With ``rgba8`` (for a caller that
+    writes the result straight to a PNG), a smooth view of one sample,
+    not normalised, is coloured on ``device`` straight to the uint8
+    RGBA that :func:`_save_png` stores.
 
     f32 views go through the kernels first (K1 integer, K4 smooth); a
     view a kernel declines, an f64 view, or ``no_kernel`` takes the
@@ -686,6 +695,11 @@ def _render_view(c_re: str, c_im: str, span: float, definition: int,
                                no_kernel=no_kernel, normalize=normalize,
                                bla=bla))
 
+    # Float RGBA where the view is normalised (the scale is the view's
+    # own range); the supersampled sum above never asks (uint8 would
+    # wrap).  A kernel's smooth plane stays on the card to be coloured
+    # there.
+    rgba8_on = device if rgba8 and not normalize else None
     kernel_first = (lambda *a, **k: None) if no_kernel else _kernel_first
     on_kernel = np_dtype == np.float32
     cx, cy = float(c_re), float(c_im)
@@ -698,12 +712,15 @@ def _render_view(c_re: str, c_im: str, span: float, definition: int,
             nu = kernel_first("compute_tile_smooth_cuda", spec, max_iter,
                               power=power, burning=burning,
                               device=device) if on_kernel else None
-            nu = (families.compute_tile_smooth_family(
-                spec, max_iter, power=power, burning=burning,
-                dtype=np_dtype, device=device)
-                if nu is None else nu.cpu().numpy())
+            if nu is None:
+                nu = families.compute_tile_smooth_family(
+                    spec, max_iter, power=power, burning=burning,
+                    dtype=np_dtype, device=device)
+            elif rgba8_on is None:
+                nu = nu.cpu().numpy()
             return _colormapped(smooth_to_rgba, nu, max_iter,
-                                colormap=colormap, normalize=normalize)
+                                colormap=colormap, normalize=normalize,
+                                rgba8_on=rgba8_on)
         values = kernel_first("compute_tile_family_cuda", spec, max_iter,
                               power=power, burning=burning,
                               device=device) if on_kernel else None
@@ -729,7 +746,8 @@ def _render_view(c_re: str, c_im: str, span: float, definition: int,
                 device=device)
             _warn_if_deep_all_inset(nu, max_iter, span)
             return _colormapped(smooth_to_rgba, nu, max_iter,
-                                colormap=colormap, normalize=normalize)
+                                colormap=colormap, normalize=normalize,
+                                rgba8_on=rgba8_on)
         counts, _ = perturbation.compute_counts_perturb(
             dspec, max_iter, dtype=np_dtype, julia_c=julia_c, bla=bla,
             device=device)
@@ -744,11 +762,15 @@ def _render_view(c_re: str, c_im: str, span: float, definition: int,
     if smooth:
         nu = kernel_first("compute_tile_smooth_cuda", spec, max_iter,
                           julia_c=jc, device=device) if on_kernel else None
-        nu = (escape_time.compute_tile_smooth(spec, max_iter, dtype=np_dtype,
-                                              julia_c=jc, device=device)
-              if nu is None else nu.cpu().numpy())
+        if nu is None:
+            nu = escape_time.compute_tile_smooth(spec, max_iter,
+                                                 dtype=np_dtype, julia_c=jc,
+                                                 device=device)
+        elif rgba8_on is None:
+            nu = nu.cpu().numpy()
         return _colormapped(smooth_to_rgba, nu, max_iter,
-                            colormap=colormap, normalize=normalize)
+                            colormap=colormap, normalize=normalize,
+                            rgba8_on=rgba8_on)
     values = None
     if on_kernel:
         values = (kernel_first("compute_tile_cuda", spec, max_iter,
@@ -768,8 +790,9 @@ def _render_view(c_re: str, c_im: str, span: float, definition: int,
 
 def _save_png(path: str, rgba) -> None:
     """Write float RGBA as an RGBA8 PNG with the bytes ``plt.imsave``
-    would store (no matplotlib needed), each step a phase of the render:
-    float to uint8, deflate, the file write."""
+    would store (no matplotlib needed; uint8 RGBA passes through), each
+    step a phase of the render: float to uint8, deflate, the file
+    write."""
     from distributedmandelbrot_tpu_torch.obs import names as obs_names
     from distributedmandelbrot_tpu_torch.obs import phases
     from distributedmandelbrot_tpu_torch.serve.render import (encode_png,
@@ -804,7 +827,7 @@ def cmd_render(argv: Sequence[str]) -> int:
     with phases.timed(obs_names.PHASE_RENDER_PARSE, annotate=True):
         args, view, kwargs = _render_request(argv)
     with _profiled(args.profile, [kwargs["device"]], name="render"):
-        _save_png(args.out, _render_view(*view, **kwargs))
+        _save_png(args.out, _render_view(*view, **kwargs, rgba8=True))
     return 0
 
 
@@ -1040,7 +1063,7 @@ def cmd_animate(argv: Sequence[str]) -> int:
                             deep=deep, julia_c=julia_c, family=family,
                             no_kernel=args.no_kernel,
                             supersample=args.supersample,
-                            bla=_resolve_bla(args))
+                            bla=_resolve_bla(args), rgba8=True)
         path = os.path.join(args.out_dir, f"frame_{f:04d}.png")
         _save_png(path, rgba)
         print(f"frame {f + 1}/{args.frames} span {span:.3g} "

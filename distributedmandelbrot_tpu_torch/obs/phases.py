@@ -49,7 +49,8 @@ def phase_seconds() -> dict[str, float]:
     ``reference``); the counts ``glitched`` (pixels flagged) and
     ``exact_repaired`` (pixels left to the exact repair).  A render's:
     ``render.parse`` (its arguments), ``render.colormap``,
-    ``render.rgba8`` (float RGBA to uint8), ``render.deflate`` (the PNG's
+    ``render.rgba8`` (float RGBA to uint8; a pass-through for a view
+    coloured straight to uint8), ``render.deflate`` (the PNG's
     encoding) and ``render.write`` (the file)."""
     with _lock:
         out = dict(_seconds)

@@ -24,7 +24,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("escape_kernels.cu", "perturb_kernels.cu")
+SOURCES = ("escape_kernels.cu", "perturb_kernels.cu",
+           "colormap_kernels.cu")
 HEADERS = ("escape.cuh", "perturb.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
@@ -141,6 +142,8 @@ def load() -> ctypes.CDLL:
                                                    d, vp, vp, vp, vp, vp, vp,
                                                    vp, ll, ll, i, vp]
             lib.dm_perturb_scan_smooth.restype = i
+            lib.dm_colormap_rgba8.argtypes = [vp, ll, vp, i, vp, i, vp, vp]
+            lib.dm_colormap_rgba8.restype = i
             lib.dm_persistent_blocks_per_sm.argtypes = [i, i, i, i]
             lib.dm_persistent_blocks_per_sm.restype = i
             lib.dm_persistent_block_threads.argtypes = []

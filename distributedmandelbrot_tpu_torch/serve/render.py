@@ -17,6 +17,13 @@ Two float-to-byte steps, kept apart as in the JAX package:
 image (truncation), which the CLI's PNGs (:func:`encode_png`) follow;
 :func:`to_rgba8` rounds half up, which the gateway's palette PNGs
 (:func:`render_tile_png`, :func:`value_lut`) follow.
+
+A smooth view bound for a PNG can skip the float RGBA plane:
+``smooth_to_rgba(..., rgba8_on=device)`` colours it on ``device``
+straight to the bytes :func:`imsave_bytes` would store, through tables
+built from the float route's own arithmetic (:func:`smooth_boundaries`,
+:func:`smooth_table8`; the kernel of ``ops/cuda_colormap.py`` on a
+card).
 """
 
 from __future__ import annotations
@@ -313,6 +320,8 @@ _LOCK = threading.Lock()
 _TABLES: dict[str, np.ndarray] = {}
 _VALUE_TABLES: dict[str, np.ndarray] = {}
 _LUTS: dict[str, np.ndarray] = {}
+_BOUNDARIES: dict[int, np.ndarray] = {}
+_TABLES8: dict[str, np.ndarray] = {}
 
 
 def _segment_lut(n: int, data) -> np.ndarray:
@@ -357,12 +366,10 @@ def colormap_table(colormap: str) -> np.ndarray:
         return table
 
 
-def apply_colormap(x: np.ndarray, colormap: str = "jet") -> np.ndarray:
-    """Float values in [0, 1] -> float RGBA, as ``Colormap.__call__``
-    maps floats: ``x*N`` truncated to a row, ``x == 1`` to the last row,
-    values under or over the range to the end colors, NaN to the "bad"
-    color."""
-    table = colormap_table(colormap)
+def _table_rows(x: np.ndarray) -> np.ndarray:
+    """Table rows of float values, as ``Colormap.__call__`` maps floats:
+    ``x*N`` truncated to a row, ``x == 1`` to the last row, values under
+    or over the range to the end colors' rows, NaN to the "bad" row."""
     xa = np.array(x, dtype=float, copy=True)
     xa *= LUT_SIZE
     xa[xa == LUT_SIZE] = LUT_SIZE - 1
@@ -374,7 +381,13 @@ def apply_colormap(x: np.ndarray, colormap: str = "jet") -> np.ndarray:
     idx[under] = LUT_SIZE
     idx[over] = LUT_SIZE + 1
     idx[bad] = LUT_SIZE + 2
-    return table.take(idx, axis=0, mode="clip")
+    return idx
+
+
+def apply_colormap(x: np.ndarray, colormap: str = "jet") -> np.ndarray:
+    """Float values in [0, 1] -> float RGBA through the rows of
+    :func:`_table_rows`."""
+    return colormap_table(colormap).take(_table_rows(x), axis=0, mode="clip")
 
 
 def _masked_colormap(vs: np.ndarray, in_set: np.ndarray,
@@ -416,13 +429,11 @@ def value_to_rgba(values: np.ndarray, colormap: str = "jet") -> np.ndarray:
     return _masked_colormap(vs, vs == 1.0, colormap)
 
 
-def smooth_to_rgba(nu: np.ndarray, max_iter: int, colormap: str = "jet",
-                   normalize: bool = False) -> np.ndarray:
-    """Continuous escape values -> RGBA: in-set (0) pixels black, others
-    through the inverted colormap on a log scale (``log1p(nu) /
-    log1p(max_iter)``).  ``normalize`` stretches the view's own escaped
-    range over the whole colormap instead."""
-    nu = np.asarray(nu, float)
+def _smooth_scale(nu: np.ndarray, max_iter: int,
+                  normalize: bool = False) -> np.ndarray:
+    """The colormap's input for smooth values: ``1 - log1p(nu) /
+    log1p(max_iter)`` clipped to [0, 1] (the inverted log scale), or
+    with ``normalize`` the view's own escaped range stretched over it."""
     logs = np.log1p(np.maximum(nu, 0.0))
     escaped = nu > 0.0
     if normalize and escaped.any():
@@ -431,7 +442,99 @@ def smooth_to_rgba(nu: np.ndarray, max_iter: int, colormap: str = "jet",
         vs = (logs - lo) / max(hi - lo, 1e-12)
     else:
         vs = logs / np.log1p(float(max_iter))
-    return _masked_colormap(1.0 - np.clip(vs, 0.0, 1.0), nu <= 0.0, colormap)
+    return 1.0 - np.clip(vs, 0.0, 1.0)
+
+
+def smooth_to_rgba(nu: np.ndarray, max_iter: int, colormap: str = "jet",
+                   normalize: bool = False, *, rgba8_on=None) -> np.ndarray:
+    """Continuous escape values -> RGBA: in-set (0) pixels black, others
+    through the inverted colormap on a log scale (``log1p(nu) /
+    log1p(max_iter)``).  ``normalize`` stretches the view's own escaped
+    range over the whole colormap instead.
+
+    ``rgba8_on`` (a torch device; not with ``normalize``) returns the
+    uint8 RGBA that :func:`imsave_bytes` makes of the float RGBA,
+    computed on that device through :func:`smooth_boundaries` and
+    :func:`smooth_table8`: the CUDA kernel on a card, its plain version
+    on the CPU.  ``nu`` may then be a tensor too, coloured where it is
+    when that is the device."""
+    if rgba8_on is not None:
+        if normalize:
+            raise ValueError("a normalised view is coloured in float RGBA")
+        return _smooth_rgba8(nu, max_iter, colormap, rgba8_on)
+    nu = np.asarray(nu, float)
+    return _masked_colormap(_smooth_scale(nu, max_iter, normalize),
+                            nu <= 0.0, colormap)
+
+
+def _smooth_rows(nu: np.ndarray, max_iter: int) -> np.ndarray:
+    """The table row of each escaped smooth value, as the float route
+    picks it."""
+    return _table_rows(_smooth_scale(nu, max_iter))
+
+
+def smooth_boundaries(max_iter: int) -> np.ndarray:
+    """The ``LUT_SIZE - 1`` float64 values where an escaped smooth
+    value's row changes, ascending: the row of ``nu > 0`` is ``LUT_SIZE
+    - 1`` less the boundaries at or below it.  The row falls as ``nu``
+    grows, so boundary ``k`` is the least positive float64 whose row is
+    at most ``LUT_SIZE - 1 - k``, found by bisection over the bit
+    patterns (ordered as the values for ``+0.0`` up to ``inf``) with the
+    float route's own arithmetic (:func:`_smooth_rows`).  Cached per
+    ``max_iter`` (at least 1)."""
+    if max_iter < 1:
+        raise ValueError(f"max_iter must be >= 1, got {max_iter}")
+    with _LOCK:
+        bounds = _BOUNDARIES.get(max_iter)
+    if bounds is None:
+        target = LUT_SIZE - 1 - np.arange(1, LUT_SIZE)
+        lo = np.zeros(LUT_SIZE - 1, np.int64)     # +0.0: taken as above
+        hi = np.full(LUT_SIZE - 1, np.float64(np.inf).view(np.int64))
+        while np.any(hi - lo > 1):
+            mid = lo + (hi - lo) // 2
+            below = _smooth_rows(mid.view(np.float64), max_iter) <= target
+            hi = np.where(below, mid, hi)
+            lo = np.where(below, lo, mid)
+        bounds = hi.view(np.float64)
+        bounds.setflags(write=False)
+        with _LOCK:
+            _BOUNDARIES[max_iter] = bounds
+    return bounds
+
+
+def smooth_table8(colormap: str) -> np.ndarray:
+    """(LUT_SIZE + 4, 4) uint8 rows of a smooth view's colours:
+    :func:`imsave_bytes` of :func:`colormap_table`'s rows (the end
+    colours, then NaN's), then opaque black for the set.  Its last two
+    rows are NaN's and the set's, as ``ops/cuda_colormap.py`` reads a
+    table."""
+    with _LOCK:
+        table = _TABLES8.get(colormap)
+    if table is None:
+        rows = np.concatenate([colormap_table(colormap),
+                               [(0.0, 0.0, 0.0, 1.0)]])
+        table = imsave_bytes(rows[None])[0]
+        table.setflags(write=False)
+        with _LOCK:
+            _TABLES8[colormap] = table
+    return table
+
+
+def _smooth_rgba8(nu, max_iter: int, colormap: str, device) -> np.ndarray:
+    """``imsave_bytes(smooth_to_rgba(nu, max_iter, colormap))`` computed
+    on ``device``: ``nu`` (an array, or a tensor) copied there unless it
+    is there already, the bytes copied back."""
+    import torch
+
+    from distributedmandelbrot_tpu_torch.ops import cuda_colormap
+    dev = torch.device(device)
+    if not isinstance(nu, torch.Tensor):
+        nu = torch.from_numpy(np.ascontiguousarray(nu, dtype=np.float64))
+    rgba8 = cuda_colormap.colormap_rgba8(
+        nu.to(dev, torch.float64).contiguous(),
+        torch.tensor(smooth_boundaries(max_iter), device=dev),
+        torch.tensor(smooth_table8(colormap), device=dev))
+    return rgba8.cpu().numpy()
 
 
 def to_rgba8(rgba: np.ndarray) -> np.ndarray:

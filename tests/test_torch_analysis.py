@@ -689,7 +689,8 @@ def test_torch_scope_holds_every_kernel_wrapper_of_the_tree():
         "dm_escape_resume": "escape_resume_cuda",
         "dm_perturb_scan": "scan_state_with",
         "dm_perturb_scan_smooth": "smooth_state_with",
-        "dm_mxu_probe": "probe_planes"}
+        "dm_mxu_probe": "probe_planes",
+        "dm_colormap_rgba8": "colormap_rgba8_cuda"}
 
 
 # -- proto -----------------------------------------------------------------
