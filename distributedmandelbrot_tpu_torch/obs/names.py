@@ -446,7 +446,8 @@ POSTMORTEM_ANOMALIES = "postmortem_anomalies"
 # the file write; the deep route's reference search, BLA
 # probe and tables, scans, secondary and exact repairs, the fixed-point
 # orbits it computes and its probe scans; and the route's counts of
-# glitched and exactly repaired pixels.  A phase that launches no device
+# glitched and exactly repaired pixels, of the steps K10's lanes needed,
+# and of the views that took BLA.  A phase that launches no device
 # work also appears in a ``torch.profiler`` trace as an annotation named
 # with the prefix before its key.
 PHASE_ANNOTATION_PREFIX = "dmtpu."
@@ -465,6 +466,8 @@ PHASE_DEEP_ORBIT = "deep.orbit"
 PHASE_DEEP_PROBE = "deep.probe"
 COUNT_DEEP_GLITCHED = "glitched"
 COUNT_DEEP_EXACT_REPAIRED = "exact_repaired"
+COUNT_DEEP_LANE_STEPS = "deep.lane_steps"
+COUNT_DEEP_BLA_VIEWS = "deep.bla_views"
 
 # -- legacy aliases -------------------------------------------------------
 

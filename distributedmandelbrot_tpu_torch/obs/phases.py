@@ -46,9 +46,13 @@ def phase_seconds() -> dict[str, float]:
     ``deep.orbit`` (each fixed-point orbit computed, within
     ``reference`` or ``repair_secondary``; cached orbits are not) and
     ``deep.probe`` (each probe lattice's scan to its read-back, within
-    ``reference``); the counts ``glitched`` (pixels flagged) and
-    ``exact_repaired`` (pixels left to the exact repair).  A render's:
-    ``render.parse`` (its arguments), ``render.colormap``,
+    ``reference``); the counts ``glitched`` (pixels flagged),
+    ``exact_repaired`` (pixels left to the exact repair),
+    ``deep.lane_steps`` (the steps the smooth scans' lanes needed, each
+    to its bailout crossing or the orbit's end, summed on the device and
+    read once a view) and ``deep.bla_views`` (1 for a view that took
+    BLA, 0 for one that did not: present once a deep view ran).  A
+    render's: ``render.parse`` (its arguments), ``render.colormap``,
     ``render.rgba8`` (float RGBA to uint8; a pass-through for a view
     coloured straight to uint8), ``render.deflate`` (the PNG's
     encoding) and ``render.write`` (the file)."""

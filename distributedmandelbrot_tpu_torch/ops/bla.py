@@ -28,7 +28,17 @@ and multiplied are the same.
 
 Accuracy contract (why this is opt-in, or auto-probed): escapes and
 glitches inside a skipped segment are detected at its end; skipped steps
-drop the quadratic term (relative ``eps`` per skip).
+drop the quadratic term (relative ``eps`` per skip).  The integer scan
+keeps the JAX package's ``eps`` (:data:`DEFAULT_BLA_EPS`) and with it an
+approximate count.  The smooth scan's table takes the delta dtype's unit
+roundoff (:func:`smooth_bla_eps`), so every skip drops a term below the
+rounding of the steps it replaces; the ``SMOOTH_Z_CAP`` guard keeps
+skips away from the smoothing radius.  Where it skips, its values differ
+from the exact scan's by rounding, which the later steps amplify as they
+amplify the exact scan's own: not bit for bit.  In float64 such a table
+offers no skip at all on many deep views (the period-349 minibrot at
+1.5e-17, the bond view at 1e-15): there ``perturbation``'s probe keeps
+the exact scan (:func:`smooth_table_skips`).
 """
 
 from __future__ import annotations
@@ -52,6 +62,16 @@ logger = logging.getLogger("dmtpu.bla")
 # Relative size of the dropped quadratic term at the base level:
 # |dz| < eps * |Z| keeps |dz^2| below eps of the linear |2 Z dz|.
 DEFAULT_BLA_EPS = 2.0 ** -16
+
+
+def smooth_bla_eps(dtype) -> float:
+    """The smooth table's ``eps``: the unit roundoff of the delta dtype
+    (2^-24 in float32, 2^-53 in float64), so a skip drops a quadratic
+    term below the rounding of the linear one.  ``DEFAULT_BLA_EPS`` put
+    smooth values of the period-349 minibrot view (config 4's nucleus at
+    span 1.5e-17, float64) up to 6.96 off the exact scan, and on 16.7%
+    of its pixels more than 1e-6 (2^-40: 3.1e-6; 2^-53: none)."""
+    return float(np.finfo(dtype).eps) / 2.0
 
 # Deepest skip = 2^LMAX steps; the loop pays (LMAX - min level) scalar
 # level checks per iteration.
@@ -417,29 +437,48 @@ def _bla_scan_smooth(z_re, z_im, tabs, dc_re, dc_im, *, orbit_len: int,
 
 
 # Smooth-path skip guard: only orbit segments with |Z| below this may be
-# skipped.  Measured on hardware (2026-07-31, 256^2): at the integer
-# path's 4.0 cap the smooth plane differed from the exact scan on 17.7%
-# of the config-4 boundary view's pixels (p99 |dnu| 0.005 but MAX 72
-# bands — visible dots in animations); at 1.0 the two are bit-identical
-# there at unchanged throughput, while the bond-point showcase keeps
-# 11.5x (vs 12.4x) bit-identical.  0.5 forfeits the bond speedup
-# (0.7x).  Mid-magnitude segments (1 <= |Z| < 4) amplify the dropped
-# quadratic term right where smooth values are most visible, so the
-# smooth path trades those segments' skips for exactness; the integer
-# path keeps 4.0 under its documented approximate contract.
+# skipped.  Measured by the JAX package at eps 2^-16 (256^2): at the
+# integer path's 4.0 cap the smooth plane differed from the exact scan
+# on 17.7% of the config-4 boundary view's pixels (p99 |dnu| 0.005 but
+# MAX 72 bands); at 1.0 the two were bit-identical there.  The cap alone
+# does not make the smooth route exact: at eps 2^-16 it still left the
+# period-349 minibrot view 6.96 off, which the dtype's own eps
+# (smooth_bla_eps) cures.  Mid-magnitude segments (1 <= |Z| < 4)
+# amplify the dropped quadratic term right where smooth values are most
+# visible; the integer path keeps 4.0 under its documented approximate
+# contract.
 SMOOTH_Z_CAP = 1.0
+
+
+def _smooth_table(z_re: np.ndarray, z_im: np.ndarray, dc_max: float, *,
+                  bailout: float, dtype):
+    """The smooth scan's table: ``eps`` the dtype's unit roundoff,
+    ``z_cap`` the lesser of :data:`SMOOTH_Z_CAP` and bailout/2."""
+    return _table(z_re, z_im, dc_max, smooth_bla_eps(dtype), dtype,
+                  z_cap=min(SMOOTH_Z_CAP, bailout / 2.0))
+
+
+def smooth_table_skips(z_re: np.ndarray, z_im: np.ndarray, dc_max: float,
+                       *, bailout: float, dtype) -> bool:
+    """Whether the smooth table offers a skip at the orbit's start to
+    deltas as large as ``dc_max``: the first choice the smooth scan makes
+    over a chunk whose lanes reach it.  In float64 the tables of the
+    period-349 minibrot view at 1.5e-17 and of the bond view at 1e-15
+    hold no valid skip anywhere.  The table is the one
+    :func:`bla_smooth_scan_factory` then uses (cached)."""
+    R2 = _smooth_table(z_re, z_im, dc_max, bailout=bailout, dtype=dtype)[4]
+    dc2 = float(np.asarray(dc_max * dc_max, dtype=dtype))
+    return _select_skip(0, dc2, R2, R2.shape[0], len(z_re)) > 0
 
 
 def bla_smooth_scan_factory(z_re: np.ndarray, z_im: np.ndarray,
                             dc_max: float, *, max_iter: int, bailout: float,
-                            dtype, add_dc: bool = True,
-                            eps: float = DEFAULT_BLA_EPS):
+                            dtype, add_dc: bool = True):
     """Smooth counterpart of :func:`bla_scan_factory` -> ``scan_fn(zr,
-    zi, dre, dim) -> (nu, glitched)``; the table's ``z_cap`` (the lesser
-    of :data:`SMOOTH_Z_CAP` and bailout/2) keeps every freeze inside
-    exact steps."""
-    tabs = _table(z_re, z_im, dc_max, eps, dtype,
-                  z_cap=min(SMOOTH_Z_CAP, bailout / 2.0))
+    zi, dre, dim) -> (nu, glitched)``, on :func:`_smooth_table`: its
+    ``z_cap`` keeps every freeze inside exact steps, its ``eps`` every
+    skip within rounding."""
+    tabs = _smooth_table(z_re, z_im, dc_max, bailout=bailout, dtype=dtype)
     levels = tabs[0].shape[0]
     orbit_len = len(z_re)
 

@@ -512,16 +512,23 @@ def _smooth_nu(n, n2, fzr, fzi, act2, glitched, *, orbit_len: int,
 
 
 def _perturb_scan_smooth(z_re, z_im, dc_re, dc_im, *, max_iter: int,
-                         bailout: float, add_dc: bool = True):
+                         bailout: float, add_dc: bool = True,
+                         lane_steps: list | None = None):
     """Smooth twin of :func:`_perturb_scan` -> ``(nu, glitched)``: also
     freezes the full value at the first radius-``bailout`` crossing; a
     radius-2 count alongside classifies in-set pixels as the integer
     path does.  No stagnation stop (a stagnant lane diverted to the
     exact repair would come back as an integer count).  K10 on a CUDA
-    device, its plain version on the CPU."""
+    device, its plain version on the CPU.  ``lane_steps``, a list, gets
+    the steps the lanes needed (each to its bailout crossing, or the
+    whole orbit) as one int64 tensor on the device, summed there."""
     from distributedmandelbrot_tpu_torch.ops import cuda_perturb
-    n, n2, fzr, fzi, _, act2, glitched = cuda_perturb.perturb_smooth_state(
-        z_re, z_im, dc_re, dc_im, bailout=bailout, add_dc=add_dc)
+    n, n2, fzr, fzi, act_b, act2, glitched = \
+        cuda_perturb.perturb_smooth_state(z_re, z_im, dc_re, dc_im,
+                                          bailout=bailout, add_dc=add_dc)
+    if lane_steps is not None:
+        lane_steps.append((n + 1).masked_fill(act_b, z_re.shape[0]).sum(
+            dtype=torch.int64))
     return _smooth_nu(n, n2, fzr, fzi, act2, glitched,
                       orbit_len=z_re.shape[0], max_iter=max_iter,
                       bailout=bailout)
@@ -711,7 +718,7 @@ def _compute_perturb(spec: DeepTileSpec, max_iter: int, scan_fn, *,
                      dtype, prec_bits: int, max_glitch_fix: int | None,
                      julia_c: tuple[str, str] | None = None,
                      scan_factory=None, repair_scan_fn=None,
-                     bla: bool | None = False,
+                     bla: bool | None = False, bla_offers=None,
                      device="cuda") -> tuple[np.ndarray, int]:
     """The shared perturbation route (the JAX package's): validates the span
     for the dtype, widens the orbit precision with depth, picks the
@@ -723,9 +730,14 @@ def _compute_perturb(spec: DeepTileSpec, max_iter: int, scan_fn, *,
     ``julia_c`` switches to the Julia family (the deltas lose their dc
     term).  ``scan_factory(z_re, z_im, dc_max) -> scan_fn`` builds an
     orbit-specific scan (BLA's tables), used where ``bla`` is True or the
-    auto-probe (``bla=None``) enables it.  The row chunks are the JAX
-    package's (2^20 pixels in f32, 2^19 in f64): BLA decides its skips
-    per chunk, so its output depends on them."""
+    auto-probe (``bla=None``) enables it.  Where given, ``bla_offers(z_re,
+    z_im, dc_max)`` must then also hold for the probe to enable it (the
+    smooth route's ``bla.smooth_table_skips``: a table that offers no
+    skip at the view's deltas would run the exact steps in the BLA loop,
+    one launch an operation, in place of one kernel).  Each view adds 1
+    to the count ``deep.bla_views`` if it takes BLA, else 0.  The row
+    chunks are the JAX package's (2^20 pixels in f32, 2^19 in f64): BLA
+    decides its skips per chunk, so its output depends on them."""
     span_floor = 1e-30 if np.dtype(dtype) == np.float32 else 1e-290
     if spec.span < span_floor:
         raise ValueError(
@@ -760,18 +772,24 @@ def _compute_perturb(spec: DeepTileSpec, max_iter: int, scan_fn, *,
             ((np.arange(spec.height) - (spec.height - 1) / 2) * step
              - off_im)[:, None], (spec.height, spec.width))
         zr, zi = _device_orbit(z_re, z_im, dev)
+    # max(a_i^2 + b_j^2) = max a^2 + max b^2 (rounding is monotone).
+    dc_max = float(np.sqrt(np.max(dre[0] * dre[0])
+                           + np.max(dim[:, 0] * dim[:, 0])))
     use_bla = bla
     if use_bla is None:
         with phases.timed(obs_names.PHASE_DEEP_BLA_PROBE):
             use_bla = (scan_factory is not None
                        and _auto_bla(z_re, z_im, zr, zi, dre, dim, max_iter,
                                      julia_c is None, dtype=dtype))
+            if use_bla and bla_offers is not None and \
+                    not bla_offers(z_re, z_im, dc_max):
+                use_bla = False
+                logger.info("BLA auto-disabled: the table offers no skip "
+                            "at the view's deltas")
     if not use_bla:
         scan_factory = None  # the secondary pass stays on the exact scan
+    phases.tally(obs_names.COUNT_DEEP_BLA_VIEWS, scan_factory is not None)
     if scan_factory is not None:
-        # max(a_i^2 + b_j^2) = max a^2 + max b^2 (rounding is monotone).
-        dc_max = float(np.sqrt(np.max(dre[0] * dre[0])
-                               + np.max(dim[:, 0] * dim[:, 0])))
         scan_fn = scan_factory(z_re, z_im, dc_max)
     limit = (1 << 20) if np.dtype(dtype) == np.float32 else (1 << 19)
     chunk = max(1, min(spec.height, limit // max(1, spec.width)))
@@ -949,15 +967,21 @@ def compute_smooth_perturb(spec: DeepTileSpec, max_iter: int, *,
     n_glitched)``: float (height, width) renormalized counts (0 =
     in-set).  Pixels glitched against both references are patched with
     their exact *integer* count.  ``bla`` as for
-    :func:`compute_counts_perturb` (the table's ``z_cap`` guard keeps
-    every frozen value exact).  K10 on a CUDA device."""
+    :func:`compute_counts_perturb`, but BLA here skips only where the
+    term it drops is below the delta dtype's rounding (``ops/bla.py``:
+    the table's ``eps`` is the dtype's unit roundoff, its ``z_cap`` keeps
+    every frozen value inside exact steps), and the probe also declines
+    where that table offers no skip.  K10 on a CUDA device; the steps its lanes needed
+    are added to the count ``deep.lane_steps``, once a view."""
     if max_iter <= 1:
         return np.zeros((spec.height, spec.width), dtype), 0
     add_dc = julia_c is None
+    lane_steps: list = []
 
     def scan(zr, zi, dre, dim):
         return _perturb_scan_smooth(zr, zi, dre, dim, max_iter=max_iter,
-                                    bailout=float(bailout), add_dc=add_dc)
+                                    bailout=float(bailout), add_dc=add_dc,
+                                    lane_steps=lane_steps)
 
     def factory(z_re, z_im, dc_max):
         from distributedmandelbrot_tpu_torch.ops.bla import (
@@ -967,8 +991,19 @@ def compute_smooth_perturb(spec: DeepTileSpec, max_iter: int, *,
                                        bailout=float(bailout),
                                        dtype=dtype, add_dc=add_dc)
 
-    return _compute_perturb(spec, max_iter, scan, dtype=dtype,
-                            prec_bits=prec_bits,
-                            max_glitch_fix=max_glitch_fix,
-                            julia_c=julia_c, scan_factory=factory, bla=bla,
-                            device=device)
+    def offers(z_re, z_im, dc_max):
+        from distributedmandelbrot_tpu_torch.ops.bla import (
+            smooth_table_skips)
+        return smooth_table_skips(z_re, z_im, dc_max, bailout=float(bailout),
+                                  dtype=dtype)
+
+    out = _compute_perturb(spec, max_iter, scan, dtype=dtype,
+                           prec_bits=prec_bits,
+                           max_glitch_fix=max_glitch_fix,
+                           julia_c=julia_c, scan_factory=factory, bla=bla,
+                           bla_offers=offers, device=device)
+    if lane_steps:
+        # The view's one read of the sums, its planes long fetched.
+        phases.tally(obs_names.COUNT_DEEP_LANE_STEPS,
+                     int(torch.stack(lane_steps).sum()))
+    return out

@@ -185,4 +185,6 @@ def test_names_only_add_the_demotion_counter():
                     'PHASE_DEEP_ORBIT = "deep.orbit"',
                     'PHASE_DEEP_PROBE = "deep.probe"',
                     'COUNT_DEEP_GLITCHED = "glitched"',
-                    'COUNT_DEEP_EXACT_REPAIRED = "exact_repaired"']
+                    'COUNT_DEEP_EXACT_REPAIRED = "exact_repaired"',
+                    'COUNT_DEEP_LANE_STEPS = "deep.lane_steps"',
+                    'COUNT_DEEP_BLA_VIEWS = "deep.bla_views"']

@@ -66,7 +66,13 @@ def host_lib(tmp_path_factory):
         "clang++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build perturb.cuh's loop with")
-    out = tmp_path_factory.mktemp("dm_perturb") / "libdm_perturb_host.so"
+    return host_build(cxx, tmp_path_factory.mktemp("dm_perturb"))
+
+
+def host_build(cxx: str, directory: Path):
+    """``perturb.cuh``'s loops built for the host by ``cxx`` into
+    ``directory``, loaded with their C signatures."""
+    out = directory / "libdm_perturb_host.so"
     subprocess.run([cxx, "-O2", "-ffp-contract=off", "-std=c++17",
                     "-shared", "-fPIC", "-I", str(CSRC / "host"), "-I",
                     str(CSRC), str(CSRC / "host" / "perturb_scan.cpp"), "-o",
