@@ -789,10 +789,11 @@ def _render_view(c_re: str, c_im: str, span: float, definition: int,
 
 
 def _save_png(path: str, rgba) -> None:
-    """Write float RGBA as an RGBA8 PNG with the bytes ``plt.imsave``
+    """Write float RGBA as an RGBA8 PNG with the pixels ``plt.imsave``
     would store (no matplotlib needed; uint8 RGBA passes through), each
     step a phase of the render: float to uint8, deflate, the file
-    write."""
+    write.  Deflate is ``encode_png``'s, looked up at the call: row
+    bands on the host's cores, bytes that follow the image alone."""
     from distributedmandelbrot_tpu_torch.obs import names as obs_names
     from distributedmandelbrot_tpu_torch.obs import phases
     from distributedmandelbrot_tpu_torch.serve.render import (encode_png,

@@ -447,9 +447,9 @@ POSTMORTEM_ANOMALIES = "postmortem_anomalies"
 # probe and tables, scans, secondary and exact repairs, the fixed-point
 # orbits it computes and its probe scans; and the route's counts of
 # glitched and exactly repaired pixels, of the steps K10's lanes needed,
-# and of the views that took BLA.  A phase that launches no device
-# work also appears in a ``torch.profiler`` trace as an annotation named
-# with the prefix before its key.
+# and of the views that took BLA; and the bands a PNG's deflate took.  A
+# phase that launches no device work also appears in a ``torch.profiler``
+# trace as an annotation named with the prefix before its key.
 PHASE_ANNOTATION_PREFIX = "dmtpu."
 PHASE_RENDER_PARSE = "render.parse"
 PHASE_RENDER_COLORMAP = "render.colormap"
@@ -468,6 +468,7 @@ COUNT_DEEP_GLITCHED = "glitched"
 COUNT_DEEP_EXACT_REPAIRED = "exact_repaired"
 COUNT_DEEP_LANE_STEPS = "deep.lane_steps"
 COUNT_DEEP_BLA_VIEWS = "deep.bla_views"
+COUNT_RENDER_DEFLATE_BANDS = "render.deflate_bands"
 
 # -- legacy aliases -------------------------------------------------------
 

@@ -55,7 +55,9 @@ def phase_seconds() -> dict[str, float]:
     render's: ``render.parse`` (its arguments), ``render.colormap``,
     ``render.rgba8`` (float RGBA to uint8; a pass-through for a view
     coloured straight to uint8), ``render.deflate`` (the PNG's
-    encoding) and ``render.write`` (the file)."""
+    encoding) and ``render.write`` (the file); the count
+    ``render.deflate_bands`` (the row bands the PNGs' deflate took, 1
+    for an image of one band)."""
     with _lock:
         out = dict(_seconds)
         out.update({k: float(v) for k, v in _counts.items()})

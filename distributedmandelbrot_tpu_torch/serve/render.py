@@ -24,15 +24,24 @@ straight to the bytes :func:`imsave_bytes` would store, through tables
 built from the float route's own arithmetic (:func:`smooth_boundaries`,
 :func:`smooth_table8`; the kernel of ``ops/cuda_colormap.py`` on a
 card).
+
+A large PNG is deflated in bands of rows on the host's cores
+(:func:`encode_png`), into one zlib stream whose bytes follow the image
+alone.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 import threading
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+from distributedmandelbrot_tpu_torch.obs import names as obs_names
+from distributedmandelbrot_tpu_torch.obs import phases
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -601,9 +610,94 @@ def _png_chunk(tag: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(tag + body)))
 
 
+# A PNG's scanlines are deflated in bands of whole rows of about this
+# many bytes, each on a thread of the deflate pool.
+BAND_BYTES = 1 << 18
+# Deflate's window: a band is primed with the bytes this far before it.
+_WINDOW = 1 << 15
+_ADLER_BASE = 65521
+_pool: ThreadPoolExecutor | None = None
+
+
+def _deflate_pool() -> ThreadPoolExecutor:
+    """The deflate threads, one a usable core, made at the first banded
+    PNG."""
+    global _pool
+    with _LOCK:
+        if _pool is None:
+            try:
+                cores = len(os.sched_getaffinity(0))
+            except AttributeError:
+                cores = os.cpu_count() or 1
+            _pool = ThreadPoolExecutor(cores,
+                                       thread_name_prefix="dmtpu-deflate")
+        return _pool
+
+
+def _deflate_band(data: memoryview, start: int, stop: int, level: int
+                  ) -> tuple[bytes, int]:
+    """Raw deflate of ``data[start:stop]``, primed with the window of
+    bytes before it and ended on a byte boundary (a sync flush), or with
+    the final block where the band ends the data; and its Adler-32."""
+    primed = {"zdict": data[max(0, start - _WINDOW):start]} if start else {}
+    band = data[start:stop]
+    deflater = zlib.compressobj(level, zlib.DEFLATED, -zlib.MAX_WBITS,
+                                zlib.DEF_MEM_LEVEL, zlib.Z_DEFAULT_STRATEGY,
+                                **primed)
+    body = deflater.compress(band) + deflater.flush(
+        zlib.Z_FINISH if stop == len(data) else zlib.Z_SYNC_FLUSH)
+    return body, zlib.adler32(band)
+
+
+def _adler32_combine(first: int, second: int, second_len: int) -> int:
+    """The Adler-32 of two byte strings joined, from each one's and the
+    second's length (zlib's ``adler32_combine``)."""
+    low = ((first & 0xFFFF) + (second & 0xFFFF) - 1) % _ADLER_BASE
+    high = ((first >> 16) + (second >> 16)
+            + second_len * ((first & 0xFFFF) - 1)) % _ADLER_BASE
+    return high << 16 | low
+
+
+def _deflate_scanlines(scanlines: np.ndarray, level: int) -> bytes:
+    """The zlib stream of ``scanlines`` (rows of a PNG), deflated in
+    bands of whole rows at once on the pool's threads (zlib lets go of
+    the GIL while it deflates); an image of one band is one
+    ``zlib.compress``."""
+    height, stride = scanlines.shape
+    rows = max(1, BAND_BYTES // max(1, stride - 1))
+    data = memoryview(scanlines).cast("B")
+    bands = [(top * stride, min(top + rows, height) * stride)
+             for top in range(0, height, rows)]
+    phases.tally(obs_names.COUNT_RENDER_DEFLATE_BANDS, len(bands))
+    if len(bands) <= 1:
+        return zlib.compress(data, level)
+    pool = _deflate_pool()
+    parts = [f.result() for f in [
+        pool.submit(_deflate_band, data, start, stop, level)
+        for start, stop in bands]]
+    check = parts[0][1]
+    for (start, stop), (_, adler) in zip(bands[1:], parts[1:]):
+        check = _adler32_combine(check, adler, stop - start)
+    # The header zlib writes at this level, then the bands as one
+    # deflate stream, then the Adler-32 of the whole.
+    return b"".join([zlib.compress(b"", level)[:2],
+                     *(body for body, _ in parts),
+                     struct.pack(">I", check)])
+
+
 def encode_png(rgba8: np.ndarray, *, compress_level: int = 6) -> bytes:
     """(H, W, 4) uint8 -> an 8-bit RGBA PNG (color type 6, filter 0 on
-    every scanline, no ancillary chunks)."""
+    every scanline, one IDAT, no ancillary chunks).
+
+    The IDAT is one zlib stream at ``compress_level``, deflated in bands
+    of whole rows of about :data:`BAND_BYTES` on the host's cores: each
+    band is raw deflate primed with the 32 KiB before it (so its matches
+    reach back across the seam as one stream's would) and ended with a
+    sync flush, the last with the final block; the stream's header and
+    Adler-32 are the whole input's.  The bands follow the image's shape
+    alone, so the bytes are the same on any host and with any number of
+    threads; an image of one band gives ``zlib.compress``'s bytes.  The
+    bands deflated are added to the count ``render.deflate_bands``."""
     rgba8 = np.ascontiguousarray(rgba8, dtype=np.uint8)
     height, width, _ = rgba8.shape
     scanlines = np.zeros((height, width * 4 + 1), dtype=np.uint8)
@@ -611,8 +705,8 @@ def encode_png(rgba8: np.ndarray, *, compress_level: int = 6) -> bytes:
     ihdr = struct.pack(">IIBBBBB", width, height, 8, 6, 0, 0, 0)
     return (PNG_SIGNATURE
             + _png_chunk(b"IHDR", ihdr)
-            + _png_chunk(b"IDAT", zlib.compress(scanlines.tobytes(),
-                                                compress_level))
+            + _png_chunk(b"IDAT",
+                         _deflate_scanlines(scanlines, compress_level))
             + _png_chunk(b"IEND", b""))
 
 
