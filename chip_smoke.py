@@ -1201,11 +1201,10 @@ def deep_inputs(pt, center, span, side, max_iter, dtype, dev, julia_c=None,
     za, zb = pt._to_fixed(center[0], bits), pt._to_fixed(center[1], bits)
     ca, cb = ((za, zb) if julia_c is None else
               (pt._to_fixed(julia_c[0], bits), pt._to_fixed(julia_c[1], bits)))
-    z_re, z_im, _, o_re, o_im = pt._find_reference(
+    orbit, o_re, o_im = pt._find_reference(
         za, zb, ca, cb, span, max_iter, bits, add_dc=julia_c is None,
         device=str(dev))
-    if orbit_len is not None:
-        z_re, z_im = z_re[:orbit_len], z_im[:orbit_len]
+    z_re, z_im = orbit.z_re[:orbit_len], orbit.z_im[:orbit_len]
     col = (np.arange(side) - (side - 1) / 2) * spec.step
     row = torch.as_tensor((col - o_re).astype(dtype), device=dev)
     colv = torch.as_tensor((col - o_im).astype(dtype), device=dev)
@@ -1292,15 +1291,9 @@ DEEP_PHASES = ("reference", "bla_probe", "bla_table", "scan",
 
 
 def clear_deep_caches(pt) -> None:
-    """Forget every cached reference search, orbit, device orbit, BLA
-    decision and table: the next render of a view starts cold."""
-    from distributedmandelbrot_tpu_torch.ops import bla
-    for cached in (pt._find_reference, pt._orbit_cached,
-                   pt._orbit_cached_giant):
-        cached.cache_clear()
-    pt._DEVICE_ORBIT_CACHE.clear()
-    pt._AUTO_BLA_CACHE.clear()
-    bla._TABLE_CACHE.clear()
+    """Forget every reference search, orbit, device orbit, BLA decision
+    and table: the next render of a view starts cold."""
+    pt.ORBITS.clear()
 
 
 class ScanTimer:

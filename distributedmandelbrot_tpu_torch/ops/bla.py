@@ -44,7 +44,6 @@ the exact scan (:func:`smooth_table_skips`).
 from __future__ import annotations
 
 import logging
-from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -196,47 +195,25 @@ def build_bla_table(z_re: np.ndarray, z_im: np.ndarray, dc_max: float,
     return A_re, A_im, B_re, B_im, R2
 
 
-_TABLE_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
-_TABLE_CACHE_MAX = 4
-# Byte bound, the same rationale as perturbation's device-orbit cache.
-_TABLE_CACHE_MAX_BYTES = 256 * 1024 * 1024
-
-
-def _table(z_re: np.ndarray, z_im: np.ndarray, dc_max: float, eps: float,
-           dtype, z_cap: float = 4.0):
-    """The BLA table cast to the delta dtype (the JAX package's
+def _table(orbit, dc_max: float, eps: float, dtype, z_cap: float = 4.0):
+    """The orbit's BLA table cast to the delta dtype (the JAX package's
     ``_device_table``; here host-resident, since the skip decision and
-    the skip's coefficients are read on the host), LRU-cached by the
-    host orbit's identity with a fingerprint, ``dc_max`` quantized a
-    power of two up so nearby views share."""
+    the skip's coefficients are read on the host), made once and kept
+    with the orbit (``perturbation.ReferenceOrbit``), ``dc_max``
+    quantized a power of two up so nearby views share it."""
     q = float(2.0 ** np.ceil(np.log2(max(dc_max, 1e-300))))
-    key = (id(z_re), id(z_im), len(z_re), q, eps, np.dtype(dtype).str,
-           z_cap)
-    mid = len(z_re) // 2
-    fp = (float(z_re[0]), float(z_im[0]), float(z_re[-1]),
-          float(z_im[-1]), float(z_re[mid]), float(z_im[mid]))
-    hit = _TABLE_CACHE.get(key)
-    if hit is not None and hit[0] == fp:
-        _TABLE_CACHE.move_to_end(key)
-        return hit[1]
-    with phases.timed(obs_names.PHASE_DEEP_BLA_TABLE):
-        host = build_bla_table(z_re, z_im, q, eps=eps, z_cap=z_cap)
-        # The cast may saturate extension-segment coefficients to inf;
-        # build_bla_table zeroed those entries' radii, so they are never
-        # selected.
-        with np.errstate(over="ignore"):
-            tabs = tuple(t.astype(dtype) for t in host)
-    _TABLE_CACHE[key] = (fp, tabs)
 
-    def total_bytes():
-        return sum(sum(t.nbytes for t in e[1])
-                   for e in _TABLE_CACHE.values())
+    def build():
+        with phases.timed(obs_names.PHASE_DEEP_BLA_TABLE):
+            host = build_bla_table(orbit.z_re, orbit.z_im, q, eps=eps,
+                                   z_cap=z_cap)
+            # The cast may saturate extension-segment coefficients to
+            # inf; build_bla_table zeroed those entries' radii, so they
+            # are never selected.
+            with np.errstate(over="ignore"):
+                return tuple(t.astype(dtype) for t in host)
 
-    while (len(_TABLE_CACHE) > _TABLE_CACHE_MAX
-           or (len(_TABLE_CACHE) > 1
-               and total_bytes() > _TABLE_CACHE_MAX_BYTES)):
-        _TABLE_CACHE.popitem(last=False)
-    return tabs
+    return orbit.memo(("bla", q, eps, np.dtype(dtype).str, z_cap), build)
 
 
 # Exact steps advanced per iteration when no skip validates: amortizes
@@ -344,16 +321,14 @@ def _bla_scan(z_re, z_im, tabs, dc_re, dc_im, *, orbit_len: int,
     return counts, glitched, act, skipped
 
 
-def bla_scan_factory(z_re: np.ndarray, z_im: np.ndarray, dc_max: float, *,
-                     max_iter: int, dtype, add_dc: bool = True,
-                     eps: float = DEFAULT_BLA_EPS):
+def bla_scan_factory(orbit, dc_max: float, *, max_iter: int, dtype,
+                     add_dc: bool = True, eps: float = DEFAULT_BLA_EPS):
     """A ``scan_fn(zr, zi, dre, dim) -> (counts, glitched)`` for
-    ``perturbation._compute_perturb``, with the BLA table built (and
-    cached) from the HOST orbit arrays; ``zr/zi`` passed at call time
-    are the device copies of the same orbit."""
-    tabs = _table(z_re, z_im, dc_max, eps, dtype)
+    ``perturbation._compute_perturb`` on the orbit's BLA table; ``zr/zi``
+    passed at call time are the orbit's device copy."""
+    tabs = _table(orbit, dc_max, eps, dtype)
     levels = tabs[0].shape[0]
-    orbit_len = len(z_re)
+    orbit_len = len(orbit.z_re)
 
     def scan_fn(zr, zi, dre, dim):
         counts, glitched, _, skipped = _bla_scan(
@@ -450,37 +425,35 @@ def _bla_scan_smooth(z_re, z_im, tabs, dc_re, dc_im, *, orbit_len: int,
 SMOOTH_Z_CAP = 1.0
 
 
-def _smooth_table(z_re: np.ndarray, z_im: np.ndarray, dc_max: float, *,
-                  bailout: float, dtype):
+def _smooth_table(orbit, dc_max: float, *, bailout: float, dtype):
     """The smooth scan's table: ``eps`` the dtype's unit roundoff,
     ``z_cap`` the lesser of :data:`SMOOTH_Z_CAP` and bailout/2."""
-    return _table(z_re, z_im, dc_max, smooth_bla_eps(dtype), dtype,
+    return _table(orbit, dc_max, smooth_bla_eps(dtype), dtype,
                   z_cap=min(SMOOTH_Z_CAP, bailout / 2.0))
 
 
-def smooth_table_skips(z_re: np.ndarray, z_im: np.ndarray, dc_max: float,
-                       *, bailout: float, dtype) -> bool:
-    """Whether the smooth table offers a skip at the orbit's start to
-    deltas as large as ``dc_max``: the first choice the smooth scan makes
-    over a chunk whose lanes reach it.  In float64 the tables of the
-    period-349 minibrot view at 1.5e-17 and of the bond view at 1e-15
-    hold no valid skip anywhere.  The table is the one
-    :func:`bla_smooth_scan_factory` then uses (cached)."""
-    R2 = _smooth_table(z_re, z_im, dc_max, bailout=bailout, dtype=dtype)[4]
+def smooth_table_skips(orbit, dc_max: float, *, bailout: float,
+                       dtype) -> bool:
+    """Whether the orbit's smooth table offers a skip at the orbit's
+    start to deltas as large as ``dc_max``: the first choice the smooth
+    scan makes over a chunk whose lanes reach it.  In float64 the tables
+    of the period-349 minibrot view at 1.5e-17 and of the bond view at
+    1e-15 hold no valid skip anywhere.  The table is the one
+    :func:`bla_smooth_scan_factory` then uses."""
+    R2 = _smooth_table(orbit, dc_max, bailout=bailout, dtype=dtype)[4]
     dc2 = float(np.asarray(dc_max * dc_max, dtype=dtype))
-    return _select_skip(0, dc2, R2, R2.shape[0], len(z_re)) > 0
+    return _select_skip(0, dc2, R2, R2.shape[0], len(orbit.z_re)) > 0
 
 
-def bla_smooth_scan_factory(z_re: np.ndarray, z_im: np.ndarray,
-                            dc_max: float, *, max_iter: int, bailout: float,
-                            dtype, add_dc: bool = True):
+def bla_smooth_scan_factory(orbit, dc_max: float, *, max_iter: int,
+                            bailout: float, dtype, add_dc: bool = True):
     """Smooth counterpart of :func:`bla_scan_factory` -> ``scan_fn(zr,
     zi, dre, dim) -> (nu, glitched)``, on :func:`_smooth_table`: its
     ``z_cap`` keeps every freeze inside exact steps, its ``eps`` every
     skip within rounding."""
-    tabs = _smooth_table(z_re, z_im, dc_max, bailout=bailout, dtype=dtype)
+    tabs = _smooth_table(orbit, dc_max, bailout=bailout, dtype=dtype)
     levels = tabs[0].shape[0]
-    orbit_len = len(z_re)
+    orbit_len = len(orbit.z_re)
 
     def scan_fn(zr, zi, dre, dim):
         nu, glitched, skipped = _bla_scan_smooth(

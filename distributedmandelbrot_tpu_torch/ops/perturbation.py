@@ -32,8 +32,9 @@ from __future__ import annotations
 
 import logging
 from collections import OrderedDict
-from dataclasses import dataclass
-from functools import lru_cache
+from collections.abc import Callable
+from dataclasses import dataclass, field
+from functools import lru_cache, partial
 
 import numpy as np
 import torch
@@ -124,8 +125,8 @@ def reference_orbit(center_re: str | float, center_im: str | float,
                     prec_bits: int = 256
                     ) -> tuple[np.ndarray, np.ndarray, int]:
     """High-precision escape-time orbit of the center, truncated to
-    float64 arrays.  The arrays are shared with an LRU cache — treat
-    them as read-only.
+    float64 arrays.  The arrays are those of the orbit store,
+    :data:`ORBITS`, and read-only.
 
     Returns ``(Z_re, Z_im, valid_len)`` with ``Z[k] = z_{k+1}`` — the
     orbit runs ``z_1 = c`` through ``z_{max_iter}`` (the last value the
@@ -142,7 +143,8 @@ def reference_orbit(center_re: str | float, center_im: str | float,
     """
     v_re = _to_fixed(center_re, prec_bits)
     v_im = _to_fixed(center_im, prec_bits)
-    return _orbit_fixed(v_re, v_im, v_re, v_im, max_iter, prec_bits)
+    orbit = ORBITS.get(v_re, v_im, v_re, v_im, max_iter, prec_bits)
+    return orbit.z_re, orbit.z_im, orbit.valid
 
 
 def _native_fixed(bits: int = 0, *vals: int) -> bool:
@@ -162,56 +164,16 @@ def _native_fixed(bits: int = 0, *vals: int) -> bool:
         return False
 
 
-# Budgets whose orbit arrays stay worth caching at depth 64: above
-# this, 64 cached entries of (max_iter+12) * 16 B each could hold
-# gigabytes.  Giant orbits keep a 2-deep LRU instead of bypassing
-# entirely — a zoom animation still reuses its center's orbit across
-# frames (on the pure-Python fallback path a 200k+-step bigint
-# recompute per frame would cost minutes), with memory bounded at two
-# orbits' worth.
-ORBIT_CACHE_MAX_STEPS = 200_000
-
-
-def _orbit_fixed(za: int, zb: int, ca: int, cb: int, max_iter: int,
-                 bits: int, extra: int = 12
-                 ) -> tuple[np.ndarray, np.ndarray, int]:
+def _orbit_fixed_impl(za: int, zb: int, ca: int, cb: int, max_iter: int,
+                      bits: int, extra: int = 12
+                      ) -> tuple[np.ndarray, np.ndarray, int]:
     """Orbit entries ``z_1..`` plus up to ``extra`` true diverging steps
     past the first escape (or past the budget), so pixels escaping near
     the orbit's end can still reach the smooth-coloring radius.  The
     returned ``valid_len`` counts only the pre-extension entries; the
     arrays may be longer.  Post-escape values square each step, so the
-    extension stops before float64 overflow (~1e100).
-
-    LRU-cached below :data:`ORBIT_CACHE_MAX_STEPS` (treat the returned
-    arrays as immutable): a zoom animation re-renders the same center
-    at every frame, and the orbit depends only on (center, budget,
-    precision) — with precision quantized by the caller, frames share
-    one bigint computation.  The cache must hold at least 1 primary +
-    SECONDARY_REFERENCE_TRIES candidate orbits per view or a single
-    tile's repair pass evicts its own entries (64 covers several views;
-    arrays are 16 B per orbit step, ~1 MB at the 50k BASELINE budget)."""
-    if max_iter > ORBIT_CACHE_MAX_STEPS:
-        return _orbit_cached_giant(za, zb, ca, cb, max_iter, bits, extra)
-    return _orbit_cached(za, zb, ca, cb, max_iter, bits, extra)
-
-
-@lru_cache(maxsize=64)
-def _orbit_cached(za: int, zb: int, ca: int, cb: int, max_iter: int,
-                  bits: int, extra: int
-                  ) -> tuple[np.ndarray, np.ndarray, int]:
-    return _orbit_fixed_impl(za, zb, ca, cb, max_iter, bits, extra)
-
-
-@lru_cache(maxsize=2)
-def _orbit_cached_giant(za: int, zb: int, ca: int, cb: int,
-                        max_iter: int, bits: int, extra: int
-                        ) -> tuple[np.ndarray, np.ndarray, int]:
-    return _orbit_fixed_impl(za, zb, ca, cb, max_iter, bits, extra)
-
-
-def _orbit_fixed_impl(za: int, zb: int, ca: int, cb: int, max_iter: int,
-                      bits: int, extra: int = 12
-                      ) -> tuple[np.ndarray, np.ndarray, int]:
+    extension stops before float64 overflow (~1e100).  Uncached: the
+    route reaches it through :data:`ORBITS`."""
     # Host only, so its phase is marked in a profiler's trace.
     with phases.timed(obs_names.PHASE_DEEP_ORBIT, annotate=True):
         if _native_fixed(bits, za, zb, ca, cb):
@@ -241,10 +203,108 @@ def _orbit_fixed_impl(za: int, zb: int, ca: int, cb: int, max_iter: int,
         return z_re[:n], z_im[:n], valid if valid is not None else n
 
 
-# The uncached implementation under the same attribute functools exposed
-# before the size guard split the cache out (tests and instrumentation
-# reach the raw loop this way).
-_orbit_fixed.__wrapped__ = _orbit_fixed_impl  # type: ignore[attr-defined]
+# The orbit store's bounds.  A view uses about 15 orbits (its reference
+# search's hops and up to SECONDARY_REFERENCE_TRIES secondary candidates)
+# and one BLA table, so 64 orbits cover several views: a zoom animation
+# re-renders its center's orbit at every frame, and the orbit depends
+# only on (center, budget, precision), with precision quantized by the
+# caller.  At the 50,000-step budget an orbit and its device copy take
+# 1.6 MB; the byte bound keeps giant budgets from pinning gigabytes of
+# host or device memory.
+ORBIT_STORE_MAX = 64
+ORBIT_STORE_MAX_BYTES = 256 * 1024 * 1024
+
+
+def _nbytes(value) -> int:
+    """Bytes of an array, a tensor or a tuple of them (0 for others)."""
+    if isinstance(value, tuple):
+        return sum(_nbytes(v) for v in value)
+    return getattr(value, "nbytes", 0)
+
+
+@dataclass(frozen=True, eq=False)
+class ReferenceOrbit:
+    """One reference orbit: its fixed-point inputs, the float64 entries
+    of :func:`_orbit_fixed_impl` (read-only) and their valid length.
+    What is derived from it (its device copies, BLA tables and auto-BLA
+    answers) is made once, kept on it and evicted with it from
+    :data:`ORBITS`."""
+
+    key: tuple  # (za, zb, ca, cb, max_iter, bits)
+    z_re: np.ndarray
+    z_im: np.ndarray
+    valid: int
+    _derived: dict = field(default_factory=dict, repr=False)
+
+    @property
+    def nbytes(self) -> int:
+        """Host arrays and every derived array or tensor, in bytes."""
+        return _nbytes((self.z_re, self.z_im, *self._derived.values()))
+
+    def memo(self, key: tuple, make):
+        """``make()``, made once per ``key`` and kept with the orbit."""
+        if key not in self._derived:
+            value = self._derived[key] = make()
+            ORBITS.touch(self, _nbytes(value))
+        return self._derived[key]
+
+    def on(self, device) -> tuple[torch.Tensor, torch.Tensor]:
+        """The orbit as float64 tensors on ``device``, uploaded once.  The
+        scans cast it to their delta dtype (f32 saturates the post-escape
+        extension's ~1e100 entries to inf by design: the scans treat them
+        as escaped)."""
+        dev = torch.device(device)
+        return self.memo(("on", str(dev)), lambda: (
+            torch.tensor(self.z_re, device=dev),
+            torch.tensor(self.z_im, device=dev)))
+
+
+class _OrbitStore:
+    """The reference orbits in use, keyed by their fixed-point inputs:
+    at most :data:`ORBIT_STORE_MAX` orbits and
+    :data:`ORBIT_STORE_MAX_BYTES` with what is derived from them.  The
+    least recently used orbit goes first, never the one just made or
+    added to."""
+
+    def __init__(self):
+        self._lru: OrderedDict[tuple, ReferenceOrbit] = OrderedDict()
+        self._bytes = 0
+
+    def get(self, za: int, zb: int, ca: int, cb: int, max_iter: int,
+            bits: int) -> ReferenceOrbit:
+        """The orbit of ``z -> z^2 + (ca, cb)`` from ``(za, zb)``, computed
+        if the store does not hold it."""
+        key = (za, zb, ca, cb, max_iter, bits)
+        orbit = self._lru.get(key)
+        if orbit is None:
+            z_re, z_im, valid = _orbit_fixed_impl(*key)
+            z_re.flags.writeable = z_im.flags.writeable = False
+            orbit = self._lru[key] = ReferenceOrbit(key, z_re, z_im, valid)
+            self._bytes += orbit.nbytes
+        self.touch(orbit)
+        return orbit
+
+    def touch(self, orbit: ReferenceOrbit, grown: int = 0) -> None:
+        """Make ``orbit``, which has just grown by ``grown`` bytes, the most
+        recently used and evict to the bounds.  An orbit already evicted
+        stays with whoever holds it."""
+        if self._lru.get(orbit.key) is not orbit:
+            return
+        self._bytes += grown
+        self._lru.move_to_end(orbit.key)
+        while len(self._lru) > 1 and (len(self._lru) > ORBIT_STORE_MAX or
+                                      self._bytes > ORBIT_STORE_MAX_BYTES):
+            self._bytes -= self._lru.popitem(last=False)[1].nbytes
+
+    def clear(self) -> None:
+        """Forget every orbit, all that is derived from one, and every
+        reference search's result."""
+        self._lru.clear()
+        self._bytes = 0
+        _search_reference.cache_clear()
+
+
+ORBITS = _OrbitStore()
 
 
 def _escape_counts_exact_batch(points: list[tuple[int, int]],
@@ -327,10 +387,14 @@ class DeepTileSpec:
     def step(self) -> float:
         return self.span / (self.width - 1)
 
+    def offset(self, row, col) -> tuple:
+        """Pixel ``(row, col)``'s offset from the center, ``(re, im)``, in
+        float64; rows and columns may be index arrays."""
+        return ((col - (self.width - 1) / 2) * self.step,
+                (row - (self.height - 1) / 2) * self.step)
+
     def delta_grids(self, dtype=np.float64) -> tuple[np.ndarray, np.ndarray]:
-        step = self.step
-        col = (np.arange(self.width) - (self.width - 1) / 2) * step
-        row = (np.arange(self.height) - (self.height - 1) / 2) * step
+        col, row = self.offset(np.arange(self.height), np.arange(self.width))
         dre = np.broadcast_to(col, (self.height, self.width))
         dim = np.broadcast_to(row[:, None], (self.height, self.width))
         return dre.astype(dtype).copy(), dim.astype(dtype).copy()
@@ -544,64 +608,59 @@ def _perturb_scan_smooth(z_re, z_im, dc_re, dc_im, *, max_iter: int,
 # escape-rich views whose scans exit early anyway (measured -12% on the
 # config-4 Misiurewicz window).  Survivor fraction at the probe horizon
 # separates the two cleanly: ~1.0 on the bond view vs ~0.003 on
-# config 4.  Decisions are cached per (orbit, budget, delta-scale)
-# so animations and bench repeats pay the probe dispatch once.
+# config 4.  Decisions are kept with the orbit per delta scale, so
+# animations and bench repeats pay the probe dispatch once.
 BLA_AUTO_MIN_BUDGET = 20000
 BLA_AUTO_PROBE_STEPS = 4096
 BLA_AUTO_PROBE_LANES = 4096
 BLA_AUTO_SURVIVOR_FRAC = 0.5
-_AUTO_BLA_CACHE: "OrderedDict[tuple, bool]" = OrderedDict()
-_AUTO_BLA_CACHE_MAX = 64
 
 
-def _auto_bla(z_re: np.ndarray, z_im: np.ndarray, zr_dev, zi_dev,
-              dre: np.ndarray, dim: np.ndarray, max_iter: int,
-              add_dc: bool, dtype=np.float32) -> bool:
+def _auto_bla(orbit: ReferenceOrbit, dre: np.ndarray, dim: np.ndarray,
+              max_iter: int, add_dc: bool, dtype=np.float32,
+              device="cpu") -> bool:
     """Decide the BLA question for one (orbit, view, budget): the exact
     delta scan on a lattice of about 4096 lanes of the view, capped at
-    :data:`BLA_AUTO_PROBE_STEPS`, at the render dtype; BLA wins where most
-    lanes are still bounded and clean there.  ``z_re/z_im`` are the host
-    orbit (cache key), ``zr_dev/zi_dev`` its device copy."""
+    :data:`BLA_AUTO_PROBE_STEPS`, at the render dtype, on ``device``;
+    BLA wins where most lanes are still bounded and clean there.  The
+    answer is kept with the orbit per budget, delta-scale exponent,
+    dtype, ``add_dc`` and device."""
+    z_re = orbit.z_re
     if max_iter < BLA_AUTO_MIN_BUDGET or len(z_re) < max_iter:
         return False
     scale = float(max(np.max(np.abs(dre)), np.max(np.abs(dim)), 1e-300))
-    key = (len(z_re), float(z_re[0]), float(z_im[0]), float(z_re[-1]),
-           float(z_im[-1]), max_iter, add_dc, np.dtype(dtype).str,
-           int(np.round(np.log2(scale))), str(zr_dev.device))
-    hit = _AUTO_BLA_CACHE.get(key)
-    if hit is not None:
-        _AUTO_BLA_CACHE.move_to_end(key)
-        return hit
-    # A 2-D lattice over the separable delta grid, at the render dtype.
-    h, w = dre.shape
-    side = int(np.sqrt(BLA_AUTO_PROBE_LANES))
-    ci = np.linspace(0, w - 1, min(side, w)).astype(int)
-    ri = np.linspace(0, h - 1, min(side, h)).astype(int)
-    pre = np.broadcast_to(dre[0, ci][None, :], (len(ri), len(ci)))
-    pim = np.broadcast_to(dim[ri, 0][:, None], (len(ri), len(ci)))
-    plen = min(BLA_AUTO_PROBE_STEPS, len(z_re))
-    dev = zr_dev.device
-    _, glitched, active = _perturb_scan(
-        zr_dev[:plen], zi_dev[:plen],
-        torch.as_tensor(pre.astype(dtype), device=dev),
-        torch.as_tensor(pim.astype(dtype), device=dev),
-        max_iter=plen, add_dc=add_dc, stagnation=False)
-    frac = float((active & ~glitched).cpu().numpy().mean())
-    decision = frac >= BLA_AUTO_SURVIVOR_FRAC
-    logger.info("BLA auto-%s: probe survivor fraction %.3f at step %d "
-                "(budget %d)", "enabled" if decision else "disabled",
-                frac, plen, max_iter)
-    _AUTO_BLA_CACHE[key] = decision
-    while len(_AUTO_BLA_CACHE) > _AUTO_BLA_CACHE_MAX:
-        _AUTO_BLA_CACHE.popitem(last=False)
-    return decision
+    dev = torch.device(device)
+
+    def probe() -> bool:
+        # A 2-D lattice over the separable delta grid, at the render dtype.
+        h, w = dre.shape
+        side = int(np.sqrt(BLA_AUTO_PROBE_LANES))
+        ci = np.linspace(0, w - 1, min(side, w)).astype(int)
+        ri = np.linspace(0, h - 1, min(side, h)).astype(int)
+        pre = np.broadcast_to(dre[0, ci][None, :], (len(ri), len(ci)))
+        pim = np.broadcast_to(dim[ri, 0][:, None], (len(ri), len(ci)))
+        plen = min(BLA_AUTO_PROBE_STEPS, len(z_re))
+        zr, zi = orbit.on(dev)
+        _, glitched, active = _perturb_scan(
+            zr[:plen], zi[:plen],
+            torch.as_tensor(pre.astype(dtype), device=dev),
+            torch.as_tensor(pim.astype(dtype), device=dev),
+            max_iter=plen, add_dc=add_dc, stagnation=False)
+        frac = float((active & ~glitched).cpu().numpy().mean())
+        decision = frac >= BLA_AUTO_SURVIVOR_FRAC
+        logger.info("BLA auto-%s: probe survivor fraction %.3f at step %d "
+                    "(budget %d)", "enabled" if decision else "disabled",
+                    frac, plen, max_iter)
+        return decision
+
+    return orbit.memo(("auto_bla", max_iter, int(np.round(np.log2(scale))),
+                       np.dtype(dtype).str, add_dc, str(dev)), probe)
 
 
-@lru_cache(maxsize=16)
 def _find_reference(za: int, zb: int, ca: int, cb: int, span: float,
                     max_iter: int, bits: int, *, add_dc: bool = True,
                     probes: int = 5, hops: int = 8, device: str = "cpu"
-                    ) -> tuple[np.ndarray, np.ndarray, int, float, float]:
+                    ) -> tuple[ReferenceOrbit, float, float]:
     """Pick a reference point whose orbit survives as long as possible
     (the JAX package's search, its probe scans on ``device``): compute
     the candidate's orbit, scan a probe lattice of the view against it
@@ -609,14 +668,28 @@ def _find_reference(za: int, zb: int, ca: int, cb: int, span: float,
     Mandelbrot lattice: to the deepest-escaping probe, escalating once
     to a 64^2 lattice) until the orbit covers the budget or no hop
     helps.  Returns the orbit and the reference's offset from the
-    center.  LRU-cached (treat the arrays as immutable)."""
+    center.  The search's result is memoised; its orbit lives in
+    :data:`ORBITS` (computed again if evicted since)."""
+    key, off_re, off_im = _search_reference(za, zb, ca, cb, span, max_iter,
+                                            bits, add_dc, probes, hops,
+                                            device)
+    return ORBITS.get(*key), off_re, off_im
+
+
+@lru_cache(maxsize=16)
+def _search_reference(za: int, zb: int, ca: int, cb: int, span: float,
+                      max_iter: int, bits: int, add_dc: bool, probes: int,
+                      hops: int, device: str) -> tuple[tuple, float, float]:
+    """:func:`_find_reference`'s search -> the winning orbit's key in
+    :data:`ORBITS` and its offset from the center."""
     dev = torch.device(device)
     off_re = 0.0
     off_im = 0.0
     lattices = [probes, 64] if add_dc else [probes]
     li = 0
-    z_re, z_im, n = _orbit_fixed(za, zb, ca, cb, max_iter, bits)
+    orbit = ORBITS.get(za, zb, ca, cb, max_iter, bits)
     for _ in range(hops + len(lattices)):
+        n = orbit.valid
         if n >= max_iter:
             break
         side = lattices[li]
@@ -626,9 +699,9 @@ def _find_reference(za: int, zb: int, ca: int, cb: int, span: float,
         # Against the orbit's VALID prefix: the post-escape extension
         # diverges and would corrupt the alive mask.
         with phases.timed(obs_names.PHASE_DEEP_PROBE):
+            zr, zi = orbit.on(dev)
             counts, _, alive = _perturb_scan(
-                torch.as_tensor(z_re[:n], device=dev),
-                torch.as_tensor(z_im[:n], device=dev),
+                zr[:n], zi[:n],
                 torch.as_tensor(pre.astype(np.float64), device=dev),
                 torch.as_tensor(pim.astype(np.float64), device=dev),
                 max_iter=max_iter, add_dc=add_dc, stagnation=False)
@@ -646,17 +719,16 @@ def _find_reference(za: int, zb: int, ca: int, cb: int, span: float,
         za2 = za + _to_fixed(d_re, bits)
         zb2 = zb + _to_fixed(d_im, bits)
         ca2, cb2 = (za2, zb2) if add_dc else (ca, cb)
-        z_re2, z_im2, n2 = _orbit_fixed(za2, zb2, ca2, cb2, max_iter, bits)
-        if not alive.any() and n2 <= n:
+        hop = ORBITS.get(za2, zb2, ca2, cb2, max_iter, bits)
+        if not alive.any() and hop.valid <= n:
             if li + 1 < len(lattices):
                 li += 1  # densify and retry from the current best
                 continue
             break  # depth gradient exhausted at the densest lattice
-        za, zb, ca, cb = za2, zb2, ca2, cb2
-        z_re, z_im, n = z_re2, z_im2, n2
+        za, zb, orbit = za2, zb2, hop
         off_re += d_re
         off_im += d_im
-    return z_re, z_im, n, off_re, off_im
+    return orbit.key, off_re, off_im
 
 
 def _secondary_candidates(bad: np.ndarray, scanned: np.ndarray,
@@ -672,66 +744,40 @@ def _secondary_candidates(bad: np.ndarray, scanned: np.ndarray,
     return np.lexsort((center_dist, -scanned, scanned != 0))
 
 
-_DEVICE_ORBIT_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
-_DEVICE_ORBIT_MAX = 8
-# Byte bound: giant-budget orbits must not pin hundreds of MB of device
-# memory when the upstream host caches thrash and strand stale ids here.
-_DEVICE_ORBIT_MAX_BYTES = 256 * 1024 * 1024
-
-
-def _device_orbit(z_re: np.ndarray, z_im: np.ndarray, device):
-    """Device-resident float64 copy of a reference orbit, LRU-cached by
-    host-array identity and device (repeated renders of a view reuse the
-    host arrays of the cached reference search), with a content
-    fingerprint against id reuse after an upstream eviction.  The scans
-    cast it to their delta dtype (f32 saturates the post-escape
-    extension's ~1e100 entries to inf by design: the scans treat them as
-    escaped)."""
-    dev = torch.device(device)
-    key = (id(z_re), id(z_im), z_re.shape[0], str(dev))
-    fp = (float(z_re[0]), float(z_re[-1]), float(z_im[0]),
-          float(z_im[-1]))
-    hit = _DEVICE_ORBIT_CACHE.get(key)
-    if hit is not None and hit[0] == fp:
-        _DEVICE_ORBIT_CACHE.move_to_end(key)
-        return hit[1], hit[2]
-    zr = torch.as_tensor(np.ascontiguousarray(z_re, np.float64), device=dev)
-    zi = torch.as_tensor(np.ascontiguousarray(z_im, np.float64), device=dev)
-    _DEVICE_ORBIT_CACHE[key] = (fp, zr, zi)
-
-    def total_bytes():
-        return sum(e[1].nbytes + e[2].nbytes
-                   for e in _DEVICE_ORBIT_CACHE.values())
-
-    while (len(_DEVICE_ORBIT_CACHE) > _DEVICE_ORBIT_MAX
-           or (len(_DEVICE_ORBIT_CACHE) > 1
-               and total_bytes() > _DEVICE_ORBIT_MAX_BYTES)):
-        _DEVICE_ORBIT_CACHE.popitem(last=False)
-    return zr, zi
-
-
 def _fetch(values, glitched) -> tuple[np.ndarray, np.ndarray]:
     return values.cpu().numpy(), glitched.cpu().numpy()
 
 
-def _compute_perturb(spec: DeepTileSpec, max_iter: int, scan_fn, *,
+@dataclass(frozen=True)
+class _Route:
+    """What the integer and the smooth route give
+    :func:`_compute_perturb`: ``scan(zr, zi, dre, dim) -> (values,
+    glitched)`` against a device orbit; ``repair_scan``, the same for
+    the secondary pass; ``bla_scan(orbit, dc_max)``, a scan on the
+    orbit's BLA table; and ``bla_offers(orbit, dc_max)``, which must
+    also hold for the probe to take BLA (None: nothing more to ask)."""
+
+    scan: Callable
+    repair_scan: Callable
+    bla_scan: Callable
+    bla_offers: Callable | None = None
+
+
+def _compute_perturb(spec: DeepTileSpec, max_iter: int, route: _Route, *,
                      dtype, prec_bits: int, max_glitch_fix: int | None,
                      julia_c: tuple[str, str] | None = None,
-                     scan_factory=None, repair_scan_fn=None,
-                     bla: bool | None = False, bla_offers=None,
+                     bla: bool | None = False,
                      device="cuda") -> tuple[np.ndarray, int]:
     """The shared perturbation route (the JAX package's): validates the span
     for the dtype, widens the orbit precision with depth, picks the
-    reference, runs ``scan_fn(zr, zi, dre, dim) -> (values, glitched)``
-    over row chunks on ``device``, and repairs glitched pixels: first
-    against a secondary reference that covers the budget, then exactly
-    in fixed point.
+    reference, runs ``route.scan`` over row chunks on ``device``, and
+    repairs glitched pixels: first against a secondary reference that
+    covers the budget, then exactly in fixed point.
 
     ``julia_c`` switches to the Julia family (the deltas lose their dc
-    term).  ``scan_factory(z_re, z_im, dc_max) -> scan_fn`` builds an
-    orbit-specific scan (BLA's tables), used where ``bla`` is True or the
-    auto-probe (``bla=None``) enables it.  Where given, ``bla_offers(z_re,
-    z_im, dc_max)`` must then also hold for the probe to enable it (the
+    term).  ``route.bla_scan`` takes the place of both scans where
+    ``bla`` is True or the auto-probe (``bla=None``) enables it; the
+    probe also asks ``route.bla_offers`` where the route has it (the
     smooth route's ``bla.smooth_table_skips``: a table that offers no
     skip at the view's deltas would run the exact steps in the BLA loop,
     one launch an operation, in place of one kernel).  Each view adds 1
@@ -758,39 +804,32 @@ def _compute_perturb(spec: DeepTileSpec, max_iter: int, scan_fn, *,
         cb = _to_fixed(julia_c[1], bits)
         add_dc = False
     with phases.timed(obs_names.PHASE_DEEP_REFERENCE):
-        z_re, z_im, _, off_re, off_im = _find_reference(
+        orbit, off_re, off_im = _find_reference(
             za, zb, ca, cb, spec.span, max_iter, bits, add_dc=add_dc,
             device=str(dev))
         # Deltas relative to the chosen reference, not the center: the
         # separable grid of DeepTileSpec.delta_grids as its column and
         # row vectors (the same values), broadcast without a copy.
-        step = spec.step
-        dre = np.broadcast_to(
-            (np.arange(spec.width) - (spec.width - 1) / 2) * step - off_re,
-            (spec.height, spec.width))
-        dim = np.broadcast_to(
-            ((np.arange(spec.height) - (spec.height - 1) / 2) * step
-             - off_im)[:, None], (spec.height, spec.width))
-        zr, zi = _device_orbit(z_re, z_im, dev)
+        col, row = spec.offset(np.arange(spec.height), np.arange(spec.width))
+        dre = np.broadcast_to(col - off_re, (spec.height, spec.width))
+        dim = np.broadcast_to((row - off_im)[:, None],
+                              (spec.height, spec.width))
+        zr, zi = orbit.on(dev)
     # max(a_i^2 + b_j^2) = max a^2 + max b^2 (rounding is monotone).
     dc_max = float(np.sqrt(np.max(dre[0] * dre[0])
                            + np.max(dim[:, 0] * dim[:, 0])))
     use_bla = bla
     if use_bla is None:
         with phases.timed(obs_names.PHASE_DEEP_BLA_PROBE):
-            use_bla = (scan_factory is not None
-                       and _auto_bla(z_re, z_im, zr, zi, dre, dim, max_iter,
-                                     julia_c is None, dtype=dtype))
-            if use_bla and bla_offers is not None and \
-                    not bla_offers(z_re, z_im, dc_max):
+            use_bla = _auto_bla(orbit, dre, dim, max_iter, add_dc,
+                                dtype=dtype, device=dev)
+            if use_bla and route.bla_offers is not None and \
+                    not route.bla_offers(orbit, dc_max):
                 use_bla = False
                 logger.info("BLA auto-disabled: the table offers no skip "
                             "at the view's deltas")
-    if not use_bla:
-        scan_factory = None  # the secondary pass stays on the exact scan
-    phases.tally(obs_names.COUNT_DEEP_BLA_VIEWS, scan_factory is not None)
-    if scan_factory is not None:
-        scan_fn = scan_factory(z_re, z_im, dc_max)
+    phases.tally(obs_names.COUNT_DEEP_BLA_VIEWS, bool(use_bla))
+    scan_fn = route.bla_scan(orbit, dc_max) if use_bla else route.scan
     limit = (1 << 20) if np.dtype(dtype) == np.float32 else (1 << 19)
     chunk = max(1, min(spec.height, limit // max(1, spec.width)))
     # The row and column vectors are uploaded and broadcast on the device.
@@ -817,26 +856,20 @@ def _compute_perturb(spec: DeepTileSpec, max_iter: int, scan_fn, *,
         # glitched pixels' deltas are re-scanned against it; candidates
         # in in-set-likelihood order, at most SECONDARY_REFERENCE_TRIES.
         with phases.timed(obs_names.PHASE_DEEP_REPAIR_SECONDARY):
-            z2 = None
+            orbit2 = None
             for ci in _secondary_candidates(bad, out[bad[:, 0], bad[:, 1]],
                                             spec.height, spec.width)[
                                                 :SECONDARY_REFERENCE_TRIES]:
                 r2, c2 = bad[ci]
-                d2_re = float((c2 - (spec.width - 1) / 2) * step)
-                d2_im = float((r2 - (spec.height - 1) / 2) * step)
-                pa = za + _to_fixed(d2_re, bits)
-                pb = zb + _to_fixed(d2_im, bits)
-                if julia_c is None:
-                    z2_re, z2_im, n2v = _orbit_fixed(pa, pb, pa, pb,
-                                                     max_iter, bits)
-                else:
-                    z2_re, z2_im, n2v = _orbit_fixed(pa, pb, ca, cb,
-                                                     max_iter, bits)
-                if n2v >= max_iter:
-                    z2 = (z2_re, z2_im)
+                d2_re, d2_im = spec.offset(r2, c2)
+                pa = za + _to_fixed(float(d2_re), bits)
+                pb = zb + _to_fixed(float(d2_im), bits)
+                pc = (pa, pb) if julia_c is None else (ca, cb)
+                candidate = ORBITS.get(pa, pb, *pc, max_iter, bits)
+                if candidate.valid >= max_iter:
+                    orbit2 = candidate
                     break
-            if z2 is not None:
-                z2_re, z2_im = z2
+            if orbit2 is not None:
                 # Deltas relative to the secondary reference (exact in
                 # f64: index differences at pixel scale), padded to a
                 # power-of-two length with far-exterior deltas as the
@@ -845,17 +878,16 @@ def _compute_perturb(spec: DeepTileSpec, max_iter: int, scan_fn, *,
                 k_pad = max(16, 1 << (k - 1).bit_length())
                 dre2 = np.full(k_pad, 3.0)
                 dim2 = np.zeros(k_pad)
-                dre2[:k] = (bad[:, 1] - c2).astype(np.float64) * step
-                dim2[:k] = (bad[:, 0] - r2).astype(np.float64) * step
-                zr2_dev, zi2_dev = _device_orbit(z2_re, z2_im, dev)
-                if scan_factory is not None:
+                dre2[:k] = (bad[:, 1] - c2).astype(np.float64) * spec.step
+                dim2[:k] = (bad[:, 0] - r2).astype(np.float64) * spec.step
+                if use_bla:
                     dc2_max = float(np.sqrt(np.max(
                         dre2[:k] * dre2[:k] + dim2[:k] * dim2[:k])))
-                    scan2 = scan_factory(z2_re, z2_im, dc2_max)
+                    scan2 = route.bla_scan(orbit2, dc2_max)
                 else:
-                    scan2 = repair_scan_fn or scan_fn
+                    scan2 = route.repair_scan
                 v2, g2 = _fetch(*scan2(
-                    zr2_dev, zi2_dev,
+                    *orbit2.on(dev),
                     torch.as_tensor(dre2.astype(dtype), device=dev),
                     torch.as_tensor(dim2.astype(dtype), device=dev)))
                 v2 = v2[:k]
@@ -877,12 +909,9 @@ def _compute_perturb(spec: DeepTileSpec, max_iter: int, scan_fn, *,
     if len(bad):
         with phases.timed(obs_names.PHASE_DEEP_REPAIR_EXACT,
                           annotate=True):
-            pts = []
-            for r, c in bad:
-                d_re = float((c - (spec.width - 1) / 2) * step)
-                d_im = float((r - (spec.height - 1) / 2) * step)
-                pts.append((za + _to_fixed(d_re, bits),
-                            zb + _to_fixed(d_im, bits)))
+            d_re, d_im = spec.offset(bad[:, 0], bad[:, 1])
+            pts = [(za + _to_fixed(a, bits), zb + _to_fixed(b, bits))
+                   for a, b in zip(d_re.tolist(), d_im.tolist())]
             jc = None if julia_c is None else (ca, cb)
             out[bad[:, 0], bad[:, 1]] = _escape_counts_exact_batch(
                 pts, max_iter, bits, jc)
@@ -914,27 +943,24 @@ def compute_counts_perturb(spec: DeepTileSpec, max_iter: int, *,
         return np.zeros((spec.height, spec.width), np.int32), 0
     add_dc = julia_c is None
 
-    def scan(zr, zi, dre, dim):
+    def scan(zr, zi, dre, dim, stagnation=True):
         return _perturb_scan(zr, zi, dre, dim, max_iter=max_iter,
-                             add_dc=add_dc)[:2]
+                             add_dc=add_dc, stagnation=stagnation)[:2]
 
-    def repair_scan(zr, zi, dre, dim):
-        # The secondary pass scans exactly the bounded lanes the
-        # stagnation stop would re-flag: it runs without the stop.
-        return _perturb_scan(zr, zi, dre, dim, max_iter=max_iter,
-                             add_dc=add_dc, stagnation=False)[:2]
+    # The secondary pass scans exactly the bounded lanes the stagnation
+    # stop would re-flag: it runs without the stop.
+    repair_scan = partial(scan, stagnation=False)
 
-    def factory(z_re, z_im, dc_max):
-        from distributedmandelbrot_tpu_torch.ops.bla import bla_scan_factory
-        return bla_scan_factory(z_re, z_im, dc_max, max_iter=max_iter,
-                                dtype=dtype, add_dc=add_dc)
+    def bla_scan(orbit, dc_max):
+        from distributedmandelbrot_tpu_torch.ops import bla
+        return bla.bla_scan_factory(orbit, dc_max, max_iter=max_iter,
+                                    dtype=dtype, add_dc=add_dc)
 
-    return _compute_perturb(spec, max_iter, scan, dtype=dtype,
-                            prec_bits=prec_bits,
-                            max_glitch_fix=max_glitch_fix,
-                            julia_c=julia_c, scan_factory=factory,
-                            repair_scan_fn=repair_scan, bla=bla,
-                            device=device)
+    return _compute_perturb(spec, max_iter,
+                            _Route(scan, repair_scan, bla_scan),
+                            dtype=dtype, prec_bits=prec_bits,
+                            max_glitch_fix=max_glitch_fix, julia_c=julia_c,
+                            bla=bla, device=device)
 
 
 def compute_tile_perturb(spec: DeepTileSpec, max_iter: int, *,
@@ -983,25 +1009,22 @@ def compute_smooth_perturb(spec: DeepTileSpec, max_iter: int, *,
                                     bailout=float(bailout), add_dc=add_dc,
                                     lane_steps=lane_steps)
 
-    def factory(z_re, z_im, dc_max):
-        from distributedmandelbrot_tpu_torch.ops.bla import (
-            bla_smooth_scan_factory)
-        return bla_smooth_scan_factory(z_re, z_im, dc_max,
-                                       max_iter=max_iter,
-                                       bailout=float(bailout),
-                                       dtype=dtype, add_dc=add_dc)
+    def bla_scan(orbit, dc_max):
+        from distributedmandelbrot_tpu_torch.ops import bla
+        return bla.bla_smooth_scan_factory(orbit, dc_max, max_iter=max_iter,
+                                           bailout=float(bailout),
+                                           dtype=dtype, add_dc=add_dc)
 
-    def offers(z_re, z_im, dc_max):
-        from distributedmandelbrot_tpu_torch.ops.bla import (
-            smooth_table_skips)
-        return smooth_table_skips(z_re, z_im, dc_max, bailout=float(bailout),
-                                  dtype=dtype)
+    def offers(orbit, dc_max):
+        from distributedmandelbrot_tpu_torch.ops import bla
+        return bla.smooth_table_skips(orbit, dc_max, bailout=float(bailout),
+                                      dtype=dtype)
 
-    out = _compute_perturb(spec, max_iter, scan, dtype=dtype,
-                           prec_bits=prec_bits,
-                           max_glitch_fix=max_glitch_fix,
-                           julia_c=julia_c, scan_factory=factory, bla=bla,
-                           bla_offers=offers, device=device)
+    out = _compute_perturb(spec, max_iter,
+                           _Route(scan, scan, bla_scan, offers),
+                           dtype=dtype, prec_bits=prec_bits,
+                           max_glitch_fix=max_glitch_fix, julia_c=julia_c,
+                           bla=bla, device=device)
     if lane_steps:
         # The view's one read of the sums, its planes long fetched.
         phases.tally(obs_names.COUNT_DEEP_LANE_STEPS,

@@ -31,6 +31,12 @@ def _orbit(center, max_iter):
     return P.reference_orbit(*center, max_iter, prec_bits=192)
 
 
+def _stored(center, max_iter):
+    """The orbit of :func:`_orbit` as the store holds it."""
+    za, zb = (P._to_fixed(v, 192) for v in center)
+    return P.ORBITS.get(za, zb, za, zb, max_iter, 192)
+
+
 def test_constants_equal_the_jax_packages():
     for name in ("DEFAULT_BLA_EPS", "BLA_LEVELS_MAX", "BOND_POINT_RE",
                  "BOND_POINT_IM", "BLA_MIN_SKIP", "BLA_EXACT_BURST",
@@ -55,8 +61,9 @@ def test_build_bla_table_equals_the_jax_packages(center, max_iter, dc_max,
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_select_skip_equals_the_jax_packages(dtype):
-    z_re, z_im, _ = _orbit(BOND, 4000)
-    tabs = B._table(z_re, z_im, 1e-13, B.DEFAULT_BLA_EPS, dtype)
+    orbit = _stored(BOND, 4000)
+    z_re = orbit.z_re
+    tabs = B._table(orbit, 1e-13, B.DEFAULT_BLA_EPS, dtype)
     R2 = tabs[4]
     levels = R2.shape[0]
     rng = np.random.default_rng(2)
@@ -73,10 +80,15 @@ def test_select_skip_equals_the_jax_packages(dtype):
 
 
 def test_table_cache_reuses():
-    z_re, z_im, _ = _orbit(CONFIG4, 3000)
-    a = B._table(z_re, z_im, 1e-11, B.DEFAULT_BLA_EPS, np.float32)
-    assert B._table(z_re, z_im, 1.2e-11, B.DEFAULT_BLA_EPS, np.float32) is a
+    """The table is kept with its orbit, one for each quantized
+    ``dc_max``."""
+    orbit = _stored(CONFIG4, 3000)
+    a = B._table(orbit, 1e-11, B.DEFAULT_BLA_EPS, np.float32)
+    assert B._table(orbit, 1.2e-11, B.DEFAULT_BLA_EPS, np.float32) is a
+    assert B._table(orbit, 3e-11, B.DEFAULT_BLA_EPS, np.float32) is not a
     assert all(t.dtype == np.float32 for t in a)
+    z_re, z_im, _ = _orbit(CONFIG4, 3000)
+    assert z_re is orbit.z_re and z_im is orbit.z_im
 
 
 def _counts(center, span, side, mi, *, bla, julia_c=None, ref=False):
@@ -160,9 +172,10 @@ def test_bla_burst_skips_and_chunk_state():
     """A direct scan call: the skip count is positive on the bond view,
     zero when no table level validates (a huge delta), and the counts
     follow the integer scan's conventions."""
-    z_re, z_im, n = _orbit(BOND, 4000)
-    tabs = B._table(z_re, z_im, 1e-15, B.DEFAULT_BLA_EPS, np.float32)
-    zr, zi = torch.as_tensor(z_re), torch.as_tensor(z_im)
+    orbit = _stored(BOND, 4000)
+    z_re = orbit.z_re
+    tabs = B._table(orbit, 1e-15, B.DEFAULT_BLA_EPS, np.float32)
+    zr, zi = orbit.on("cpu")
     small = torch.full((4, 4), 1e-16, dtype=torch.float32)
     counts, glitched, act, skipped = B._bla_scan(
         zr, zi, tabs, small, small, orbit_len=len(z_re), max_iter=4000,

@@ -965,14 +965,13 @@ def _deep_inputs(name, side, dtype, cuda):
     za, zb = pt._to_fixed(center[0], bits), pt._to_fixed(center[1], bits)
     ca, cb = ((za, zb) if jc is None else
               (pt._to_fixed(jc[0], bits), pt._to_fixed(jc[1], bits)))
-    z_re, z_im, _, o_re, o_im = pt._find_reference(
+    orbit, o_re, o_im = pt._find_reference(
         za, zb, ca, cb, span, mi, bits, add_dc=jc is None,
         device=str(cuda))
     dre, dim = spec.delta_grids(np.float64)
     row = torch.as_tensor((dre[0] - o_re).astype(dtype), device=cuda)
     col = torch.as_tensor((dim[:, 0] - o_im).astype(dtype), device=cuda)
-    return (torch.as_tensor(z_re, device=cuda),
-            torch.as_tensor(z_im, device=cuda),
+    return (*orbit.on(cuda),
             row[None, :].expand(side, side), col[:, None].expand(side, side),
             jc is None)
 

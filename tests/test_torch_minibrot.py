@@ -19,6 +19,7 @@ K10's per-pixel loop runs here as its host build (g++, through
 where a compiler is found: the plain version takes about 11 s a view
 at 50,000 steps."""
 
+import hashlib
 import json
 import logging
 import math
@@ -73,14 +74,27 @@ def k10_on_host(tmp_path_factory):
         CP.perturb_smooth_state_plain = plain
 
 
+def _tallied_render(spec, max_iter, **kwargs):
+    """A smooth f64 view on the CPU from an empty orbit store -> its
+    values and its counts: ``glitched``, ``exact_repaired`` and the
+    orbits computed (``deep.orbit`` entries)."""
+    P.ORBITS.clear()
+    phases.reset_phase_seconds()
+    nu, _ = P.compute_smooth_perturb(spec, max_iter, dtype=np.float64,
+                                     device="cpu", **kwargs)
+    counts = phases.phase_seconds()
+    return nu, (counts.get(names.COUNT_DEEP_GLITCHED, 0),
+                counts.get(names.COUNT_DEEP_EXACT_REPAIRED, 0),
+                phases.phase_entries().get(names.PHASE_DEEP_ORBIT, 0))
+
+
 @pytest.fixture(scope="module")
 def view(k10_on_host):
-    """The configuration's view at 32^2: its spec and the exact scan's
-    smooth values (BLA off)."""
+    """The configuration's view at 32^2: its spec, the exact scan's
+    smooth values (BLA off) and its counts."""
     spec = P.DeepTileSpec(*CENTER, CONFIG["span"], width=SIDE, height=SIDE)
-    exact, _ = P.compute_smooth_perturb(spec, MAX_ITER, dtype=np.float64,
-                                        bla=False, device="cpu")
-    return spec, exact
+    exact, counts = _tallied_render(spec, MAX_ITER, bla=False)
+    return spec, exact, counts
 
 
 def _reference_pixels(nu: np.ndarray) -> list[int]:
@@ -95,7 +109,7 @@ def _reference_pixels(nu: np.ndarray) -> list[int]:
 
 @pytest.mark.parametrize("bla", [None, True], ids=["probe", "forced"])
 def test_smooth_route_is_within_off_by_on_the_minibrot_view(view, bla):
-    spec, exact = view
+    spec, exact, _ = view
     nu, _ = P.compute_smooth_perturb(spec, MAX_ITER, dtype=np.float64,
                                      bla=bla, device="cpu")
     off_by = CONFIG["off_by"]
@@ -121,19 +135,16 @@ def test_the_probe_keeps_the_exact_scan_on_the_minibrot_view(k10_on_host,
     bits = max(P.DEFAULT_PREC_BITS,
                -(-(int(-np.log2(spec.step)) + 64) // 128) * 128)
     za, zb = P._to_fixed(CENTER[0], bits), P._to_fixed(CENTER[1], bits)
-    z_re, z_im, n, o_re, o_im = P._find_reference(za, zb, za, zb,
-                                                  spec.span, MAX_ITER, bits)
-    assert n == MAX_ITER and (o_re, o_im) == (0.0, 0.0)
+    P.ORBITS.clear()
+    orbit, o_re, o_im = P._find_reference(za, zb, za, zb, spec.span,
+                                          MAX_ITER, bits)
+    assert orbit.valid == MAX_ITER and (o_re, o_im) == (0.0, 0.0)
     dre, dim = spec.delta_grids(np.float64)
     dc_max = float(np.sqrt(np.max(dre * dre) + np.max(dim * dim)))
-    P._AUTO_BLA_CACHE.clear()
-    assert P._auto_bla(z_re, z_im, torch.as_tensor(z_re),
-                       torch.as_tensor(z_im), dre, dim, MAX_ITER, True,
-                       dtype=np.float64)
-    assert not B.smooth_table_skips(z_re, z_im, dc_max, bailout=256.0,
+    assert P._auto_bla(orbit, dre, dim, MAX_ITER, True, dtype=np.float64)
+    assert not B.smooth_table_skips(orbit, dc_max, bailout=256.0,
                                     dtype=np.float64)
-    r2 = B._smooth_table(z_re, z_im, dc_max, bailout=256.0,
-                         dtype=np.float64)[4]
+    r2 = B._smooth_table(orbit, dc_max, bailout=256.0, dtype=np.float64)[4]
     assert not (r2 > dc_max * dc_max).any()
     assert B.smooth_bla_eps(np.float64) == 2.0 ** -53
     assert B.smooth_bla_eps(np.float32) == 2.0 ** -24
@@ -145,6 +156,27 @@ def test_the_probe_keeps_the_exact_scan_on_the_minibrot_view(k10_on_host,
                                  MAX_ITER, dtype=np.float64, device="cpu")
     assert "table offers no skip" in caplog.text
     assert phases.phase_seconds()[names.COUNT_DEEP_BLA_VIEWS] == 0
+
+
+# The smooth f64 values' SHA-256 (its first 16 hex digits) and the counts
+# (glitched, exact_repaired, orbits computed) of two views from an empty
+# orbit store, as the route gave them before the orbit store replaced its
+# caches: config 4's view at 32^2 and budget 3000, and the configuration's
+# view (BLA off).
+PINNED = {"config4": ("72642b3e04863c22", (0, 0, 8)),
+          "minibrot": ("e6f5a2d4461fb0ad", (0, 0, 1))}
+
+
+@pytest.mark.parametrize("name", sorted(PINNED))
+def test_two_views_give_their_pinned_values_and_counts(request, name):
+    if name == "minibrot":
+        _, nu, counts = request.getfixturevalue("view")
+    else:
+        spec = P.DeepTileSpec("-0.77568376995", "0.13646737005", 1e-10,
+                              width=32, height=32)
+        nu, counts = _tallied_render(spec, 3000)
+    digest = hashlib.sha256(nu.tobytes()).hexdigest()[:16]
+    assert (digest, counts) == PINNED[name]
 
 
 def test_lane_steps_count_what_the_scans_needed(monkeypatch):

@@ -107,16 +107,15 @@ def _scan_inputs(center, span, side, max_iter, dtype, julia_c=None,
     za, zb = P._to_fixed(center[0], bits), P._to_fixed(center[1], bits)
     ca, cb = ((za, zb) if julia_c is None else
               (P._to_fixed(julia_c[0], bits), P._to_fixed(julia_c[1], bits)))
-    z_re, z_im, _, o_re, o_im = P._find_reference(
+    orbit, o_re, o_im = P._find_reference(
         za, zb, ca, cb, span, max_iter, bits, add_dc=julia_c is None)
-    if orbit_len is not None:
-        z_re, z_im = z_re[:orbit_len], z_im[:orbit_len]
+    z_re, z_im = orbit.z_re[:orbit_len], orbit.z_im[:orbit_len]
     dre, dim = spec.delta_grids(np.float64)
     return z_re, z_im, (dre - o_re).astype(dtype), (dim - o_im).astype(dtype)
 
 
 def _torch_inputs(z_re, z_im, dre, dim):
-    return (torch.as_tensor(z_re), torch.as_tensor(z_im),
+    return (torch.tensor(z_re), torch.tensor(z_im),
             torch.as_tensor(dre[0])[None, :].expand(dre.shape),
             torch.as_tensor(dim[:, 0])[:, None].expand(dim.shape))
 
@@ -184,13 +183,13 @@ def test_find_reference_equals_the_jax_packages(center, span, max_iter,
     za, zb = P._to_fixed(center[0], bits), P._to_fixed(center[1], bits)
     ca, cb = ((za, zb) if julia_c is None else
               (P._to_fixed(julia_c[0], bits), P._to_fixed(julia_c[1], bits)))
-    got = P._find_reference(za, zb, ca, cb, span, max_iter, bits,
-                            add_dc=julia_c is None)
+    orbit, o_re, o_im = P._find_reference(za, zb, ca, cb, span, max_iter,
+                                          bits, add_dc=julia_c is None)
     want = RP._find_reference(za, zb, ca, cb, span, max_iter, bits,
                               add_dc=julia_c is None)
-    assert got[2:] == want[2:]
-    assert np.array_equal(got[0], want[0])
-    assert np.array_equal(got[1], want[1])
+    assert (orbit.valid, o_re, o_im) == want[2:]
+    assert np.array_equal(orbit.z_re, want[0])
+    assert np.array_equal(orbit.z_im, want[1])
 
 
 def test_deep_tile_spec_and_candidates_equal_the_jax_packages():
@@ -209,9 +208,26 @@ def test_deep_tile_spec_and_candidates_equal_the_jax_packages():
                  "SECONDARY_REFERENCE_TRIES", "PERTURB_SEGMENT",
                  "STAGNATION_QUIET_STEPS", "STAGNATION_MAX_LIVE",
                  "BLA_AUTO_MIN_BUDGET", "BLA_AUTO_PROBE_STEPS",
-                 "BLA_AUTO_PROBE_LANES", "BLA_AUTO_SURVIVOR_FRAC",
-                 "ORBIT_CACHE_MAX_STEPS"):
+                 "BLA_AUTO_PROBE_LANES", "BLA_AUTO_SURVIVOR_FRAC"):
         assert getattr(P, name) == getattr(RP, name), name
+
+
+def test_a_pixels_offset_is_its_distance_from_the_center_in_steps():
+    """``DeepTileSpec.offset``, which the delta grid, the secondary
+    candidates and the exact repair share, is ``(c - (w - 1) / 2) *
+    step`` (and likewise for rows) bit for bit, for index arrays and for
+    single pixels."""
+    spec = P.DeepTileSpec(*CONFIG4, 1e-10, width=40, height=24)
+    rows, cols = np.meshgrid(np.arange(24), np.arange(40), indexing="ij")
+    d_re, d_im = spec.offset(rows, cols)
+    want_re = (cols - (40 - 1) / 2) * spec.step
+    want_im = (rows - (24 - 1) / 2) * spec.step
+    assert np.array_equal(d_re, want_re) and np.array_equal(d_im, want_im)
+    for r, c in ((0, 0), (23, 39), (7, 20), (np.int64(11), np.int64(3))):
+        got = spec.offset(r, c)
+        assert got == (float((c - (40 - 1) / 2) * spec.step),
+                       float((r - (24 - 1) / 2) * spec.step))
+        assert got == (d_re[r, c], d_im[r, c])
 
 
 # --- the segment loop and the plain scans --------------------------------
@@ -648,40 +664,115 @@ def test_tile_route_scales_like_the_counts():
                                  device="cpu")
 
 
-def test_auto_bla_decisions_equal_the_jax_packages(caplog):
+def test_auto_bla_decisions_equal_the_jax_packages(caplog, monkeypatch):
     """The auto-probe enables BLA on the bond view and declines on the
     config-4 view (its reference escapes early), as the JAX package
-    decides, and the decision is cached."""
+    decides, and the decision is kept with the orbit: asked again, it
+    scans no probe."""
     from distributedmandelbrot_tpu_torch.ops.bla import (BOND_POINT_IM,
                                                          BOND_POINT_RE)
+    scans = []
+    real_scan = P._perturb_scan
+    monkeypatch.setattr(P, "_perturb_scan",
+                        lambda *a, **k: scans.append(1) or real_scan(*a, **k))
     mi = P.BLA_AUTO_MIN_BUDGET
     for center, span, want in (((BOND_POINT_RE, BOND_POINT_IM), 1e-15, True),
                                (CONFIG4, 1e-10, False)):
         spec = P.DeepTileSpec(*center, span, width=16, height=16)
         bits = _bits(spec)
         za, zb = P._to_fixed(center[0], bits), P._to_fixed(center[1], bits)
-        z_re, z_im, _, o_re, o_im = P._find_reference(za, zb, za, zb, span,
-                                                      mi, bits)
+        P.ORBITS.clear()
+        orbit, o_re, o_im = P._find_reference(za, zb, za, zb, span, mi, bits)
         dre, dim = spec.delta_grids(np.float64)
         dre, dim = dre - o_re, dim - o_im
-        P._AUTO_BLA_CACHE.clear()
         RP._AUTO_BLA_CACHE.clear()
+        scans.clear()
         with caplog.at_level(logging.INFO):
-            got = P._auto_bla(z_re, z_im, torch.as_tensor(z_re),
-                              torch.as_tensor(z_im), dre, dim, mi, True)
+            got = P._auto_bla(orbit, dre, dim, mi, True)
+            again = P._auto_bla(orbit, dre, dim, mi, True)
+        z_re, z_im = orbit.z_re, orbit.z_im
         ref = RP._auto_bla(z_re, z_im, jnp.asarray(z_re), jnp.asarray(z_im),
                            dre, dim, mi, True)
-        assert got == ref == want
-        assert len(P._AUTO_BLA_CACHE) == int(len(z_re) >= mi)
+        assert got == again == ref == want
+        assert len(scans) == int(len(z_re) >= mi)
     assert any("BLA auto-enabled" in r.message for r in caplog.records)
 
 
-def test_device_orbit_cache_reuses_and_guards():
-    z_re, z_im, _ = P.reference_orbit("-0.5", "0.1", 100)
-    a = P._device_orbit(z_re, z_im, "cpu")
-    assert P._device_orbit(z_re, z_im, "cpu")[0] is a[0]
-    assert a[0].dtype == torch.float64
-    assert np.array_equal(a[0].numpy(), z_re)
+def _in_set_key(i: int) -> tuple:
+    """The store key of the full-budget orbit of -0.(i+1) + 0i, on the
+    main cardioid's axis."""
+    x = P._to_fixed(f"-0.{i + 1}", 128)
+    return (x, 0, x, 0, P.BLA_AUTO_MIN_BUDGET, 128)
+
+
+def test_device_orbit_cache_reuses_and_guards(monkeypatch):
+    """The orbit store: an orbit's device copy, BLA table and auto-BLA
+    answer are made once and reused; evicting the orbit, by count or by
+    bytes, drops all three with it; the orbit just made or added to is
+    never the one evicted; ``clear()`` forgets every orbit."""
+    from distributedmandelbrot_tpu_torch.ops import bla as B
+    made, probes = [], []
+    real_orbit, real_scan = P._orbit_fixed_impl, P._perturb_scan
+    monkeypatch.setattr(P, "_orbit_fixed_impl",
+                        lambda *a: made.append(a) or real_orbit(*a))
+    monkeypatch.setattr(P, "_perturb_scan",
+                        lambda *a, **k: probes.append(1) or real_scan(*a, **k))
+    mi = P.BLA_AUTO_MIN_BUDGET
+    deltas = np.full((8, 8), 1e-12)
+
+    def derive(orbit):
+        """The orbit's device copy, table and auto-BLA answer."""
+        return (orbit.on("cpu"), B._table(orbit, 1e-11, B.DEFAULT_BLA_EPS,
+                                          np.float32),
+                P._auto_bla(orbit, deltas, deltas, mi, True))
+
+    def consistent():
+        held = P.ORBITS._lru.values()
+        assert P.ORBITS._bytes == sum(o.nbytes for o in held)
+
+    P.ORBITS.clear()
+    a = P.ORBITS.get(*_in_set_key(0))
+    assert a.valid == mi and not a.z_re.flags.writeable
+    (zr, zi), tab, answer = derive(a)
+    assert zr.dtype == torch.float64 and np.array_equal(zr.numpy(), a.z_re)
+    assert B._table(a, 1.2e-11, B.DEFAULT_BLA_EPS, np.float32) is tab
+    assert derive(a)[0][0] is zr and derive(a)[1] is tab
+    assert P.ORBITS.get(*_in_set_key(0)) is a
+    assert len(made) == 1 and len(probes) == 1
+    consistent()
+
+    # By count: the least recently used goes, with all it held.
+    monkeypatch.setattr(P, "ORBIT_STORE_MAX", 3)
+    for i in (1, 2, 3):
+        P.ORBITS.get(*_in_set_key(i))
+    assert len(made) == 4 and len(P.ORBITS._lru) == 3
+    a2 = P.ORBITS.get(*_in_set_key(0))
+    assert a2 is not a and len(made) == 5
+    (zr2, _), tab2, answer2 = derive(a2)
+    assert zr2 is not zr and tab2 is not tab and answer2 == answer
+    assert len(probes) == 2
+    consistent()
+
+    # By bytes: the orbit just added to stays, the older one goes.
+    monkeypatch.setattr(P, "ORBIT_STORE_MAX", 64)
+    P.ORBITS.clear()
+    b = P.ORBITS.get(*_in_set_key(4))
+    monkeypatch.setattr(P, "ORBIT_STORE_MAX_BYTES", 2 * b.nbytes + 1)
+    c = P.ORBITS.get(*_in_set_key(5))
+    assert list(P.ORBITS._lru.values()) == [b, c]
+    b.on("cpu")
+    assert list(P.ORBITS._lru.values()) == [b]
+    consistent()
+    # The orbit just made stays, however large.
+    monkeypatch.setattr(P, "ORBIT_STORE_MAX_BYTES", 1)
+    c2 = P.ORBITS.get(*_in_set_key(5))
+    assert c2 is not c and list(P.ORBITS._lru.values()) == [c2]
+    derive(c2)
+    assert list(P.ORBITS._lru.values()) == [c2]
+    consistent()
+    P.ORBITS.clear()
+    assert not P.ORBITS._lru and P.ORBITS._bytes == 0
+    assert P._search_reference.cache_info().currsize == 0
 
 
 def test_ops_exports_what_the_jax_package_exports():

@@ -50,11 +50,9 @@ def _render(tmp_path, view, *flags):
 
 @pytest.fixture
 def orbits(monkeypatch):
-    """Empty phases and orbit caches; the fixed-point orbits computed
+    """Empty phases and orbit store; the fixed-point orbits computed
     from here on."""
-    for cache in (P._find_reference, P._orbit_cached,
-                  P._orbit_cached_giant):
-        cache.cache_clear()
+    P.ORBITS.clear()
     phases.reset_phase_seconds()
     calls = []
     real = P._orbit_fixed_impl
