@@ -1188,6 +1188,11 @@ CONFIG4 = ("-0.77568376995", "0.13646737005")
 BOND = ("0.375", "0.2165063509461096616909307926882340458678500")
 JULIA_DEEP = (("0.1", "0.2"), 1e-6, 3000, ("-0.8", "0.156"))
 MINIBROT3 = ("-1.7548776662466927", "0.0")
+# The period-349 minibrot's nucleus (benchmark/configs/deep-minibrot349.json)
+# and its view's span: most lanes run the whole 50,012-entry orbit.
+NUCLEUS_349 = ("-0.7756837700816288677685612253565279731949",
+               "0.1364673698317589362266084123703078253727")
+SPAN_349 = 1.5e-17
 
 
 def deep_inputs(pt, center, span, side, max_iter, dtype, dev, julia_c=None,
@@ -1220,14 +1225,17 @@ def check_perturb_kernels(check) -> None:
     Julia, 256^2 and 512^2, K9 with the stagnation stop armed and not;
     an orbit shorter than the budget (300 entries: one whole segment and
     a ragged tail); a stagnation stop (the period-3 minibrot at 16^2,
-    budget 20000, its in-set lanes suspect); and many segments with more
-    lanes live than the stop's cap (the minibrot at 256^2, f32)."""
+    budget 20000, its in-set lanes suspect); many segments with more
+    lanes live than the stop's cap (the minibrot at 256^2, f32); and K10
+    over the whole 50,012-entry orbit (the period-349 minibrot at 64^2,
+    f64)."""
     from distributedmandelbrot_tpu_torch.ops import cuda_perturb as cp
     from distributedmandelbrot_tpu_torch.ops import perturbation as pt
     dev = torch.device("cuda", 0)
 
     def both(label, inputs, stagnations=(True, False), smooth=True):
         zr, zi, dre, dim, add_dc = inputs
+        state = None
         for stag in stagnations:
             got = cp.perturb_state_cuda(zr, zi, dre, dim, add_dc=add_dc,
                                         stagnation=stag)
@@ -1264,6 +1272,9 @@ def check_perturb_kernels(check) -> None:
     both("minibrot 256^2, 78 segments, f32",
          deep_inputs(pt, MINIBROT3, 5e-2, 256, 20000, np.float32, dev),
          stagnations=(True,))
+    both("the period-349 minibrot, 64^2, f64",
+         deep_inputs(pt, NUCLEUS_349, SPAN_349, 64, 50000, np.float64, dev),
+         stagnations=())
 
 
 # (name, render flags): the config-4 view (BASELINE config 4, a
@@ -1404,10 +1415,13 @@ def phase_deep_path(cli, ce):
                 got = fh.read()
             smooth = "--smooth" in flags
             kernel = "perturb_scan_smooth" if smooth else "perturb_scan"
-            # The same route with the plain scans on the card.
+            # The same route with the plain scans on the card (K10's
+            # count of staged tiles has no plain counterpart).
             real = (cp.perturb_state_cuda, cp.perturb_smooth_state_cuda)
             cp.perturb_state_cuda = cp.perturb_state_plain
-            cp.perturb_smooth_state_cuda = cp.perturb_smooth_state_plain
+            cp.perturb_smooth_state_cuda = (
+                lambda *a, tiles=None, **k:
+                cp.perturb_smooth_state_plain(*a, **k))
             try:
                 plain_out = os.path.join(tmp, f"{name}_plain.png")
                 plain = deep_render(cli, pt, cp, ce, flags, plain_out)
@@ -1571,16 +1585,20 @@ def time_perturb_kernels(ptxas) -> list:
     """K9 on the config-4 view at 4096^2 as the route launches it (16
     row chunks of 256 rows, f32, the stagnation stop armed) and on one
     1024^2 chunk; K10 on the smooth f64 view at 1024^2 (2 chunks of 512
-    rows).  CUDA events around all of a view's chunks; the plain
-    versions on the same chunks once; bound = the lane-steps these
-    inputs need x 20 operations over the rate of the dtype, against the
-    outputs' bytes."""
+    rows), and on the period-349 minibrot's (its plain version not run:
+    50,012 steps of some 30 launches each; K10 is held bitwise there at
+    64^2 in ``kernel_vs_plain``).  CUDA events around all of a view's
+    chunks; the plain versions on the same chunks once; bound = the
+    lane-steps these inputs need x 20 operations over the rate of the
+    dtype, against the outputs' bytes.  K10's rows also give its ring's
+    shared memory a block."""
+    from distributedmandelbrot_tpu_torch.ops import _build
     from distributedmandelbrot_tpu_torch.ops import cuda_perturb as cp
     from distributedmandelbrot_tpu_torch.ops import perturbation as pt
     dev = torch.device("cuda", 0)
 
-    def chunks(side, rows, dtype):
-        zr, zi, dre, dim, _ = deep_inputs(pt, CONFIG4, 1e-10, side, 50000,
+    def chunks(center, span, side, rows, dtype):
+        zr, zi, dre, dim, _ = deep_inputs(pt, center, span, side, 50000,
                                           dtype, dev)
         return zr, zi, [(dre[r:r + rows], dim[r:r + rows])
                         for r in range(0, side, rows)]
@@ -1590,12 +1608,22 @@ def time_perturb_kernels(ptxas) -> list:
         return {k: v.get("registers") for k, v in ptxas.items()
                 if k.startswith(name) and t in k}
 
+    def spills(name, dtype):
+        t = "<float" if dtype == np.float32 else "<double"
+        return {k: v.get("spill_stores", 0) + v.get("spill_loads", 0)
+                for k, v in ptxas.items() if k.startswith(name) and t in k}
+
     rows = []
-    for name, side, rows_per, dtype, smooth in (
-            ("perturb_scan", 4096, 256, np.float32, False),
-            ("perturb_scan", 1024, 1024, np.float32, False),
-            ("perturb_scan_smooth", 1024, 512, np.float64, True)):
-        zr, zi, parts = chunks(side, rows_per, dtype)
+    for name, view, side, rows_per, dtype, smooth in (
+            ("perturb_scan", "config4", 4096, 256, np.float32, False),
+            ("perturb_scan", "config4", 1024, 1024, np.float32, False),
+            ("perturb_scan_smooth", "config4", 1024, 512, np.float64, True),
+            ("perturb_scan_smooth", "minibrot349", 1024, 512, np.float64,
+             True)):
+        center, span = ((CONFIG4, 1e-10) if view == "config4" else
+                        (NUCLEUS_349, SPAN_349))
+        zr, zi, parts = chunks(center, span, side, rows_per, dtype)
+        timed_plain = view == "config4"
         if smooth:
             run = lambda fn: [fn(zr, zi, a, b, bailout=256.0)  # noqa: E731
                               for a, b in parts]
@@ -1605,11 +1633,15 @@ def time_perturb_kernels(ptxas) -> list:
             run = lambda fn: [fn(zr, zi, a, b)  # noqa: E731
                               for a, b in parts]
             kern, plain = cp.perturb_state_cuda, cp.perturb_state_plain
-        ms = median_ms(lambda: run(kern), reps=20)
-        plain_ms = median_ms(lambda: run(plain), reps=1, warmup=0)
-        got, want = run(kern), run(plain)
-        bitwise = all(torch.equal(g, w) for gs, ws in zip(got, want)
-                      for g, w in zip(gs, ws))
+        ms = median_ms(lambda: run(kern), reps=20 if timed_plain else 5)
+        got = run(kern)
+        if timed_plain:
+            plain_ms = median_ms(lambda: run(plain), reps=1, warmup=0)
+            want = run(plain)
+            bitwise = all(torch.equal(g, w) for gs, ws in zip(got, want)
+                          for g, w in zip(gs, ws))
+        else:
+            plain_ms, want, bitwise = None, got, None
         if smooth:
             needed = sum(perturb_needed_steps(w[0], w[4], zr.shape[0])
                          for w in want)
@@ -1621,16 +1653,22 @@ def time_perturb_kernels(ptxas) -> list:
         rate = F32_OPS_PER_S if dtype == np.float32 else F64_OPS_PER_S
         ops = needed * PERTURB_OPS_PER_STEP[True]
         t_ops, t_bytes = ops / rate, out_bytes / HBM_BYTES_PER_S
-        rows.append({
-            "name": name, "side": side, "dtype": np.dtype(dtype).name,
-            "ms": ms, "plain_ms": plain_ms, "bitwise_vs_plain": bitwise,
+        kname = name.replace("perturb_scan_smooth", "perturb_smooth")
+        row = {
+            "name": name, "view": view, "side": side,
+            "dtype": np.dtype(dtype).name, "ms": ms, "plain_ms": plain_ms,
+            "bitwise_vs_plain": bitwise,
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "lane_steps_needed": needed, "ops": ops,
             "orbit_len": int(zr.shape[0]), "chunks": len(parts),
-            "registers": regs(name.replace("perturb_scan_smooth",
-                                           "perturb_smooth"), dtype)})
-        if not bitwise:
+            "registers": regs(kname, dtype), "spills": spills(kname, dtype)}
+        if smooth:
+            row["ring_smem_bytes"] = _build.load(
+            ).dm_perturb_smooth_ring_bytes(int(dtype == np.float64), 0,
+                                           int(zr.shape[0]))
+        rows.append(row)
+        if bitwise is False:
             raise AssertionError(f"{name} at {side}^2 differs from its "
                                  "plain version")
     return rows

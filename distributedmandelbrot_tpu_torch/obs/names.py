@@ -468,6 +468,7 @@ COUNT_DEEP_GLITCHED = "glitched"
 COUNT_DEEP_EXACT_REPAIRED = "exact_repaired"
 COUNT_DEEP_LANE_STEPS = "deep.lane_steps"
 COUNT_DEEP_BLA_VIEWS = "deep.bla_views"
+COUNT_DEEP_K10_TILES = "deep.k10_tiles"
 COUNT_RENDER_DEFLATE_BANDS = "render.deflate_bands"
 
 # -- legacy aliases -------------------------------------------------------

@@ -50,8 +50,10 @@ def phase_seconds() -> dict[str, float]:
     ``exact_repaired`` (pixels left to the exact repair),
     ``deep.lane_steps`` (the steps the smooth scans' lanes needed, each
     to its bailout crossing or the orbit's end, summed on the device and
-    read once a view) and ``deep.bla_views`` (1 for a view that took
-    BLA, 0 for one that did not: present once a deep view ran).  A
+    read once a view), ``deep.k10_tiles`` (the orbit tiles K10's blocks
+    staged, read with it; only where K10 ran) and ``deep.bla_views`` (1
+    for a view that took BLA, 0 for one that did not: present once a
+    deep view ran).  A
     render's: ``render.parse`` (its arguments), ``render.colormap``,
     ``render.rgba8`` (float RGBA to uint8; a pass-through for a view
     coloured straight to uint8), ``render.deflate`` (the PNG's

@@ -140,8 +140,10 @@ def load() -> ctypes.CDLL:
             lib.dm_perturb_scan.restype = i
             lib.dm_perturb_scan_smooth.argtypes = [i, i, vp, vp, *dc, i, i, d,
                                                    d, vp, vp, vp, vp, vp, vp,
-                                                   vp, ll, ll, i, vp]
+                                                   vp, ll, ll, i, ll, vp, vp]
             lib.dm_perturb_scan_smooth.restype = i
+            lib.dm_perturb_smooth_ring_bytes.argtypes = [i, ll, ll]
+            lib.dm_perturb_smooth_ring_bytes.restype = ll
             lib.dm_colormap_rgba8.argtypes = [vp, ll, vp, i, vp, i, vp, vp]
             lib.dm_colormap_rgba8.restype = i
             lib.dm_persistent_blocks_per_sm.argtypes = [i, i, i, i]

@@ -23,12 +23,20 @@
 // integer lane once it fails the escape test, the smooth lane once it
 // has crossed both the bailout radius and radius 2.  Its counts, masks
 // and frozen values are then final; its dz is not written back (no
-// consumer reads dz after the scan).
+// consumer reads dz after the scan).  K10's lane steps the orbit a tile
+// at a time (smooth_tile) and tests whether it is live once a group of
+// kSmoothGroup steps: a lane that runs a few steps past its last
+// crossing changes none of its outputs, since they are sticky.
 #pragma once
 
 #include <cstdint>
 
 #define DM_PD __device__ __forceinline__
+#ifdef __CUDACC__
+#define DM_UNROLL _Pragma("unroll")
+#else
+#define DM_UNROLL
+#endif
 
 namespace dm {
 
@@ -108,30 +116,62 @@ DM_PD int perturb_run(DeltaLane<T>& s,
   return live;
 }
 
-// K10's lane over orbit steps k0 .. k1 - 1: the bailout count n and the
-// frozen full value at the first crossing of |z|^2 >= b2, the sticky
-// radius-2 count n2, the glitch flag while inside radius 2.
+// K10's orbit tiles: kSmoothTile entries of the table each (the table
+// holds whole tiles; cuda_perturb.orbit_table pads it), stepped in groups
+// of kSmoothGroup between two tests of whether the lane is live.
+constexpr int kSmoothTile = 256;
+constexpr int kSmoothGroup = 8;
+
+// One step of K10's lane at orbit entry z (zt: tol |Z|^2): the bailout
+// count n and the frozen full value at the first crossing of |z|^2 >=
+// b2, the sticky radius-2 count n2, the glitch flag while inside radius
+// 2.
 template <typename T, bool ADD_DC>
-DM_PD void perturb_smooth_run(SmoothLane<T>& s,
-                              const OrbitStep<T>* __restrict__ orbit,
-                              const T* __restrict__ ztol, T dcr, T dci, T b2,
-                              long long k0, long long k1) {
+DM_PD void smooth_step(SmoothLane<T>& s, const OrbitStep<T>& z, T zt,
+                       T dcr, T dci, T b2) {
   const T four = static_cast<T>(4);
-  for (long long k = k0; k < k1 && (s.act_b || s.act2); ++k) {
-    const OrbitStep<T> z = orbit[k];
-    const T fr = padd(z.zr, s.dzr), fi = padd(z.zi, s.dzi);
-    const T mag2 = padd(pmul(fr, fr), pmul(fi, fi));
-    if (s.act2 && mag2 < ztol[k]) s.glitched = true;
-    if (s.act_b && mag2 >= b2) {
-      s.fzr = fr;
-      s.fzi = fi;
-    }
-    s.act_b = s.act_b && mag2 < b2;
-    s.n += s.act_b;
-    s.act2 = s.act2 && mag2 < four;
-    s.n2 += s.act2;
-    delta_step<T, ADD_DC>(s.dzr, s.dzi, z.zr2, z.zi2, dcr, dci);
+  const T fr = padd(z.zr, s.dzr), fi = padd(z.zi, s.dzi);
+  const T mag2 = padd(pmul(fr, fr), pmul(fi, fi));
+  if (s.act2 && mag2 < zt) s.glitched = true;
+  if (s.act_b && mag2 >= b2) {
+    s.fzr = fr;
+    s.fzi = fi;
   }
+  s.act_b = s.act_b && mag2 < b2;
+  s.n += s.act_b;
+  s.act2 = s.act2 && mag2 < four;
+  s.n2 += s.act2;
+  delta_step<T, ADD_DC>(s.dzr, s.dzi, z.zr2, z.zi2, dcr, dci);
+}
+
+// kSmoothGroup steps of K10's lane from entry 0 of ``steps`` and ``tol``,
+// unrolled: no test of whether the lane is live between them.
+template <typename T, bool ADD_DC>
+DM_PD void smooth_group(SmoothLane<T>& s, const OrbitStep<T>* steps,
+                        const T* tol, T dcr, T dci, T b2) {
+  DM_UNROLL
+  for (int u = 0; u < kSmoothGroup; ++u)
+    smooth_step<T, ADD_DC>(s, steps[u], tol[u], dcr, dci, b2);
+}
+
+// Entries j0 .. j1 - 1 of one orbit tile: whole groups, then single
+// steps to the tile's end, each after a test of whether the lane is live
+// (``any_live``: the lane's own flag on the host, its warp's vote on the
+// card).  Returns that test after the last step.
+template <typename T, bool ADD_DC, typename AnyLive>
+DM_PD bool smooth_tile(SmoothLane<T>& s, const OrbitStep<T>* steps,
+                       const T* tol, T dcr, T dci, T b2, int j0, int j1,
+                       AnyLive any_live) {
+  int j = j0;
+  for (; j + kSmoothGroup <= j1; j += kSmoothGroup) {
+    if (!any_live(s.act_b || s.act2)) return false;
+    smooth_group<T, ADD_DC>(s, steps + j, tol + j, dcr, dci, b2);
+  }
+  for (; j < j1; ++j) {
+    if (!any_live(s.act_b || s.act2)) return false;
+    smooth_step<T, ADD_DC>(s, steps[j], tol[j], dcr, dci, b2);
+  }
+  return any_live(s.act_b || s.act2);
 }
 
 // The state planes of one scan (flat, height * width), and the pixel's
@@ -178,28 +218,35 @@ DM_PD int perturb_pixel(long long i, int width, const DcView<T>& dc,
   return live;
 }
 
-// K10's pixel i, likewise (no segment ends: the smooth scan has no
-// stagnation stop).
-template <typename T, bool ADD_DC>
-DM_PD void perturb_smooth_pixel(long long i, int width, const DcView<T>& dc,
-                                const OrbitStep<T>* orbit, const T* ztol,
-                                T b2, T bailout, T* dzr, T* dzi, int* n,
-                                int* n2, T* fzr, T* fzi, uint8_t* flags,
-                                long long k0, long long k1, bool init) {
+// K10's pixel i: its lane loaded (or, on the first launch, started from
+// dc) with its dc; false for a lane the scan no longer steps.
+template <typename T>
+DM_PD bool smooth_lane_load(SmoothLane<T>& s, T& dcr, T& dci, long long i,
+                            int width, const DcView<T>& dc, T bailout,
+                            const T* dzr, const T* dzi, const int* n,
+                            const int* n2, const T* fzr, const T* fzi,
+                            const uint8_t* flags, bool init) {
   const long long r = i / width, c = i % width;
-  const T dcr = dc.at_re(r, c), dci = dc.at_im(r, c);
-  SmoothLane<T> s;
+  dcr = dc.at_re(r, c);
+  dci = dc.at_im(r, c);
   if (init) {
     s = SmoothLane<T>{dcr, dci, bailout, static_cast<T>(0), 0, 0,
                       true, true, false};
-  } else {
-    const uint8_t f = flags[i];
-    if (!(f & (kActB | kAct2))) return;
-    s = SmoothLane<T>{dzr[i], dzi[i], fzr[i], fzi[i], n[i], n2[i],
-                      (f & kActB) != 0, (f & kAct2) != 0,
-                      (f & kSGlitched) != 0};
+    return true;
   }
-  perturb_smooth_run<T, ADD_DC>(s, orbit, ztol, dcr, dci, b2, k0, k1);
+  const uint8_t f = flags[i];
+  if (!(f & (kActB | kAct2))) return false;
+  s = SmoothLane<T>{dzr[i], dzi[i], fzr[i], fzi[i], n[i], n2[i],
+                    (f & kActB) != 0, (f & kAct2) != 0,
+                    (f & kSGlitched) != 0};
+  return true;
+}
+
+// K10's pixel i: its lane's state stored.
+template <typename T>
+DM_PD void smooth_lane_store(const SmoothLane<T>& s, long long i, T* dzr,
+                             T* dzi, int* n, int* n2, T* fzr, T* fzi,
+                             uint8_t* flags) {
   dzr[i] = s.dzr;
   dzi[i] = s.dzi;
   fzr[i] = s.fzr;

@@ -44,6 +44,10 @@ from distributedmandelbrot_tpu_torch.ops.perturbation import (
 KERNEL_SCAN = "perturb_scan"
 KERNEL_SMOOTH = "perturb_scan_smooth"
 
+# K10's orbit tile (perturb.cuh ``kSmoothTile``): the table's rows come in
+# whole tiles.
+ORBIT_TILE = 256
+
 # Flag bits of the state byte (perturb.cuh).
 _ACTIVE, _GLITCHED = 1, 2
 _ACT_B, _ACT2, _S_GLITCHED = 1, 2, 4
@@ -196,11 +200,16 @@ def orbit_table(z_re, z_im, dtype):
     """The kernels' orbit operands: a contiguous (K, 4) table of (Zr, Zi,
     Zr + Zr, Zi + Zi) and tol * (Zr*Zr + Zi*Zi), in ``dtype`` on the
     orbit's device.  Each term is the plain scan's own operation on the
-    same values, once per entry instead of once per lane."""
+    same values, once per entry instead of once per lane.  K is the
+    orbit's length padded with zero rows to whole tiles of
+    :data:`ORBIT_TILE` (K10 copies whole tiles; no padded row is
+    stepped)."""
     zr, zi = z_re.to(dtype), z_im.to(dtype)
-    steps = torch.stack([zr, zi, zr + zr, zi + zi], dim=1).contiguous()
+    steps = torch.stack([zr, zi, zr + zr, zi + zi], dim=1)
     ztol = _tol(dtype, zr.device) * (zr * zr + zi * zi)
-    return steps, ztol.contiguous()
+    pad = -steps.shape[0] % ORBIT_TILE
+    return (torch.nn.functional.pad(steps, (0, 0, 0, pad)).contiguous(),
+            torch.nn.functional.pad(ztol, (0, pad)).contiguous())
 
 
 def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
@@ -233,7 +242,7 @@ def scan_state_with(lib, z_re, z_im, dc_re, dc_im, *, add_dc: bool,
     dtype, dev = dc_re.dtype, dc_re.device
     h, w = dc_re.shape
     steps, ztol = orbit_table(z_re, z_im, dtype)
-    orbit_len = steps.shape[0]
+    orbit_len = z_re.shape[0]
     dzr = torch.empty((h, w), dtype=dtype, device=dev)
     dzi = torch.empty_like(dzr)
     n = torch.empty((h, w), dtype=torch.int32, device=dev)
@@ -280,9 +289,11 @@ def scan_state_with(lib, z_re, z_im, dc_re, dc_im, *, add_dc: bool,
 
 
 def smooth_state_with(lib, z_re, z_im, dc_re, dc_im, *, bailout: float,
-                      add_dc: bool, on_launch=None):
+                      add_dc: bool, tiles: torch.Tensor | None = None,
+                      on_launch=None):
     """K10's host loop (one launch over the whole orbit) -> ``(n, n2,
-    fzr, fzi, act_b, act2, glitched)``."""
+    fzr, fzi, act_b, act2, glitched)``.  ``tiles``, one int64 on the
+    deltas' device, gains the orbit tiles the kernel's blocks staged."""
     dc_re, dc_im = _plane(dc_re, dc_im)
     dtype, dev = dc_re.dtype, dc_re.device
     h, w = dc_re.shape
@@ -296,7 +307,8 @@ def smooth_state_with(lib, z_re, z_im, dc_re, dc_im, *, bailout: float,
         int(dtype == torch.float64), int(add_dc), _ptr(steps), _ptr(ztol),
         *_dc_args(dc_re, dc_im), h, w, bailout * bailout, bailout,
         _ptr(dzr), _ptr(dzi), _ptr(n), _ptr(n2), _ptr(fzr), _ptr(fzi),
-        _ptr(flags), 0, steps.shape[0], 1, _stream(dev))
+        _ptr(flags), 0, z_re.shape[0], 1, steps.shape[0], _ptr(tiles),
+        _stream(dev))
     _check_rc(lib, rc, KERNEL_SMOOTH)
     if on_launch is not None:
         on_launch()
@@ -324,13 +336,15 @@ def perturb_state_cuda(z_re, z_im, dc_re, dc_im, *, add_dc: bool = True,
 
 
 def perturb_smooth_state_cuda(z_re, z_im, dc_re, dc_im, *, bailout: float,
-                              add_dc: bool = True):
-    """K10 on the tensors' CUDA device (one launch, no sync)."""
+                              add_dc: bool = True,
+                              tiles: torch.Tensor | None = None):
+    """K10 on the tensors' CUDA device (one launch, no sync; ``tiles`` as
+    for :func:`smooth_state_with`)."""
     lib = _cuda_lib(z_re, z_im, dc_re, dc_im)
     with torch.cuda.device(dc_re.device):
         return smooth_state_with(
             lib, z_re, z_im, dc_re, dc_im, bailout=bailout, add_dc=add_dc,
-            on_launch=lambda: _count_launch(KERNEL_SMOOTH))
+            tiles=tiles, on_launch=lambda: _count_launch(KERNEL_SMOOTH))
 
 
 def perturb_state(z_re, z_im, dc_re, dc_im, *, add_dc: bool = True,
@@ -345,12 +359,17 @@ def perturb_state(z_re, z_im, dc_re, dc_im, *, add_dc: bool = True,
 
 
 def perturb_smooth_state(z_re, z_im, dc_re, dc_im, *, bailout: float,
-                         add_dc: bool = True):
-    """K10's wrapper: the kernel for CUDA tensors, the plain version for
-    tensors on the CPU.  The state has the deltas' broadcast shape."""
-    fn = (perturb_smooth_state_cuda if dc_re.device.type == "cuda" else
-          perturb_smooth_state_plain)
+                         add_dc: bool = True,
+                         tiles: torch.Tensor | None = None):
+    """K10's wrapper: the kernel for CUDA tensors (``tiles`` as for
+    :func:`smooth_state_with`), the plain version for tensors on the CPU.
+    The state has the deltas' broadcast shape."""
     shape = _shape_of(dc_re, dc_im)
-    return tuple(t.reshape(shape) for t in fn(
-        z_re, z_im, dc_re, dc_im, bailout=bailout, add_dc=add_dc))
-
+    if dc_re.device.type == "cuda":
+        state = perturb_smooth_state_cuda(z_re, z_im, dc_re, dc_im,
+                                          bailout=bailout, add_dc=add_dc,
+                                          tiles=tiles)
+    else:
+        state = perturb_smooth_state_plain(z_re, z_im, dc_re, dc_im,
+                                           bailout=bailout, add_dc=add_dc)
+    return tuple(t.reshape(shape) for t in state)

@@ -577,7 +577,8 @@ def _smooth_nu(n, n2, fzr, fzi, act2, glitched, *, orbit_len: int,
 
 def _perturb_scan_smooth(z_re, z_im, dc_re, dc_im, *, max_iter: int,
                          bailout: float, add_dc: bool = True,
-                         lane_steps: list | None = None):
+                         lane_steps: list | None = None,
+                         tiles: list | None = None):
     """Smooth twin of :func:`_perturb_scan` -> ``(nu, glitched)``: also
     freezes the full value at the first radius-``bailout`` crossing; a
     radius-2 count alongside classifies in-set pixels as the integer
@@ -585,11 +586,18 @@ def _perturb_scan_smooth(z_re, z_im, dc_re, dc_im, *, max_iter: int,
     exact repair would come back as an integer count).  K10 on a CUDA
     device, its plain version on the CPU.  ``lane_steps``, a list, gets
     the steps the lanes needed (each to its bailout crossing, or the
-    whole orbit) as one int64 tensor on the device, summed there."""
+    whole orbit) as one int64 tensor on the device, summed there;
+    ``tiles``, a list, the orbit tiles K10 staged, likewise (nothing on
+    the CPU)."""
     from distributedmandelbrot_tpu_torch.ops import cuda_perturb
+    staged = None
+    if tiles is not None and dc_re.device.type == "cuda":
+        staged = torch.zeros(1, dtype=torch.int64, device=dc_re.device)
+        tiles.append(staged[0])
     n, n2, fzr, fzi, act_b, act2, glitched = \
         cuda_perturb.perturb_smooth_state(z_re, z_im, dc_re, dc_im,
-                                          bailout=bailout, add_dc=add_dc)
+                                          bailout=bailout, add_dc=add_dc,
+                                          tiles=staged)
     if lane_steps is not None:
         lane_steps.append((n + 1).masked_fill(act_b, z_re.shape[0]).sum(
             dtype=torch.int64))
@@ -998,16 +1006,18 @@ def compute_smooth_perturb(spec: DeepTileSpec, max_iter: int, *,
     the table's ``eps`` is the dtype's unit roundoff, its ``z_cap`` keeps
     every frozen value inside exact steps), and the probe also declines
     where that table offers no skip.  K10 on a CUDA device; the steps its lanes needed
-    are added to the count ``deep.lane_steps``, once a view."""
+    are added to the count ``deep.lane_steps`` and the orbit tiles it
+    staged to ``deep.k10_tiles``, once a view."""
     if max_iter <= 1:
         return np.zeros((spec.height, spec.width), dtype), 0
     add_dc = julia_c is None
     lane_steps: list = []
+    tiles: list = []
 
     def scan(zr, zi, dre, dim):
         return _perturb_scan_smooth(zr, zi, dre, dim, max_iter=max_iter,
                                     bailout=float(bailout), add_dc=add_dc,
-                                    lane_steps=lane_steps)
+                                    lane_steps=lane_steps, tiles=tiles)
 
     def bla_scan(orbit, dc_max):
         from distributedmandelbrot_tpu_torch.ops import bla
@@ -1027,6 +1037,11 @@ def compute_smooth_perturb(spec: DeepTileSpec, max_iter: int, *,
                            bla=bla, device=device)
     if lane_steps:
         # The view's one read of the sums, its planes long fetched.
-        phases.tally(obs_names.COUNT_DEEP_LANE_STEPS,
-                     int(torch.stack(lane_steps).sum()))
+        sums = [torch.stack(lane_steps).sum()]
+        if tiles:
+            sums.append(torch.stack(tiles).sum())
+        read = torch.stack(sums).tolist()
+        phases.tally(obs_names.COUNT_DEEP_LANE_STEPS, read[0])
+        if tiles:
+            phases.tally(obs_names.COUNT_DEEP_K10_TILES, read[1])
     return out

@@ -1003,6 +1003,114 @@ def test_k9_k10_are_bitwise_their_plain_versions(cuda, name, dtype,
     assert cp.launch_counts()["perturb_scan_smooth"] == 1
 
 
+# K10's ring at its edges: (centre, span, budget, Julia c, height, width,
+# orbit entries kept).  Orbits of 300 (a ragged last tile), 100 (shorter
+# than a tile) and 1 entry; planes of 7 x 9 (smaller than a block) and 37 x
+# 29 (not a multiple of 256 pixels); a view whose lanes all escape in the
+# first tile; the period-349 minibrot at 64^2, whose in-set lanes run the
+# whole orbit (its Julia twin about the critical point: every lane does).
+NUCLEUS_349 = ("-0.7756837700816288677685612253565279731949",
+               "0.1364673698317589362266084123703078253727")
+RING_CASES = {
+    "orbit_of_300": ("config4", 64, 64, 300),
+    "orbit_of_100": ("config4", 64, 64, 100),
+    "orbit_of_1": ("config4", 64, 64, 1),
+    "plane_7x9": ("config4", 7, 9, None),
+    "plane_37x29": ("config4", 37, 29, None),
+    "escape_in_first_tile": ("exterior", 40, 40, None),
+    "minibrot349_64": ("minibrot349", 64, 64, None),
+}
+RING_VIEWS = {
+    # name: (Mandelbrot (centre, span, budget), Julia (centre, span,
+    # budget, c), the deltas' shift off the centre).  "exterior": the
+    # reference stays in the set for the whole budget (12 tiles), its
+    # shifted lanes escape within a few steps.
+    "config4": ((DEEP_VIEWS["config4"][0], 1e-10, 50000),
+                (*DEEP_VIEWS["julia"][:3], DEEP_VIEWS["julia"][3]), 0.0),
+    "exterior": ((("0", "0"), 1e-3, 3000),
+                 (("0", "0"), 1e-3, 3000, ("-0.123", "0.745")), 1.5),
+    "minibrot349": ((NUCLEUS_349, 1.5e-17, 50000),
+                    (("0", "0"), 1.5e-17, 50000, NUCLEUS_349), 0.0),
+}
+# perturb_kernels.cu: kSmoothMaxStages, the ring's deepest.
+RING_DEPTH = 4
+
+
+def _ring_inputs(view, julia, h, w, keep, dtype, cuda):
+    from distributedmandelbrot_tpu_torch.ops import perturbation as pt
+    if julia:
+        center, span, mi, jc = RING_VIEWS[view][1]
+    else:
+        (center, span, mi), jc = RING_VIEWS[view][0], None
+    spec = pt.DeepTileSpec(*center, span, width=w, height=h)
+    need = int(-np.log2(spec.step)) + 64
+    bits = max(pt.DEFAULT_PREC_BITS, -(-need // 128) * 128)
+    za, zb = pt._to_fixed(center[0], bits), pt._to_fixed(center[1], bits)
+    ca, cb = ((za, zb) if jc is None else
+              (pt._to_fixed(jc[0], bits), pt._to_fixed(jc[1], bits)))
+    orbit, o_re, o_im = pt._find_reference(
+        za, zb, ca, cb, span, mi, bits, add_dc=jc is None,
+        device=str(cuda))
+    zr, zi = orbit.on(cuda)
+    dre, dim = spec.delta_grids(np.float64)
+    shift = RING_VIEWS[view][2]
+    row = torch.as_tensor((dre[0] - o_re + shift).astype(dtype), device=cuda)
+    col = torch.as_tensor((dim[:, 0] - o_im + shift).astype(dtype),
+                          device=cuda)
+    return (zr[:keep], zi[:keep], row[None, :].expand(h, w),
+            col[:, None].expand(h, w), jc is None)
+
+
+def _tiles_bounds(n, act_b, orbit_len):
+    """The tiles K10's blocks may stage for these lanes: a block stages
+    every tile up to its last live lane's, at least the ring's first
+    fill, and at most the ring's depth less one beyond that tile."""
+    from distributedmandelbrot_tpu_torch.ops import cuda_perturb as cp
+    tile = cp.ORBIT_TILE
+    tiles = -(-orbit_len // tile)
+    depth = min(RING_DEPTH, tiles)
+    need = torch.where(act_b, orbit_len, n + 1).reshape(-1).to(torch.int64)
+    pad = -need.numel() % 256
+    last = torch.nn.functional.pad(need, (0, pad)).reshape(-1, 256).amax(1)
+    used = (last + tile - 1) // tile
+    lo = torch.clamp(used, min=depth)
+    hi = torch.clamp(used + depth - 1, max=tiles)
+    return int(lo.sum()), int(hi.sum()), int(last.max()), len(last), tiles
+
+
+@pytest.mark.parametrize("julia", [False, True], ids=["mandelbrot", "julia"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", sorted(RING_CASES))
+def test_k10_ring_edges_are_bitwise_and_count_their_tiles(cuda, case, dtype,
+                                                          julia):
+    """K10 bitwise to its plain version at the ring's edges, and its
+    ``tiles`` count within what these lanes need: exactly every tile of
+    every block where a lane of each block runs the whole orbit, at most
+    the ring's depth a block where every lane escapes in the first
+    tile."""
+    from distributedmandelbrot_tpu_torch.ops import cuda_perturb as cp
+    view, h, w, keep = RING_CASES[case]
+    zr, zi, dre, dim, add_dc = _ring_inputs(view, julia, h, w, keep, dtype,
+                                            cuda)
+    tiles = torch.zeros(1, dtype=torch.int64, device=cuda)
+    got = cp.perturb_smooth_state_cuda(zr, zi, dre, dim, bailout=256.0,
+                                       add_dc=add_dc, tiles=tiles)
+    want = cp.perturb_smooth_state_plain(zr, zi, dre, dim, bailout=256.0,
+                                         add_dc=add_dc)
+    for name, g, wnt in zip(("n", "n2", "fzr", "fzi", "act_b", "act2",
+                             "glitched"), got, want):
+        assert torch.equal(g, wnt), name
+    lo, hi, last, blocks, orbit_tiles = _tiles_bounds(want[0], want[4],
+                                                      zr.shape[0])
+    staged = int(tiles.item())
+    assert lo <= staged <= hi
+    if case == "escape_in_first_tile":
+        assert last <= cp.ORBIT_TILE and staged <= blocks * RING_DEPTH
+    if case == "minibrot349_64" and julia:
+        assert bool(want[4].all())
+        assert staged == blocks * orbit_tiles
+
+
 def test_deep_render_runs_on_k9_and_k10(cuda, tmp_path):
     """``render`` of the config-4 view, integer and smooth, launches K9
     and K10 (the route never takes the plain scans on the card)."""

@@ -188,4 +188,5 @@ def test_names_only_add_the_demotion_counter():
                     'COUNT_DEEP_EXACT_REPAIRED = "exact_repaired"',
                     'COUNT_DEEP_LANE_STEPS = "deep.lane_steps"',
                     'COUNT_DEEP_BLA_VIEWS = "deep.bla_views"',
+                    'COUNT_DEEP_K10_TILES = "deep.k10_tiles"',
                     'COUNT_RENDER_DEFLATE_BANDS = "render.deflate_bands"']

@@ -31,6 +31,7 @@ import os
 import shutil
 import subprocess
 import sys
+from decimal import Decimal
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -86,7 +87,7 @@ def host_build(cxx: str, directory: Path):
     lib.dm_perturb_scan.restype = i
     lib.dm_perturb_scan_smooth.argtypes = [i, i, vp, vp, *dc, i, i, d, d,
                                            vp, vp, vp, vp, vp, vp, vp, ll,
-                                           ll, i, vp]
+                                           ll, i, ll, vp, vp]
     lib.dm_perturb_scan_smooth.restype = i
     lib.dm_error_string.argtypes = [i]
     lib.dm_error_string.restype = ctypes.c_char_p
@@ -99,16 +100,23 @@ def _bits(spec) -> int:
 
 
 def _scan_inputs(center, span, side, max_iter, dtype, julia_c=None,
-                 orbit_len=None):
-    """A view's reference orbit (the port's search) and its separable
-    deltas as numpy, the way ``_compute_perturb`` feeds the scans."""
+                 orbit_len=None, reference=None):
+    """A view's reference orbit (the port's search, or the Mandelbrot
+    orbit of ``reference``) and its separable deltas as numpy, the way
+    ``_compute_perturb`` feeds the scans."""
     spec = P.DeepTileSpec(*center, span, width=side, height=side)
     bits = _bits(spec)
     za, zb = P._to_fixed(center[0], bits), P._to_fixed(center[1], bits)
     ca, cb = ((za, zb) if julia_c is None else
               (P._to_fixed(julia_c[0], bits), P._to_fixed(julia_c[1], bits)))
-    orbit, o_re, o_im = P._find_reference(
-        za, zb, ca, cb, span, max_iter, bits, add_dc=julia_c is None)
+    if reference is None:
+        orbit, o_re, o_im = P._find_reference(
+            za, zb, ca, cb, span, max_iter, bits, add_dc=julia_c is None)
+    else:
+        ra, rb = (P._to_fixed(v, bits) for v in reference)
+        orbit = P.ORBITS.get(ra, rb, ra, rb, max_iter, bits)
+        o_re, o_im = (float(Decimal(r) - Decimal(c))
+                      for r, c in zip(reference, center))
     z_re, z_im = orbit.z_re[:orbit_len], orbit.z_im[:orbit_len]
     dre, dim = spec.delta_grids(np.float64)
     return z_re, z_im, (dre - o_re).astype(dtype), (dim - o_im).astype(dtype)
@@ -435,17 +443,38 @@ def test_scan_loop_is_bitwise_the_plain_version(host_lib, case, dtype,
         assert len(launches) == 1
 
 
+# K10's loop (perturb.cuh smooth_tile: tiles of 256 orbit entries, groups
+# of 8 steps) at its edges: orbits of one entry, one short of a group, a
+# group, a group and one, a tile, a tile and one, a ragged last tile
+# (Julia); a bailout inside radius 2, where a lane leaves act_b before
+# act2; and in-set lanes that glitch (the period-3 minibrot's nucleus
+# against a reference orbit in the main cardioid: every third z passes
+# near 0, Z never does).  Fields: centre, span, side, budget, Julia c,
+# orbit entries kept, bailout, a reference point in place of the search.
+SMOOTH_CASES = {
+    **{name: (*case, 256.0, None) for name, case in LOOP_CASES.items()},
+    **{f"orbit_of_{k}": (CONFIG4, 1e-10, 24, 3000, None, k, 256.0, None)
+       for k in (1, 7, 8, 9, 256, 257)},
+    "julia_orbit_of_300": (JULIA_PT, 1e-6, 24, 1500, JULIA_C, 300, 256.0,
+                           None),
+    "bailout_inside_radius_2": (SEAHORSE, 1e-5, 24, 1500, None, None, 1.5,
+                                None),
+    "glitches_in_the_set": (MINIBROT3, 1e-6, 24, 1500, None, None, 256.0,
+                            ("-0.1", "0.1")),
+}
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("case", sorted(LOOP_CASES))
+@pytest.mark.parametrize("case", sorted(SMOOTH_CASES))
 def test_smooth_loop_is_bitwise_the_plain_version(host_lib, case, dtype):
-    center, span, side, mi, jc, keep = LOOP_CASES[case]
+    center, span, side, mi, jc, keep, bailout, ref = SMOOTH_CASES[case]
     if mi > 5000:
         mi = 3000
     inputs = _torch_inputs(*_scan_inputs(center, span, side, mi,
-                                         DTYPES[dtype], jc, keep))
-    got = CP.smooth_state_with(host_lib, *inputs, bailout=256.0,
+                                         DTYPES[dtype], jc, keep, ref))
+    got = CP.smooth_state_with(host_lib, *inputs, bailout=bailout,
                                add_dc=jc is None)
-    want = CP.perturb_smooth_state_plain(*inputs, bailout=256.0,
+    want = CP.perturb_smooth_state_plain(*inputs, bailout=bailout,
                                          add_dc=jc is None)
     for name, g, w in zip(("n", "n2", "fzr", "fzi", "act_b", "act2",
                            "glitched"), got, want):
@@ -519,12 +548,16 @@ def test_stagnation_loop_stops_where_the_segment_rule_does(seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_orbit_table_holds_the_plain_steps_terms(dtype):
     """The kernels' orbit table: Z, 2Z and tol |Z|^2 in ``dtype``, each
-    bitwise the plain step's own 0-d computation."""
+    bitwise the plain step's own 0-d computation, padded with zero rows
+    to whole tiles of K10's ring (300 entries: two tiles of 256)."""
     rng = np.random.default_rng(3)
     z_re = torch.as_tensor(rng.standard_normal(300))
     z_im = torch.as_tensor(rng.standard_normal(300))
     steps, ztol = CP.orbit_table(z_re, z_im, dtype)
-    assert steps.shape == (300, 4) and steps.is_contiguous()
+    assert CP.ORBIT_TILE == 256
+    assert steps.shape == (512, 4) and steps.is_contiguous()
+    assert ztol.shape == (512,) and ztol.is_contiguous()
+    assert not steps[300:].any() and not ztol[300:].any()
     tol = CP._tol(dtype, z_re.device)
     for k in (0, 1, 150, 299):
         zr, zi = z_re[k].to(dtype), z_im[k].to(dtype)
